@@ -1,0 +1,162 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The kernels are compiled by ``nvcc`` into ONE shared library with a plain C
+interface and loaded through ``ctypes`` — no PyTorch headers are compiled,
+so a cold build takes seconds, not minutes. The library is built at first
+use, from the ``.cu``/``.cuh`` sources in this package only, into
+``csrc/build/`` (git-ignored). Its file name carries a hash of the sources
+and the compiler flags, so an edited source rebuilds on the next use and a
+stale library is never loaded. Same pattern as the host C++ build of the
+JAX package (``phylo_hmrf_tpu/native/__init__.py``).
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on anything but 0. Nothing
+here falls back to a CPU path: a failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_DIR, "csrc")
+BUILD_DIR = os.path.join(CSRC, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None     # wall time of the last nvcc run in this process
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+class KernelLaunchError(RuntimeError):
+    pass
+
+
+def _sources():
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    hdrs = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    if not srcs:
+        raise KernelBuildError(f"no CUDA sources under {CSRC}")
+    return srcs, hdrs
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise KernelBuildError("nvcc not found (set CUDA_HOME or PATH)")
+    return path
+
+
+def lib_path() -> str:
+    """Path of the library for the current sources and flags."""
+    srcs, hdrs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs + hdrs:
+        h.update(os.path.basename(p).encode())
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libphmrf_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if no library for the current sources exists."""
+    global build_seconds
+    import time
+
+    path = lib_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    srcs, _ = _sources()
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *srcs]
+    t0 = time.perf_counter()
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+    except subprocess.CalledProcessError as e:
+        raise KernelBuildError(
+            f"nvcc failed ({' '.join(cmd)}):\n{e.stdout}\n{e.stderr}") from e
+    build_seconds = time.perf_counter() - t0
+    os.replace(tmp, path)      # atomic: a concurrent build never sees half
+    return path
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry points: name -> argtypes (every one returns int = cudaError_t)
+_SIGNATURES = {
+    # K1: q, base, w, out, R, K, H, W, T, damp, one_minus_damp, beta, stream
+    "phmrf_mf_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
+    # K2: labels, unary, w, mask, R, K, H, W, beta, phase_a, phase_b, stream
+    "phmrf_icm_phase": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    # K3: unary, mask, labels, w, partial, out, R, K, H, W, beta, stream
+    "phmrf_potts_energy": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # K4: lp, img, mask, labels, w, partial, out, R, K, F, H, W,
+    #     beta, small_eps, negate, stream
+    "phmrf_finish_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _F, _F, _I, _P],
+    # tile counts the wrappers size the partial-sum buffers with
+    "phmrf_energy_tiles": [_I],
+    "phmrf_finish_tiles": [_I],
+}
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; cached per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        raise KernelLaunchError(f"{what}: CUDA error {err}")
+
+
+def stream_of(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_tensors(what: str, **specs) -> None:
+    """Validate kernel operands before their pointers go to C: each keyword
+    is ``name=(tensor, dtype, shape)``; all must be contiguous, of that
+    dtype and shape, and on one CUDA device."""
+    device = None
+    for name, (t, dtype, shape) in specs.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} is on {t.device}, not CUDA")
+        if device is None:
+            device = t.device
+        elif t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, "
+                             f"other operands on {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, needs {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"needs {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")

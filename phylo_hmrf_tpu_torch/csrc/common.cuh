@@ -1,0 +1,66 @@
+// Shared helpers of the E-step kernels (K1-K4).
+//
+// Layouts (all contiguous, row-major):
+//   state fields  q, base, unary, logprob   (R, K, H, W) float32
+//   edge weights  w                          (R, 4, H, W) float32
+//   labels, mask                             (R, H, W)    int32
+//   features      img                        (R, F, H, W) float32
+//
+// Edge convention (phylo_hmrf_tpu/data/regions.py::DIRS): direction d has
+// offset (dr, dc) in ((0,1), (1,0), (1,1), (1,-1)). w[d] at pixel p is the
+// weight of the edge p -> p + (dr, dc) (the forward edge); the backward
+// edge p - (dr, dc) -> p carries the weight stored at the neighbour. Edges
+// that leave the grid or touch an invalid pixel have weight exactly 0.
+//
+// The TPU kernels zero-pad halo rows and shift zeros into columns; here
+// every neighbour read outside [0,H) x [0,W) is guarded instead and
+// contributes nothing, which is bitwise the same as adding a zero product.
+// Arithmetic that must match the plain PyTorch version op for op uses the
+// round-to-nearest intrinsics, so nvcc cannot contract it into an FMA.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cmath>
+
+#define PHMRF_KMAX 32   // largest n_states the kernels take
+#define PHMRF_FMAX 8    // largest feature count (species) K4 takes
+
+__device__ __forceinline__ int dir_dr(int d) { return d == 0 ? 0 : 1; }
+__device__ __forceinline__ int dir_dc(int d) {
+  return d == 0 ? 1 : (d == 1 ? 0 : (d == 2 ? 1 : -1));
+}
+
+// The 8 neighbours of (h, w): slot 2d is the forward neighbour of DIRS[d],
+// slot 2d+1 the backward one. off[] is the in-plane offset (h'*W + w') and
+// wt[] the edge weight; a neighbour outside the grid has ok[] false. The
+// forward weight is read at the pixel itself even when its neighbour is
+// outside (the plain version adds it to wsum either way); the backward
+// weight of an outside neighbour is 0, as the plain zero-filled shift.
+struct Nbrs {
+  int off[8];
+  float wt[8];
+  bool ok[8];
+};
+
+__device__ __forceinline__ void load_nbrs(const float* __restrict__ w_r,
+                                          int H, int W, int h, int x,
+                                          Nbrs& n) {
+  const long HW = (long)H * W;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const int dr = dir_dr(d), dc = dir_dc(d);
+    const int fh = h + dr, fw = x + dc;
+    const bool fok = fh >= 0 && fh < H && fw >= 0 && fw < W;
+    n.ok[2 * d] = fok;
+    n.off[2 * d] = fok ? fh * W + fw : 0;
+    n.wt[2 * d] = w_r[d * HW + (long)h * W + x];
+    const int bh = h - dr, bw = x - dc;
+    const bool bok = bh >= 0 && bh < H && bw >= 0 && bw < W;
+    n.ok[2 * d + 1] = bok;
+    n.off[2 * d + 1] = bok ? bh * W + bw : 0;
+    n.wt[2 * d + 1] = bok ? w_r[d * HW + (long)bh * W + bw] : 0.0f;
+  }
+}
+
+static inline int ceil_div(long a, long b) { return (int)((a + b - 1) / b); }

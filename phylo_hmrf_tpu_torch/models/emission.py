@@ -1,0 +1,53 @@
+"""Batched multivariate-Gaussian log-density via Cholesky — the E-step unary.
+
+Counterpart of ``phylo_hmrf_tpu/models/emission.py``:
+
+    logpdf(x; mu_k, V_k) = -0.5 (F log 2pi + log det V_k + ||L_k^{-1}(x-mu_k)||^2)
+
+The quadratic form is a matmul against the inverse Cholesky factor. It
+runs in full float32: the package turns TF32 off at import, because the
+quadratic form feeds exp() downstream and reduced-precision inputs visibly
+distort the posteriors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_LOG_2PI = 1.8378770664093453
+
+
+def _chol_inv_and_logdet(covars: torch.Tensor):
+    """covars (K, F, F) -> (Linv (K, F, F) lower-triangular, logdet (K,))."""
+    chol = torch.linalg.cholesky(covars)
+    K, F = covars.shape[0], covars.shape[-1]
+    eye = torch.eye(F, dtype=covars.dtype, device=covars.device).expand(K, F, F)
+    Linv = torch.linalg.solve_triangular(chol, eye, upper=False)
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)),
+                             dim=-1)
+    return Linv, logdet
+
+
+def gaussian_logpdf(X: torch.Tensor, means: torch.Tensor,
+                    covars: torch.Tensor) -> torch.Tensor:
+    """Log N(x; mu_k, V_k) for every sample and state: (..., F) -> (..., K)."""
+    F = X.shape[-1]
+    Linv, logdet = _chol_inv_and_logdet(covars)
+    y = torch.einsum("...f,kgf->...kg", X, Linv)
+    y_mu = torch.einsum("kf,kgf->kg", means, Linv)
+    diff = y - y_mu
+    quad = torch.sum(diff * diff, dim=-1)
+    return -0.5 * (F * _LOG_2PI + logdet + quad)
+
+
+def gaussian_logpdf_kmajor(X: torch.Tensor, means: torch.Tensor,
+                           covars: torch.Tensor) -> torch.Tensor:
+    """`gaussian_logpdf` in the state-major layout: X (R, H, W, F) ->
+    (R, K, H, W), the layout every E-step kernel takes."""
+    F = X.shape[-1]
+    Linv, logdet = _chol_inv_and_logdet(covars)
+    y = torch.einsum("rhwf,kgf->rkhwg", X, Linv)
+    y_mu = torch.einsum("kf,kgf->kg", means, Linv)
+    diff = y - y_mu[None, :, None, None, :]
+    quad = torch.sum(diff * diff, dim=-1)
+    return -0.5 * (F * _LOG_2PI + logdet[None, :, None, None] + quad)

@@ -1,0 +1,619 @@
+"""PhyloHMRF — the model class and EM engine, PyTorch port.
+
+Counterpart of ``phylo_hmrf_tpu/models/hmrf.py`` for its production path:
+the ``mf_icm`` labeler, float32, one device, no final polish. Per EM
+iteration:
+
+* E-step (`_estep_bucket`, per shape bucket of regions): the K-major unary
+  from `gaussian_logpdf_kmajor`, annealed mean field (kernel K1), two
+  checkerboard-ICM runs, from the mean-field labels and from the warm
+  labels (K2), the lower Potts energy of the two (K3), then the fused
+  posterior / cost / statistics pass (K4). Statistics come back per region
+  and the host sums them in float64 in region order.
+* M-step (`mstep`): one batched boxed L-BFGS solve of the OU parameters of
+  all K states on the device, the validity check and the OU moments, with
+  the reference's retry ladder and the fallback to the init params.
+
+The host-side control flow (convergence, patience, best-iteration
+bookkeeping, the numpy RNG draw order) follows the JAX engine line for
+line, so a fit started from the same state follows the same trajectory up
+to float rounding.
+
+What raises rather than running: ``final_polish=True``, any labeler but
+``mf_icm``, ``dtype="float64"``, a mesh, ``kmeans_backend="sklearn"`` and
+checkpoint/resume arguments to ``fit``. Config fields read by the JAX
+engine only to work around XLA or a remote TPU have no counterpart here;
+each is noted where the JAX engine reads it (see `_check_config`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from phylo_hmrf_tpu.config import PhyloHMRFConfig, SMALL_EPS
+from phylo_hmrf_tpu.data.regions import RegionGrid
+from phylo_hmrf_tpu.tree import PhyloTree
+from phylo_hmrf_tpu.utils.profiling import ConvergenceMonitor, PhaseTimer
+from phylo_hmrf_tpu_torch.convert import to_numpy as _to_numpy
+from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
+from phylo_hmrf_tpu_torch.models.ou import (
+    TreeTensors, check_params, ou_moments_batch, ou_nll_init, ou_nll_stats,
+    propagate_mean_guess, tree_tensors)
+from phylo_hmrf_tpu_torch.ops.finish_kernels import (
+    finish_stats, finish_stats_plain, potts_energy, potts_energy_plain)
+from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
+from phylo_hmrf_tpu_torch.ops.kmeans import kmeans
+from phylo_hmrf_tpu_torch.ops.lbfgs import minimize_boxed
+from phylo_hmrf_tpu_torch.ops.mf_kernels import mean_field_kmajor
+from phylo_hmrf_tpu_torch.ops.potts import valid_maps, weight_maps
+
+
+@dataclasses.dataclass
+class FitResult:
+    """Same fields as the JAX engine's FitResult (the reference's
+    fit_accumulate_test return tuple plus the restored moments)."""
+    params_vec: np.ndarray     # best-cost OU params (K, n_params)
+    params_vec1: np.ndarray    # best-cost-from-iter-3 OU params
+    params_list: np.ndarray    # (n_iters, K, n_params)
+    iter_id1: int              # iteration of the overall best cost
+    iter_id2: int              # iteration of the best cost from iter >= 3
+    cost_vec: np.ndarray       # (n_iters, 4): [iter, pairwise, unary, cost1]
+    labels: np.ndarray         # (N,) flat states at iter_id2
+    means: np.ndarray          # (K, F) restored from params_vec
+    covars: np.ndarray         # (K, F, F) restored from params_vec
+    n_iters: int = 0
+    state_list: np.ndarray | None = None   # (n_iters, N) when track_states
+
+
+def _estep_bucket(img, mask, dmaps, warm, means, covars, beta, beta1, *,
+                  weighted_pp: bool, max_sweeps: int, plain: bool = False):
+    """One E-step over a stacked region bucket (the ``mf_icm`` kernel
+    branch of the JAX ``_estep_bucket``).
+
+    img (R, H, W, F), mask (R, H, W) bool, dmaps (R, 4, H, W), warm
+    (R, H, W) labels. Returns (labels (R, H, W) int32, per-region
+    (post (R, K), obs (R, K, F), obs2 (R, K, F, F)), cost_vec (R, 4),
+    n_valid (R,)). ``plain`` runs the kernels' plain versions on any
+    device: the reference the kernel path is checked against on the card.
+    """
+    w_cut = weight_maps(dmaps, beta1)
+    unary_k = -gaussian_logpdf_kmajor(img, means, covars)     # (R, K, H, W)
+    mf_labels = mean_field_kmajor(unary_k, w_cut, beta, plain=plain)
+    cand_a = icm_kmajor(unary_k, w_cut, mask, mf_labels, beta, max_sweeps,
+                        plain=plain)
+    cand_b = icm_kmajor(unary_k, w_cut, mask, warm, beta, max_sweeps,
+                        plain=plain)
+    energy = potts_energy_plain if plain else potts_energy
+    mask_i = mask.to(torch.int32)
+    e_a = energy(unary_k, mask_i, cand_a, w_cut, beta)
+    e_b = energy(unary_k, mask_i, cand_b, w_cut, beta)
+    labels = torch.where((e_a <= e_b)[:, None, None], cand_a, cand_b)
+    stats, cost_vec, n_valid = _finish_fused(
+        unary_k, img, mask, dmaps, labels, beta, beta1, weighted_pp,
+        from_unary=True, plain=plain)
+    return labels, stats, cost_vec, n_valid
+
+
+def _finish_fused(lp_k, img, mask, dmaps, labels, beta, beta1,
+                  weighted_pp: bool, from_unary: bool = False,
+                  plain: bool = False):
+    """K4 over a bucket plus the per-region cost vector
+    [pairwise, pairwise_nrm, unary, cost1] (`posteriors_and_costs`
+    semantics). With ``from_unary`` lp_k is the unary (-logprob)."""
+    w_pp = weight_maps(dmaps, beta1) if weighted_pp else valid_maps(dmaps)
+    img_f = img.permute(0, 3, 1, 2).contiguous()
+    fn = finish_stats_plain if plain else finish_stats
+    post, obs, obs2, sums = fn(lp_k, img_f, mask.to(torch.int32),
+                               labels.to(torch.int32), w_pp, beta, SMALL_EPS,
+                               negate=from_unary)
+    n_valid = sums[:, 3]
+    nv = torch.clamp(n_valid, min=1.0)
+    pairwise_cost = sums[:, 0] / nv
+    pairwise_nrm = -sums[:, 1] / nv
+    unary_cost = -sums[:, 2] / nv
+    cost_vec = torch.stack([pairwise_cost, pairwise_nrm, unary_cost,
+                            unary_cost + pairwise_nrm], dim=-1)
+    return (post, obs, obs2), cost_vec, n_valid
+
+
+def _check_params_device(solved: torch.Tensor, n_nodes: int, lo=0.0,
+                         hi=100.0) -> torch.Tensor:
+    """Per-state validity of the (K, P) solved params on the device, the
+    twin of `check_params` (the bounds are exact in float32)."""
+    B = n_nodes - 1
+    p1 = solved[:, 1:]
+    alpha, lam, theta = p1[:, :B], p1[:, B:2 * B], p1[:, 2 * B:]
+    finite = ~torch.isnan(p1).any(dim=1)
+    in_box = (((alpha >= lo) & (alpha <= hi)).all(1)
+              & ((lam >= lo) & (lam <= hi)).all(1)
+              & ((theta >= -hi) & (theta <= hi)).all(1))
+    return finite & in_box
+
+
+def _mstep_solve_full(p0, post, obs, obs2, n_samples, lambda_0, min_covar, *,
+                      tt: TreeTensors, lo, hi, iters):
+    """M-step solve for all K states, validity and OU moments, on the
+    device. The returned covariances carry the ``min_covar`` jitter, added
+    in float32 like the host mirror (`_moments_np`), so both are equal."""
+    def fn(p):
+        return ou_nll_stats(p, post, obs, obs2, tt, n_samples, lambda_0,
+                            min_covar)
+    solved, _ = minimize_boxed(fn, p0, lo, hi, iters)
+    valid = _check_params_device(solved, tt.tree.n_nodes)
+    means, covars = ou_moments_batch(solved, tt)
+    eye = torch.eye(covars.shape[-1], dtype=covars.dtype, device=covars.device)
+    return solved, valid, means, covars + min_covar * eye
+
+
+def _init_solve(p0, xbar, xxT, min_covar, *, tt: TreeTensors, lo, hi, iters):
+    """Per-cluster OU init fits, all clusters in one batched solve."""
+    def fn(p):
+        return ou_nll_init(p, xbar, xxT, tt, min_covar)
+    return minimize_boxed(fn, p0, lo, hi, iters)
+
+
+def _init_cluster_stats(X: torch.Tensor, labels: torch.Tensor, k: int):
+    """Per-cluster count, mean and second moment as one-hot matmuls."""
+    onehot = torch.nn.functional.one_hot(labels.long(), k).to(X.dtype)
+    cnt = onehot.sum(0)
+    denom = torch.clamp(cnt, min=1.0)
+    xbar = (onehot.T @ X) / denom[:, None]
+    n, f = X.shape
+    xpair = (X[:, :, None] * X[:, None, :]).reshape(n, f * f)
+    xxT = ((onehot.T @ xpair) / denom[:, None]).reshape(k, f, f)
+    return xbar, xxT, cnt
+
+
+def _init_guess(centers: torch.Tensor, rand_part: torch.Tensor,
+                tree: PhyloTree, n_params: int) -> torch.Tensor:
+    """`propagate_mean_guess` for all clusters on the device: the leaf
+    centers averaged up the tree (the same 0.5-weighted adds), after the
+    host RNG draws in ``rand_part``."""
+    n = tree.n_nodes
+    vals = [None] * n
+    for li, leaf in enumerate(tree.leaf_nodes):
+        vals[int(leaf)] = centers[:, li]
+    flags = [0 if v is None else 2 for v in vals]
+    for j in range(n - 1, 0, -1):
+        p = int(tree.parent[j])
+        if flags[p] == 0:
+            vals[p] = vals[j]
+            flags[p] = 1
+        elif flags[p] == 1:
+            vals[p] = 0.5 * vals[p] + 0.5 * vals[j]
+            flags[p] = 2
+    zero = torch.zeros_like(centers[:, 0])
+    mean_full = torch.stack([v if v is not None else zero for v in vals],
+                            dim=1)
+    return torch.cat([rand_part[:, :n_params - n], mean_full], dim=1)
+
+
+def _check_config(cfg: PhyloHMRFConfig, mesh) -> None:
+    """Raise on what the port does not run yet.
+
+    Fields of the JAX engine with no counterpart here, on purpose:
+    ``em_pipeline`` (its pipelined loop is bitwise the sequential loop, so
+    the port runs the sequential one); ``prewarm_compiles`` (warms XLA
+    compiles of the polish, which is not ported and has no compile step
+    here); ``use_pallas`` (the kernels run exactly when the tensors are on
+    a CUDA device); ``shard_mode`` (no mesh). The JAX engine's VMEM tile
+    pickers and its ``_map_buckets`` compile-overlap threads and
+    ``_dev_warm`` warm-label cache served XLA and the remote TPU link: the
+    port's warm labels stay on the device anyway (the previous E-step's
+    label tensors are passed straight back in)."""
+    if mesh is not None:
+        raise NotImplementedError("multi-GPU (mesh) runs are not ported yet")
+    if cfg.final_polish:
+        raise NotImplementedError(
+            "final_polish=True is not ported yet (exact polish, kernels "
+            "K5/K6); use final_polish=False")
+    if cfg.labeler != "mf_icm":
+        raise NotImplementedError(
+            f"labeler={cfg.labeler!r} is not ported yet; only 'mf_icm' runs")
+    if cfg.dtype == "float64":
+        raise NotImplementedError("dtype='float64' is not ported yet")
+    if cfg.dtype != "float32":
+        raise ValueError(f"dtype must be float32/float64, got {cfg.dtype!r}")
+    if cfg.kmeans_backend != "jax":
+        raise NotImplementedError(
+            f"kmeans_backend={cfg.kmeans_backend!r} is not ported; the port "
+            f"runs its own device k-means (kmeans_backend='jax')")
+
+
+class PhyloHMRF:
+    """Phylo-HMRF model over a set of region grids, on one torch device.
+
+    ``device="cuda"`` runs the CUDA kernels and raises when CUDA is absent;
+    ``device="cpu"`` runs every kernel's plain PyTorch version."""
+
+    def __init__(self, tree: PhyloTree, regions: Sequence[RegionGrid],
+                 config: PhyloHMRFConfig | None = None, mesh=None, *,
+                 device="cuda"):
+        self.tree = tree
+        self.regions = list(regions)
+        self.cfg = config or PhyloHMRFConfig()
+        cfg = self.cfg
+        _check_config(cfg, mesh)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but CUDA is not "
+                               "available")
+
+        self.n_states = cfg.n_states
+        self.n_features = tree.n_leaves
+        self.n_params = tree.n_params
+
+        self.offsets = np.zeros(len(self.regions) + 1, dtype=np.int64)
+        for i, r in enumerate(self.regions):
+            if r.img.shape[-1] != self.n_features:
+                raise ValueError(
+                    f"region {i} has {r.img.shape[-1]} features, tree has "
+                    f"{self.n_features} leaves")
+            self.offsets[i + 1] = self.offsets[i] + r.n_samples
+        self.n_samples = int(self.offsets[-1])
+        self.n_samples_total = self.n_samples
+        self.len_vec = np.asarray([
+            r.len_vec_row(int(self.offsets[i]), int(self.offsets[i + 1]))
+            for i, r in enumerate(self.regions)],
+            dtype=np.int64).reshape(-1, 10)
+
+        # shape buckets, held on the device for the whole fit
+        buckets = {}
+        for idx, r in enumerate(self.regions):
+            buckets.setdefault(r.shape, []).append(idx)
+        self._bucket_arrays = {}
+        for shape, idxs in buckets.items():
+            img = np.stack([self.regions[i].img for i in idxs])
+            mask = np.stack([self.regions[i].mask for i in idxs])
+            dmaps = np.stack([self.regions[i].dmaps for i in idxs])
+            self._bucket_arrays[shape] = (
+                idxs, self._dev(img.astype(np.float32)),
+                torch.as_tensor(mask, device=self.device),
+                self._dev(dmaps.astype(np.float32)))
+        self._tt = tree_tensors(tree, self.device)
+
+        # mutable fit state
+        self._rng = np.random.default_rng(cfg.seed)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(cfg.seed)
+        self.params_vec = None       # (K, P) current OU params
+        self.init_ou_params = None   # (K, P) k-means-fit OU params
+        self.means_ = None           # (K, F)
+        self.covars_ = None          # (K, F, F)
+        self.labels_local = None     # warm-start label grids per region
+        self.init_labels = None
+
+    def _dev(self, a, dtype=torch.float32) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    # initialization (reference `_init`)
+    # ------------------------------------------------------------------
+
+    def flat_values(self) -> np.ndarray:
+        if not self.regions:
+            return np.zeros((0, self.n_features), np.float32)
+        return np.concatenate([r.flat_values() for r in self.regions], axis=0)
+
+    def initialize(self):
+        """k-means, per-cluster stats, tree-propagated guesses and the
+        attempt-0 OU init solve run on the device, then one read-back."""
+        cfg = self.cfg
+        X = self.flat_values()
+        K, P = self.n_states, self.n_params
+        X_dev = self._dev(X)
+        centers_d, labels_d, _ = kmeans(self._gen, X_dev, K)
+        xbar_d, xxT_d, cnt_d = _init_cluster_stats(X_dev, labels_d, K)
+        # host RNG draws in the reference order: params first, then one
+        # guess per cluster
+        params_draw = self._rng.random((K, P))
+        rand_part = np.stack([cfg.initial_magnitude * self._rng.random(P)
+                              for _ in range(K)])
+        guesses_d = _init_guess(centers_d, self._dev(rand_part), self.tree, P)
+        solved_d, _ = _init_solve(
+            guesses_d, xbar_d, xxT_d, cfg.min_covar, tt=self._tt,
+            lo=cfg.param_lo, hi=cfg.param_hi, iters=cfg.mstep_iters)
+        centers, labels, xbar, xxT, cnt, guesses, solved0 = (
+            _to_numpy(t) for t in (centers_d, labels_d, xbar_d, xxT_d, cnt_d,
+                                   guesses_d, solved_d))
+        centers = np.asarray(centers, np.float64)
+        pre = dict(xbar=np.asarray(xbar, np.float64),
+                   xxT=np.asarray(xxT, np.float64), occupied=cnt > 0,
+                   params=np.asarray(params_draw, np.float64),
+                   guesses=np.asarray(guesses, np.float64),
+                   solved0=np.asarray(solved0, np.float64))
+
+        self.means_ = centers.copy()
+        cv = np.cov(X.T) + cfg.min_covar * np.eye(self.n_features)
+        self.covars_ = np.tile(cv, (K, 1, 1))
+        self.init_ou_params = self._fit_init_params(centers, pre)
+        self.params_vec = self.init_ou_params.copy()
+        self.labels_local = [
+            r.labels_to_grid(labels[self.offsets[i]:self.offsets[i + 1]])
+            for i, r in enumerate(self.regions)]
+        self.init_labels = labels.copy()
+
+    def _fit_init_params(self, centers, pre) -> np.ndarray:
+        """Per-cluster OU fits with the reference retry ladder; attempt 0 is
+        the solve `initialize` already ran."""
+        cfg = self.cfg
+        K, P = self.n_states, self.n_params
+        xbar, xxT, occupied = pre["xbar"], pre["xxT"], pre["occupied"]
+        params, guesses = pre["params"].copy(), pre["guesses"].copy()
+        for attempt in range(cfg.mstep_retries):
+            if attempt == 0:
+                solved = pre["solved0"]
+            else:
+                solved, _ = _init_solve(
+                    self._dev(guesses), self._dev(xbar), self._dev(xxT),
+                    cfg.min_covar, tt=self._tt, lo=cfg.param_lo,
+                    hi=cfg.param_hi, iters=cfg.mstep_iters)
+                solved = np.asarray(_to_numpy(solved), np.float64)
+            bad = []
+            for c in range(K):
+                if not occupied[c]:
+                    continue
+                if check_params(solved[c], self.tree.n_nodes) > 0:
+                    params[c] = solved[c]
+                else:
+                    bad.append(c)
+            if not bad:
+                break
+            for c in bad:
+                guesses[c] = propagate_mean_guess(
+                    centers[c], self.tree, self._rng, cfg.initial_magnitude, P)
+        else:
+            for c in bad:
+                # reference fallback: tree-propagated random guess
+                params[c] = propagate_mean_guess(
+                    centers[c], self.tree, self._rng, cfg.initial_magnitude, P)
+        return params
+
+    # ------------------------------------------------------------------
+    # E-step
+    # ------------------------------------------------------------------
+
+    def estep(self, means, covars, warm_grids):
+        """E-step over all buckets. Returns (label grids per region, as
+        device tensors; per-region stats (post (R, K), obs (R, K, F),
+        obs2 (R, K, F, F)); costs (R, 4); n_valid (R,)), the numbers in
+        float64 numpy after one read-back for the whole E-step."""
+        cfg = self.cfg
+        K, F = self.n_states, self.n_features
+        R = len(self.regions)
+        post = np.zeros((R, K))
+        obs = np.zeros((R, K, F))
+        obs2 = np.zeros((R, K, F, F))
+        costs = np.zeros((R, 4))
+        nvalid = np.zeros(R)
+        label_grids = [None] * R
+        means_t = self._dev(means)
+        covars_t = self._dev(covars)
+
+        packed = []
+        for idxs, img, mask, dmaps in self._bucket_arrays.values():
+            warm = torch.stack([
+                torch.as_tensor(warm_grids[i], device=self.device)
+                for i in idxs]).to(torch.int32)
+            labels, (p, o, o2), cv, nv = _estep_bucket(
+                img, mask, dmaps, warm, means_t, covars_t, cfg.beta,
+                cfg.beta1, weighted_pp=(cfg.estimate_type == 3),
+                max_sweeps=cfg.icm_max_sweeps)
+            for bi, ri in enumerate(idxs):
+                label_grids[ri] = labels[bi]
+            Rb = len(idxs)
+            packed.append(torch.cat([p.reshape(Rb, -1), o.reshape(Rb, -1),
+                                     o2.reshape(Rb, -1), cv.reshape(Rb, -1),
+                                     nv.reshape(Rb, 1)], dim=1).flatten())
+        host = _to_numpy(torch.cat(packed)).astype(np.float64)
+        cols = [K, K * F, K * F * F, 4, 1]
+        at = 0
+        for idxs, *_ in self._bucket_arrays.values():
+            block = host[at:at + len(idxs) * sum(cols)].reshape(len(idxs), -1)
+            at += block.size
+            p, o, o2, cv, nv = np.split(block, np.cumsum(cols)[:-1], axis=1)
+            for bi, ri in enumerate(idxs):
+                post[ri] = p[bi]
+                obs[ri] = o[bi].reshape(K, F)
+                obs2[ri] = o2[bi].reshape(K, F, F)
+                costs[ri] = cv[bi]
+                nvalid[ri] = nv[bi, 0]
+        return label_grids, (post, obs, obs2), costs, nvalid
+
+    # ------------------------------------------------------------------
+    # M-step (reference `_do_mstep` + `_ou_optimize2`)
+    # ------------------------------------------------------------------
+
+    def _blend_guess(self) -> np.ndarray:
+        """Reference initial-guess blend (one host RNG draw per attempt)."""
+        cfg = self.cfg
+        K, P, n1 = self.n_states, self.n_params, self.tree.n_nodes
+        if cfg.initial_mode == 1:
+            rand = 2.0 * self._rng.random((K, P)) - 1.0
+            rand[:, :P - n1] = self._rng.random((K, P - n1))
+            rand = cfg.initial_magnitude * rand
+        else:
+            rand = cfg.initial_magnitude * self._rng.random((K, P))
+        a1, a2 = cfg.initial_weight, cfg.initial_weight1
+        return (a1 * self.init_ou_params + a2 * self.params_vec
+                + (1.0 - a1 - a2) * rand)
+
+    def _global_stats(self, stats):
+        """Per-region stats -> global sums, in region order (float64)."""
+        post_r, obs_r, obs2_r = stats
+        return post_r.sum(0), obs_r.sum(0), obs2_r.sum(0)
+
+    def _global_costs(self, costs: np.ndarray,
+                      ratio_vec: np.ndarray) -> np.ndarray:
+        """Per-region cost rows -> sample-weighted global costs."""
+        return costs.T @ ratio_vec
+
+    def _solve_full_dev(self, guess, post, obs, obs2):
+        cfg = self.cfg
+        return _mstep_solve_full(
+            self._dev(guess), self._dev(post), self._dev(obs),
+            self._dev(obs2), float(self.n_samples_total), cfg.lambda_0,
+            cfg.min_covar, tt=self._tt, lo=cfg.param_lo, hi=cfg.param_hi,
+            iters=cfg.mstep_iters)
+
+    def _moments_np(self, params):
+        """OU moments of ``params`` with the float32 jitter, as float64."""
+        means, covars = ou_moments_batch(self._dev(params), self._tt)
+        eye = torch.eye(self.n_features, device=self.device)
+        covars = covars + self.cfg.min_covar * eye
+        return (np.asarray(_to_numpy(means), np.float64),
+                np.asarray(_to_numpy(covars), np.float64))
+
+    def mstep(self, stats) -> np.ndarray:
+        """Solve all states, accept the valid ones, retry the others with a
+        fresh blended guess, and fall back to the init params."""
+        cfg = self.cfg
+        post, obs, obs2 = self._global_stats(stats)
+        params = self.params_vec.copy()
+        pending = np.ones(self.n_states, dtype=bool)
+        fused_moments = None
+        for attempt in range(cfg.mstep_retries):
+            out = self._solve_full_dev(self._blend_guess(), post, obs, obs2)
+            solved, valid, means_d, covars_d = (_to_numpy(t) for t in out)
+            solved = np.asarray(solved, np.float64)
+            valid = np.asarray(valid, bool)
+            take = pending & valid
+            params[take] = solved[take]
+            if attempt == 0 and valid.all():
+                # every state accepted this very solve: its moments stand
+                fused_moments = (np.asarray(means_d, np.float64),
+                                 np.asarray(covars_d, np.float64))
+            pending = pending & ~valid
+            if not pending.any():
+                break
+        if pending.any():
+            # reference fallback: keep the k-means-fit init params
+            params[pending] = self.init_ou_params[pending]
+        self.params_vec = params
+        if fused_moments is not None:
+            self.means_, self.covars_ = fused_moments
+        else:
+            self.means_, self.covars_ = self._moments_np(params)
+        return self.params_vec
+
+    # ------------------------------------------------------------------
+    # EM loop (reference `fit_accumulate_test`)
+    # ------------------------------------------------------------------
+
+    def fit(self, verbose: bool = True, callback=None,
+            checkpoint_path: str | None = None, checkpoint_every: int = 5,
+            resume: bool = False, patience: int | None = None,
+            track_states: bool = False, monitor=None,
+            cost_log: str | None = None) -> FitResult:
+        """The sequential EM loop of the JAX engine's ``fit``."""
+        if checkpoint_path is not None or resume:
+            raise NotImplementedError(
+                "checkpoint/resume is not ported yet")
+        del checkpoint_every
+        cfg = self.cfg
+        patience = cfg.patience if patience is None else patience
+        state_list = [] if track_states else None
+        if monitor is None:
+            monitor = ConvergenceMonitor(cfg.threshold, patience,
+                                         log_file=cost_log)
+        self.monitor_ = monitor
+        self.timer = PhaseTimer()
+        if self.params_vec is None:
+            t0 = time.time()
+            with self.timer.phase("init"):
+                self.initialize()
+            if verbose:
+                print(f"[init] k-means + OU init in {time.time() - t0:.2f}s")
+        prev = np.array([1e-3, 1e-3, 1e-3])   # pairwise/unary/cost1 "pre"
+        cost_rows = []
+        params_list = []
+        min_cost = [0, 1000.0]
+        min_cost1 = [0, 1000.0]
+        params_best = self.params_vec.copy()
+        params_best1 = self.params_vec.copy()
+        t_label_grids = list(self.labels_local)
+        n_iters = 0
+        ratio_vec = (self.len_vec[:, 0].astype(np.float64)
+                     / self.n_samples_total)
+
+        for it in range(cfg.max_iter):
+            t0 = time.time()
+            with self.timer.phase("estep"):
+                label_grids, stats, costs, _ = self.estep(
+                    self.means_, self.covars_, self.labels_local)
+            t1 = time.time()
+
+            # the accumulated "pairwise_cost" that drives convergence and
+            # is exported is the NORMALIZED one (reference base.py:388-389)
+            reduced = self._global_costs(costs, ratio_vec)
+            pairwise_cost_raw = float(reduced[0])
+            pairwise_cost = float(reduced[1])
+            unary_cost = float(reduced[2])
+            cost1 = float(reduced[3])
+
+            d1 = abs((pairwise_cost - prev[0]) / prev[0])
+            d2 = abs((unary_cost - prev[1]) / prev[1])
+            d3 = abs((cost1 - prev[2]) / prev[2])
+            prev = np.array([pairwise_cost, unary_cost, cost1])
+
+            monitor.report(it, pairwise_cost, unary_cost, cost1)
+            cost_rows.append([it, pairwise_cost, unary_cost, cost1])
+            params_list.append(self.params_vec.copy())
+            n_iters = it + 1
+            if track_states:
+                state_list.append(self._flat_labels(label_grids))
+
+            if verbose:
+                print(f"[iter {it:3d}] pairwise={pairwise_cost:.6f} "
+                      f"(raw={pairwise_cost_raw:.6f}) "
+                      f"unary={unary_cost:.6f} cost1={cost1:.6f} "
+                      f"estep={t1 - t0:.2f}s")
+
+            if cost1 < min_cost[1]:
+                min_cost = [it, cost1]
+                params_best = self.params_vec.copy()
+                self.labels_local = label_grids   # warm start from best
+            if cost1 < min_cost1[1] and it >= cfg.best_from_iter:
+                min_cost1 = [it, cost1]
+                params_best1 = self.params_vec.copy()
+                t_label_grids = label_grids
+
+            if callback is not None:
+                callback(self, it, cost_rows[-1], label_grids)
+
+            if (((d1 < cfg.threshold and d2 < cfg.threshold)
+                 or d3 < cfg.threshold) and it > cfg.min_iter):
+                break
+            if it - min_cost1[0] > patience:
+                break
+
+            t2 = time.time()
+            with self.timer.phase("mstep"):
+                self.mstep(stats)
+            if verbose:
+                print(f"[iter {it:3d}] mstep={time.time() - t2:.2f}s")
+
+        # restore: params_vec1 = best-from-3; moments from the overall best
+        self.params_vec = params_best1.copy()
+        self.means_, self.covars_ = self._moments_np(params_best)
+
+        return FitResult(
+            params_vec=params_best, params_vec1=params_best1,
+            params_list=np.asarray(params_list),
+            iter_id1=min_cost[0], iter_id2=min_cost1[0],
+            cost_vec=np.asarray(cost_rows),
+            labels=self._flat_labels(t_label_grids),
+            means=self.means_.copy(), covars=self.covars_.copy(),
+            n_iters=n_iters,
+            state_list=(np.asarray(state_list) if track_states else None))
+
+    def _flat_labels(self, grids) -> np.ndarray:
+        if not self.regions:
+            return np.zeros(0, np.int32)
+        return np.concatenate([r.labels_to_flat(_to_numpy(g))
+                               for r, g in zip(self.regions, grids)])

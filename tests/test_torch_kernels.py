@@ -1,0 +1,382 @@
+"""The port's E-step modules against the JAX package, on CPU.
+
+Each kernel's plain PyTorch version (what the port runs on CPU tensors) is
+fed the same numpy inputs as the JAX function it replaces: the Pallas
+kernel in interpret mode, or the jnp path. Tolerances are the JAX
+package's own kernel gates (tests/test_mf_pallas.py, test_icm_pallas.py,
+test_finish_pallas.py) unless a test says otherwise.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from phylo_hmrf_tpu.config import SMALL_EPS  # noqa: E402
+from phylo_hmrf_tpu.data.regions import (  # noqa: E402
+    flat_index_order, region_from_samples)
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _regions(rng, H0, W0, F=3, R=1, pad_w=128):
+    out = []
+    for _ in range(R):
+        rows, _ = flat_index_order(H0, W0, True)
+        vals = (rng.random((rows.shape[0], F)) + 0.1).astype(np.float32)
+        out.append(region_from_samples(vals, H0, W0, True, pad_h=8,
+                                       pad_w=pad_w))
+    return out
+
+
+def _wmaps(regions, beta1=0.5):
+    return np.stack([np.exp(-beta1 * r.dmaps).astype(np.float32)
+                     for r in regions])
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# --------------------------------------------------------------- potts --
+
+def test_potts_ops_match_jax(rng):
+    """Per-region potts ops: same formulas, same add order -> float32
+    agreement to a few ulps (rtol 1e-6; energy and stats sum a few hundred
+    pixels in another order)."""
+    from phylo_hmrf_tpu.ops import potts as jp
+    from phylo_hmrf_tpu_torch.ops import potts as tp
+
+    (region,) = _regions(rng, 20, 20, pad_w=24)
+    H, W = region.shape
+    K = 4
+    wm = np.exp(-0.5 * region.dmaps).astype(np.float32)
+    labels = rng.integers(0, K, (H, W)).astype(np.int32)
+    q = rng.random((H, W, K)).astype(np.float32)
+    logprob = (-rng.random((H, W, K)) * 4).astype(np.float32)
+
+    # exp() of two libraries: 1 ulp apart on a few percent of the edges
+    np.testing.assert_allclose(
+        tp.weight_maps(_t(region.dmaps), 0.5).numpy(),
+        np.asarray(jp.weight_maps(jnp.asarray(region.dmaps), 0.5)),
+        rtol=2e-7, atol=0)
+    np.testing.assert_array_equal(
+        tp.valid_maps(_t(region.dmaps)).numpy(),
+        np.asarray(jp.valid_maps(jnp.asarray(region.dmaps))))
+    for a, b in zip(tp.neighbor_sums(_t(labels), _t(wm), K),
+                    jp.neighbor_sums(jnp.asarray(labels), jnp.asarray(wm), K)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    for a, b in zip(tp.neighbor_sums_soft(_t(q), _t(wm)),
+                    jp.neighbor_sums_soft(jnp.asarray(q), jnp.asarray(wm))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    pp_t = tp.pairwise_potential(_t(labels), _t(wm), K, 1.3)
+    pp_j = jp.pairwise_potential(jnp.asarray(labels), jnp.asarray(wm), K, 1.3)
+    np.testing.assert_allclose(pp_t.numpy(), np.asarray(pp_j), rtol=1e-6)
+    e_t = tp.potts_energy(_t(labels), _t(-logprob), _t(wm),
+                          _t(region.mask), 1.3)
+    e_j = jp.potts_energy(jnp.asarray(labels), jnp.asarray(-logprob),
+                          jnp.asarray(wm), jnp.asarray(region.mask), 1.3)
+    np.testing.assert_allclose(float(e_t), float(e_j), rtol=1e-6)
+    post_t, cv_t, nv_t = tp.posteriors_and_costs(
+        _t(logprob), _t(labels), pp_t, _t(region.mask), SMALL_EPS)
+    post_j, cv_j, nv_j = jp.posteriors_and_costs(
+        jnp.asarray(logprob), jnp.asarray(labels), pp_j,
+        jnp.asarray(region.mask), SMALL_EPS)
+    np.testing.assert_allclose(post_t.numpy(), np.asarray(post_j), rtol=1e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(cv_t.numpy(), np.asarray(cv_j), rtol=1e-6)
+    assert float(nv_t) == float(nv_j)
+    for a, b in zip(tp.sufficient_stats(post_t, _t(region.img),
+                                        _t(region.mask)),
+                    jp.sufficient_stats(post_j, jnp.asarray(region.img),
+                                        jnp.asarray(region.mask))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
+
+
+def test_icm_and_mean_field_match_jax(rng):
+    """The port's per-region ops/icm.py against the jnp labelers: ICM
+    labels identical (same arithmetic, exact argmin); mean-field labels
+    agree on > 0.999 of pixels (argmin near-ties may flip)."""
+    from phylo_hmrf_tpu.ops import icm as ji
+    from phylo_hmrf_tpu_torch.ops import icm as ti
+
+    (region,) = _regions(rng, 20, 20, pad_w=24)
+    H, W = region.shape
+    K = 4
+    wm = np.exp(-0.5 * region.dmaps).astype(np.float32)
+    unary = (rng.random((H, W, K)) * 4).astype(np.float32)
+    init = rng.integers(0, K, (H, W)).astype(np.int32)
+
+    lab_t, e_t = ti.icm_with_energy(_t(unary), _t(wm), _t(region.mask),
+                                    _t(init), 1.2, 40)
+    lab_j, e_j = ji.icm_with_energy(
+        jnp.asarray(unary), jnp.asarray(wm), jnp.asarray(region.mask),
+        jnp.asarray(init), 1.2, 40)
+    np.testing.assert_array_equal(lab_t.numpy(), np.asarray(lab_j))
+    np.testing.assert_allclose(float(e_t), float(e_j), rtol=1e-6)
+
+    mf_t = ti.mean_field(_t(unary), _t(wm), 1.0)
+    mf_j = ji.mean_field(jnp.asarray(unary), jnp.asarray(wm), 1.0)
+    assert (mf_t.numpy() == np.asarray(mf_j)).mean() > 0.999
+
+
+# ------------------------------------------------------------------ K1 --
+
+def test_k1_plain_matches_mf_sweeps_pallas(rng):
+    """K1's plain version vs mf_sweeps_pallas(interpret=True), 8 sweeps at
+    one temperature on the same q/base: rtol 2e-4 (tests/test_mf_pallas.py)."""
+    from phylo_hmrf_tpu.ops.mf_pallas import mf_sweeps_pallas
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import mf_sweeps
+
+    regions = _regions(rng, 20, 20, R=2)
+    R, K = 2, 5
+    H, W = regions[0].shape
+    wm = _wmaps(regions)
+    q = rng.random((R, K, H, W)).astype(np.float32)
+    q /= q.sum(1, keepdims=True)
+    base = (rng.random((R, K, H, W)) * 4).astype(np.float32)
+    out_t = mf_sweeps(_t(q), _t(base), _t(wm), 0.5, 0.5, 1.0, n_inner=8)
+    out_j = mf_sweeps_pallas(jnp.asarray(q), jnp.asarray(base),
+                             jnp.asarray(wm), 0.5, 0.5, 1.0, n_inner=8,
+                             interpret=True)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=2e-4,
+                               atol=1e-6)
+
+
+def test_k1_mean_field_kmajor_matches_jax(rng):
+    """mean_field_kmajor (K1 path, plain on CPU) against the jnp
+    mean_field per region: label agreement > 0.999 (test_mf_pallas.py)."""
+    from phylo_hmrf_tpu.ops.icm import mean_field
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import mean_field_kmajor
+
+    regions = _regions(rng, 20, 20, R=2)
+    K = 5
+    H, W = regions[0].shape
+    wm = _wmaps(regions)
+    unary = (rng.random((2, H, W, K)) * 4).astype(np.float32)
+    lab_t = mean_field_kmajor(_t(unary.transpose(0, 3, 1, 2)), _t(wm), 1.0)
+    for r in range(2):
+        lab_j = mean_field(jnp.asarray(unary[r]), jnp.asarray(wm[r]), 1.0)
+        assert (lab_t[r].numpy() == np.asarray(lab_j)).mean() > 0.999
+
+
+# ------------------------------------------------------------------ K2 --
+
+@pytest.mark.parametrize("H0,W0,K,R", [(16, 16, 4, 2), (24, 20, 3, 1)])
+def test_k2_plain_matches_icm_pallas(rng, H0, W0, K, R):
+    """icm_kmajor (K2 plain on CPU) vs icm_pallas(interpret=True): labels
+    identical (tests/test_icm_pallas.py)."""
+    from phylo_hmrf_tpu.ops.icm_pallas import icm_pallas
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
+
+    regions = _regions(rng, H0, W0, R=R)
+    H, W = regions[0].shape
+    wm = _wmaps(regions)
+    mask = np.stack([r.mask for r in regions])
+    unary = (rng.random((R, H, W, K)) * 4).astype(np.float32)
+    init = rng.integers(0, K, (R, H, W)).astype(np.int32)
+    unary_k = np.ascontiguousarray(unary.transpose(0, 3, 1, 2))
+    out_t = icm_kmajor(_t(unary_k), _t(wm), _t(mask), _t(init), 1.3, 40)
+    out_j = icm_pallas(None, jnp.asarray(wm), jnp.asarray(mask),
+                       jnp.asarray(init), 1.3, 40, interpret=True,
+                       unary_k=jnp.asarray(unary_k))
+    np.testing.assert_array_equal(out_t.numpy()[mask], np.asarray(out_j)[mask])
+
+
+# --------------------------------------------------------------- K3/K4 --
+
+def _finish_problem(rng, K=5, F=3, R=2):
+    regions = _regions(rng, 20, 20, F=F, R=R)
+    H, W = regions[0].shape
+    wm = _wmaps(regions)
+    mask = np.stack([r.mask for r in regions]).astype(np.int32)
+    img_f = np.stack([r.img.transpose(2, 0, 1) for r in regions])
+    logprob_k = (-rng.random((R, K, H, W)) * 4).astype(np.float32)
+    labels = rng.integers(0, K, (R, H, W)).astype(np.int32)
+    return wm, mask, np.ascontiguousarray(img_f), logprob_k, labels
+
+
+def test_k3_plain_matches_potts_energy_pallas(rng):
+    """K3's plain version vs potts_energy_pallas(interpret=True): energy
+    rtol 2e-6 (tests/test_finish_pallas.py)."""
+    from phylo_hmrf_tpu.ops.finish_pallas import potts_energy_pallas
+    from phylo_hmrf_tpu_torch.ops.finish_kernels import potts_energy
+
+    wm, mask, _, logprob_k, labels = _finish_problem(rng)
+    unary_k = -logprob_k
+    e_t = potts_energy(_t(unary_k), _t(mask), _t(labels), _t(wm), 1.3)
+    e_j = potts_energy_pallas(jnp.asarray(unary_k), jnp.asarray(mask),
+                              jnp.asarray(labels), jnp.asarray(wm), 1.3,
+                              interpret=True)
+    assert e_t.dtype == torch.float32 and e_t.shape == (2,)
+    np.testing.assert_allclose(e_t.numpy(), np.asarray(e_j), rtol=2e-6)
+
+
+@pytest.mark.parametrize("negate", [False, True])
+def test_k4_plain_matches_finish_stats_pallas(rng, negate):
+    """K4's plain version vs finish_stats_pallas(interpret=True): stats
+    and cost sums rtol 2e-5 (tests/test_finish_pallas.py); with negate the
+    unary goes in and the outputs are bitwise those of the logprob call
+    (IEEE negation is exact)."""
+    from phylo_hmrf_tpu.ops.finish_pallas import finish_stats_pallas
+    from phylo_hmrf_tpu_torch.ops.finish_kernels import finish_stats
+
+    wm, mask, img_f, logprob_k, labels = _finish_problem(rng)
+    field = -logprob_k if negate else logprob_k
+    got = finish_stats(_t(field), _t(img_f), _t(mask), _t(labels), _t(wm),
+                       0.8, SMALL_EPS, negate=negate)
+    want = finish_stats_pallas(
+        jnp.asarray(field), jnp.asarray(img_f), jnp.asarray(mask),
+        jnp.asarray(labels), jnp.asarray(wm), 0.8, SMALL_EPS,
+        interpret=True, negate=negate)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5,
+                                   atol=2e-6)
+    if negate:
+        ref = finish_stats(_t(logprob_k), _t(img_f), _t(mask), _t(labels),
+                           _t(wm), 0.8, SMALL_EPS)
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# ------------------------------------------------------------- emission --
+
+def test_gaussian_logpdf_matches_jax(rng):
+    """Cholesky-based unaries, both layouts: rtol 1e-5 (float32 matmuls in
+    another library; TF32 is off in the port)."""
+    from phylo_hmrf_tpu.models import emission as je
+    from phylo_hmrf_tpu_torch.models import emission as te
+
+    K, F = 4, 3
+    X = rng.random((2, 8, 16, F)).astype(np.float32)
+    means = rng.random((K, F)).astype(np.float32)
+    A = rng.random((K, F, F))
+    covs = (A @ A.transpose(0, 2, 1) + 0.3 * np.eye(F)).astype(np.float32)
+    np.testing.assert_allclose(
+        te.gaussian_logpdf(_t(X), _t(means), _t(covs)).numpy(),
+        np.asarray(je.gaussian_logpdf(jnp.asarray(X), jnp.asarray(means),
+                                      jnp.asarray(covs))), rtol=1e-5)
+    np.testing.assert_allclose(
+        te.gaussian_logpdf_kmajor(_t(X), _t(means), _t(covs)).numpy(),
+        np.asarray(je.gaussian_logpdf_kmajor(
+            jnp.asarray(X), jnp.asarray(means), jnp.asarray(covs))),
+        rtol=1e-5)
+
+
+# ------------------------------------------------------------- E-step --
+
+def test_estep_bucket_matches_jax(rng):
+    """The port's `_estep_bucket` (kernel path; plain versions on CPU)
+    against JAX `_estep_bucket(use_pallas=False)` on one bucket of two
+    regions. The mean-field stages differ in float order (the JAX jnp path
+    folds wsum into the field each sweep, the kernel path precomputes
+    base), so labels may differ at near-ties: agreement > 0.995 of valid
+    pixels, costs rtol 2e-3 and stats rtol 2e-3 (what a handful of changed
+    labels moves in a 20 x 20 region)."""
+    from phylo_hmrf_tpu.models.hmrf import _estep_bucket as jax_estep
+    from phylo_hmrf_tpu_torch.models.hmrf import _estep_bucket
+
+    K, F = 4, 3
+    regions = _regions(rng, 20, 20, F=F, R=2)
+    img = np.stack([r.img for r in regions])
+    mask = np.stack([r.mask for r in regions])
+    dmaps = np.stack([r.dmaps for r in regions])
+    H, W = mask.shape[1:]
+    warm = rng.integers(0, K, (2, H, W)).astype(np.int32)
+    # well-separated states so the labeling is not all near-ties
+    means = np.stack([np.full(F, 0.2 + 0.25 * c) for c in range(K)]).astype(
+        np.float32)
+    covs = np.stack([0.02 * np.eye(F) + 0.005] * K).astype(np.float32)
+    for weighted_pp in (False, True):
+        lab_j, st_j, cv_j, nv_j = jax_estep(
+            jnp.asarray(img), jnp.asarray(mask), jnp.asarray(dmaps),
+            jnp.asarray(warm), jnp.asarray(means), jnp.asarray(covs),
+            jnp.float32(1.0), jnp.float32(0.5), weighted_pp=weighted_pp,
+            labeler="mf_icm", max_sweeps=60, use_pallas=False)
+        lab_t, st_t, cv_t, nv_t = _estep_bucket(
+            _t(img), _t(mask), _t(dmaps), _t(warm), _t(means), _t(covs),
+            1.0, 0.5, weighted_pp=weighted_pp, max_sweeps=60)
+        agree = (lab_t.numpy() == np.asarray(lab_j))[mask].mean()
+        assert agree > 0.995, agree
+        np.testing.assert_allclose(cv_t.numpy(), np.asarray(cv_j), rtol=2e-3)
+        np.testing.assert_array_equal(nv_t.numpy(), np.asarray(nv_j))
+        for a, b in zip(st_t, st_j):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-3,
+                                       atol=1e-3)
+
+
+def test_estep_plain_flag_is_the_cpu_path(rng):
+    """On CPU the kernel wrappers run their plain versions, so the
+    `plain=True` reference path and the default path are bitwise equal."""
+    from phylo_hmrf_tpu_torch.models.hmrf import _estep_bucket
+
+    K, F = 3, 3
+    regions = _regions(rng, 16, 16, F=F, R=1, pad_w=16)
+    img = _t(np.stack([r.img for r in regions]))
+    mask = _t(np.stack([r.mask for r in regions]))
+    dmaps = _t(np.stack([r.dmaps for r in regions]))
+    warm = torch.zeros(mask.shape, dtype=torch.int32)
+    means = _t(np.stack([np.full(F, 0.3 + 0.3 * c) for c in range(K)])
+               .astype(np.float32))
+    covs = _t(np.stack([0.05 * np.eye(F)] * K).astype(np.float32))
+    a = _estep_bucket(img, mask, dmaps, warm, means, covs, 1.0, 0.5,
+                      weighted_pp=False, max_sweeps=60)
+    b = _estep_bucket(img, mask, dmaps, warm, means, covs, 1.0, 0.5,
+                      weighted_pp=False, max_sweeps=60, plain=True)
+    np.testing.assert_array_equal(a[0].numpy(), b[0].numpy())
+    for x, y in zip(a[1], b[1]):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    np.testing.assert_array_equal(a[2].numpy(), b[2].numpy())
+
+
+# ---------------------------------------------------------- boundaries --
+
+def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
+    """On CPU tensors the wrappers never touch the kernel library: the
+    launch counters stay where they were."""
+    from phylo_hmrf_tpu_torch.ops import finish_kernels, icm_kernels
+    from phylo_hmrf_tpu_torch.ops import mf_kernels
+
+    counters = (mf_kernels.mf_sweeps, icm_kernels.icm_phase_,
+                finish_kernels.potts_energy, finish_kernels.finish_stats)
+    before = [f.launches for f in counters]
+    wm, mask, img_f, logprob_k, labels = _finish_problem(rng, R=1)
+    mf_kernels.mf_sweeps(_t(-logprob_k), _t(-logprob_k), _t(wm), 1.0, 0.5,
+                         1.0, n_inner=2)
+    icm_kernels.icm_phase_(_t(labels.copy()), _t(-logprob_k), _t(wm),
+                           _t(mask), 1.0, 0, 1)
+    finish_kernels.potts_energy(_t(-logprob_k), _t(mask), _t(labels),
+                                _t(wm), 1.0)
+    finish_kernels.finish_stats(_t(logprob_k), _t(img_f), _t(mask),
+                                _t(labels), _t(wm), 1.0, SMALL_EPS)
+    assert [f.launches for f in counters] == before
+
+
+def test_port_imports_no_jax():
+    """Importing every port module in a fresh interpreter leaves jax (and
+    scikit-learn, absent on the GPU machine) out of sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import phylo_hmrf_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "[importlib.import_module(n) for n in names]\n"
+        "assert len(names) >= 12, names\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'sklearn')]\n"
+        "assert not bad, bad\n"
+        "assert not any(m.startswith(('phylo_hmrf_tpu.models', "
+        "'phylo_hmrf_tpu.ops', 'phylo_hmrf_tpu.parallel')) "
+        "for m in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
