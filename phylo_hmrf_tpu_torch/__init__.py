@@ -1,11 +1,13 @@
 """phylo_hmrf_tpu_torch — the PyTorch/CUDA port of phylo_hmrf_tpu.
 
 Runs ``PhyloHMRF(tree, regions, cfg, device=...).fit()`` for the
-production ``mf_icm`` labeler without the final exact polish, in float32,
-on one device. The E-step's four kernels (mean-field sweep, checkerboard
-ICM phase, Potts energy, fused posterior/statistics pass) are hand-written
-CUDA for the H100 (``csrc/``, built by nvcc at first use); on CPU tensors
-their plain PyTorch versions run instead. The package never imports jax; it
+production ``mf_icm`` labeler and the default final exact polish
+(graph-cut expansion or swap moves), in float32, on one device. The six
+kernels of that path (mean-field sweep, checkerboard ICM phase, Potts
+energy, fused posterior/statistics pass, push-relabel iteration, BFS
+relabel sweep) are hand-written CUDA for the H100 (``csrc/``, built by
+nvcc at first use); on CPU tensors their plain PyTorch versions run
+instead. The package never imports jax; it
 shares the JAX package's jax-free modules (config, tree, data, utils).
 
 Importing the package turns TF32 off: the Gaussian quadratic form feeds

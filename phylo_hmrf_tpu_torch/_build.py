@@ -2,9 +2,11 @@
 
 The kernels are compiled by ``nvcc`` into ONE shared library with a plain C
 interface and loaded through ``ctypes`` — no PyTorch headers are compiled,
-so a cold build takes seconds, not minutes. The library is built at first
-use, from the ``.cu``/``.cuh`` sources in this package only, into
-``csrc/build/`` (git-ignored). Its file name carries a hash of the sources
+so a cold build takes seconds, not minutes. Each ``.cu`` source compiles
+to an object in its own ``nvcc`` process, all started together, and one
+more ``nvcc`` links them. The library is built at first use, from the
+``.cu``/``.cuh`` sources in this package only, into ``csrc/build/``
+(git-ignored). Its file name carries a hash of the sources
 and the compiler flags, so an edited source rebuilds on the next use and a
 stale library is never loaded. Same pattern as the host C++ build of the
 JAX package (``phylo_hmrf_tpu/native/__init__.py``).
@@ -27,12 +29,16 @@ import threading
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# -Xptxas=-v: registers, shared memory and spills per kernel (build_log)
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
+LINK_FLAGS = [*_ARCH, "-shared"]
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None     # wall time of the last nvcc run in this process
+build_seconds = None     # wall time of the last build in this process
+build_log = ""           # the compilers' messages of that build
 
 
 class KernelBuildError(RuntimeError):
@@ -62,7 +68,7 @@ def _nvcc() -> str:
 def lib_path() -> str:
     """Path of the library for the current sources and flags."""
     srcs, hdrs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in srcs + hdrs:
         h.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
@@ -71,8 +77,9 @@ def lib_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels if no library for the current sources exists."""
-    global build_seconds
+    """Compile the kernels if no library for the current sources exists:
+    one nvcc per source, all in parallel, then one link."""
+    global build_seconds, build_log
     import time
 
     path = lib_path()
@@ -80,16 +87,35 @@ def build() -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs, _ = _sources()
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *srcs]
+    nvcc = _nvcc()
+    tag = f"{path}.{os.getpid()}"
+    objs = [f"{tag}.{os.path.basename(s)}.o" for s in srcs]
     t0 = time.perf_counter()
     try:
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
-    except subprocess.CalledProcessError as e:
-        raise KernelBuildError(
-            f"nvcc failed ({' '.join(cmd)}):\n{e.stdout}\n{e.stderr}") from e
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o",
+                                   o, s], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(s, log) for s, p, log in zip(srcs, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise KernelBuildError("nvcc failed:\n" + "\n".join(
+                f"{s}:\n{log}" for s, log in failed))
+        cmd = [nvcc, *LINK_FLAGS, "-o", f"{tag}.tmp", *objs]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, text=True)
+        except subprocess.CalledProcessError as e:
+            raise KernelBuildError(f"nvcc link failed ({' '.join(cmd)}):\n"
+                                   f"{e.stdout}\n{e.stderr}") from e
+        # atomic: a concurrent build never sees half a library
+        os.replace(f"{tag}.tmp", path)
+    finally:
+        for f in [*objs, f"{tag}.tmp"]:
+            if os.path.exists(f):
+                os.remove(f)
     build_seconds = time.perf_counter() - t0
-    os.replace(tmp, path)      # atomic: a concurrent build never sees half
+    build_log = "".join(logs)
     return path
 
 
@@ -109,6 +135,10 @@ _SIGNATURES = {
     #     beta, small_eps, negate, stream
     "phmrf_finish_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _F, _F, _I, _P],
+    # K5: e, h, h_scratch, cap_t, caps, out, R, H, W, n, n_inner, stream
+    "phmrf_pr_iterations": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # K6: d, scratch, caps, R, H, W, n, n_inner, changed, stream
+    "phmrf_bfs_sweeps": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # tile counts the wrappers size the partial-sum buffers with
     "phmrf_energy_tiles": [_I],
     "phmrf_finish_tiles": [_I],

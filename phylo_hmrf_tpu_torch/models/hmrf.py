@@ -1,8 +1,8 @@
 """PhyloHMRF — the model class and EM engine, PyTorch port.
 
 Counterpart of ``phylo_hmrf_tpu/models/hmrf.py`` for its production path:
-the ``mf_icm`` labeler, float32, one device, no final polish. Per EM
-iteration:
+the ``mf_icm`` labeler, float32, one device, then the exact final polish.
+Per EM iteration:
 
 * E-step (`_estep_bucket`, per shape bucket of regions): the K-major unary
   from `gaussian_logpdf_kmajor`, annealed mean field (kernel K1), two
@@ -14,13 +14,19 @@ iteration:
   all K states on the device, the validity check and the OU moments, with
   the reference's retry ladder and the fallback to the init params.
 
+After the loop, ``final_polish`` (the default) relabels the best
+iteration's labels once under the restored best moments with exact
+graph-cut moves (`_exact_labels_all` -> ``ops/maxflow.py``: the K1-K3
+start, then expansion or swap moves, each a push-relabel min cut on
+kernels K5 and K6).
+
 The host-side control flow (convergence, patience, best-iteration
 bookkeeping, the numpy RNG draw order) follows the JAX engine line for
 line, so a fit started from the same state follows the same trajectory up
 to float rounding.
 
-What raises rather than running: ``final_polish=True``, any labeler but
-``mf_icm``, ``dtype="float64"``, a mesh, ``kmeans_backend="sklearn"`` and
+What raises rather than running: any labeler but ``mf_icm``,
+``dtype="float64"``, a mesh, ``kmeans_backend="sklearn"`` and
 checkpoint/resume arguments to ``fit``. Config fields read by the JAX
 engine only to work around XLA or a remote TPU have no counterpart here;
 each is noted where the JAX engine reads it (see `_check_config`).
@@ -44,12 +50,12 @@ from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
 from phylo_hmrf_tpu_torch.models.ou import (
     TreeTensors, check_params, ou_moments_batch, ou_nll_init, ou_nll_stats,
     propagate_mean_guess, tree_tensors)
-from phylo_hmrf_tpu_torch.ops.finish_kernels import (
-    finish_stats, finish_stats_plain, potts_energy, potts_energy_plain)
-from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
+from phylo_hmrf_tpu_torch.ops.finish_kernels import (finish_stats,
+                                                     finish_stats_plain)
 from phylo_hmrf_tpu_torch.ops.kmeans import kmeans
 from phylo_hmrf_tpu_torch.ops.lbfgs import minimize_boxed
-from phylo_hmrf_tpu_torch.ops.mf_kernels import mean_field_kmajor
+from phylo_hmrf_tpu_torch.ops.maxflow import (CutStats, _start_batch,
+                                              exact_labels_batched)
 from phylo_hmrf_tpu_torch.ops.potts import valid_maps, weight_maps
 
 
@@ -83,16 +89,8 @@ def _estep_bucket(img, mask, dmaps, warm, means, covars, beta, beta1, *,
     """
     w_cut = weight_maps(dmaps, beta1)
     unary_k = -gaussian_logpdf_kmajor(img, means, covars)     # (R, K, H, W)
-    mf_labels = mean_field_kmajor(unary_k, w_cut, beta, plain=plain)
-    cand_a = icm_kmajor(unary_k, w_cut, mask, mf_labels, beta, max_sweeps,
-                        plain=plain)
-    cand_b = icm_kmajor(unary_k, w_cut, mask, warm, beta, max_sweeps,
-                        plain=plain)
-    energy = potts_energy_plain if plain else potts_energy
-    mask_i = mask.to(torch.int32)
-    e_a = energy(unary_k, mask_i, cand_a, w_cut, beta)
-    e_b = energy(unary_k, mask_i, cand_b, w_cut, beta)
-    labels = torch.where((e_a <= e_b)[:, None, None], cand_a, cand_b)
+    labels = _start_batch(unary_k, w_cut, mask, warm, beta, max_sweeps,
+                          plain=plain)
     stats, cost_vec, n_valid = _finish_fused(
         unary_k, img, mask, dmaps, labels, beta, beta1, weighted_pp,
         from_unary=True, plain=plain)
@@ -199,19 +197,15 @@ def _check_config(cfg: PhyloHMRFConfig, mesh) -> None:
     Fields of the JAX engine with no counterpart here, on purpose:
     ``em_pipeline`` (its pipelined loop is bitwise the sequential loop, so
     the port runs the sequential one); ``prewarm_compiles`` (warms XLA
-    compiles of the polish, which is not ported and has no compile step
-    here); ``use_pallas`` (the kernels run exactly when the tensors are on
-    a CUDA device); ``shard_mode`` (no mesh). The JAX engine's VMEM tile
+    compiles; the port has no compile step); ``use_pallas`` (the kernels
+    run exactly when the tensors are on a CUDA device); ``shard_mode`` (no
+    mesh). The JAX engine's VMEM tile
     pickers and its ``_map_buckets`` compile-overlap threads and
     ``_dev_warm`` warm-label cache served XLA and the remote TPU link: the
     port's warm labels stay on the device anyway (the previous E-step's
     label tensors are passed straight back in)."""
     if mesh is not None:
         raise NotImplementedError("multi-GPU (mesh) runs are not ported yet")
-    if cfg.final_polish:
-        raise NotImplementedError(
-            "final_polish=True is not ported yet (exact polish, kernels "
-            "K5/K6); use final_polish=False")
     if cfg.labeler != "mf_icm":
         raise NotImplementedError(
             f"labeler={cfg.labeler!r} is not ported yet; only 'mf_icm' runs")
@@ -287,6 +281,7 @@ class PhyloHMRF:
         self.covars_ = None          # (K, F, F)
         self.labels_local = None     # warm-start label grids per region
         self.init_labels = None
+        self.polish_stats_ = None    # CutStats of the last fit's polish
 
     def _dev(self, a, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
@@ -424,6 +419,30 @@ class PhyloHMRF:
                 costs[ri] = cv[bi]
                 nvalid[ri] = nv[bi, 0]
         return label_grids, (post, obs, obs2), costs, nvalid
+
+    def _exact_labels_all(self, means, covars, warm_grids,
+                          method: str = "swap",
+                          stats: CutStats | None = None):
+        """Exact labeling (mean field + ICM start, then graph-cut swap or
+        expansion moves) of every region, one batch per shape bucket;
+        returns the label grids as device tensors."""
+        cfg = self.cfg
+        out = [None] * len(self.regions)
+        means_t = self._dev(means)
+        covars_t = self._dev(covars)
+        for idxs, img, mask, dmaps in self._bucket_arrays.values():
+            unary_k = -gaussian_logpdf_kmajor(img, means_t, covars_t)
+            warm = torch.stack([
+                torch.as_tensor(warm_grids[i], device=self.device)
+                for i in idxs]).to(torch.int32)
+            labels = exact_labels_batched(
+                unary_k, weight_maps(dmaps, cfg.beta1), mask, warm, cfg.beta,
+                self.n_states, max_cycles=cfg.swap_tpu_cycles,
+                icm_max_sweeps=cfg.icm_max_sweeps, method=method,
+                stats=stats)
+            for bi, ri in enumerate(idxs):
+                out[ri] = labels[bi]
+        return out
 
     # ------------------------------------------------------------------
     # M-step (reference `_do_mstep` + `_ou_optimize2`)
@@ -601,6 +620,16 @@ class PhyloHMRF:
         # restore: params_vec1 = best-from-3; moments from the overall best
         self.params_vec = params_best1.copy()
         self.means_, self.covars_ = self._moments_np(params_best)
+
+        if cfg.final_polish:
+            # one exact graph-cut pass over the best-iteration labels under
+            # the restored best-iteration moments (the JAX engine skips it
+            # after exact E-step labelers, which do not run here)
+            self.polish_stats_ = CutStats()
+            with self.timer.phase("final_polish"):
+                t_label_grids = self._exact_labels_all(
+                    self.means_, self.covars_, t_label_grids,
+                    method=cfg.polish_method, stats=self.polish_stats_)
 
         return FitResult(
             params_vec=params_best, params_vec1=params_best1,

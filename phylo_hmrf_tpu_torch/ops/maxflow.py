@@ -1,0 +1,377 @@
+"""Exact s-t min-cut on masked 2D grids and the graph-cut move-making
+behind the exact polish, PyTorch port.
+
+Counterpart of ``phylo_hmrf_tpu/ops/maxflow_tpu.py``, same names. The min
+cut is the data-parallel push-relabel of ``grid_mincut_fused`` with the JAX
+schedule: a global relabel (BFS toward the sink, kernel K6) whenever
+``it % 32 == 0``, push-relabel iterations (kernel K5) four at a time, the
+convergence test read on the host once per four iterations, at most
+``max_sweeps`` iterations. Everything else here is plain tensor code, as it
+is XLA code in the JAX package: the move graphs (alpha-beta swap and
+alpha-expansion, with dominance freezing), the move loop with GCO-style
+pruning, and the energies.
+
+Layouts carry a leading region-batch axis, as the JAX batched entry points
+do: labels, mask (R, H, W); unary_k (R, K, H, W) K-major; wmaps
+(R, 4, H, W); caps (R, 8, H, W) with the directions of ``ALL_DIRS``.
+``plain=True`` runs the kernels' plain versions on any device (the
+reference the kernel path is checked against on the card); otherwise the
+kernels run exactly when the tensors are on a CUDA device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from phylo_hmrf_tpu.data.regions import DIRS
+from phylo_hmrf_tpu_torch.ops.finish_kernels import (
+    _f32, potts_energy, potts_energy_plain)
+from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
+from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2, mean_field_kmajor
+from phylo_hmrf_tpu_torch.ops.mincut_kernels import (
+    ALL_DIRS, EPS, _nb, _rev, bfs_sweeps_, bfs_sweeps_plain, pr_iterations_,
+    pr_iterations_plain)
+
+RELABEL_EVERY = 32     # iterations between global relabels (BFS)
+
+
+@dataclasses.dataclass
+class CutStats:
+    """What the min cuts of one labeling pass did; filled when a caller
+    passes one in."""
+    moves: int = 0           # grid_mincut calls (one per move, whole batch)
+    pr_iterations: int = 0   # push-relabel iterations over all moves
+    bfs_sweeps: int = 0      # BFS sweeps (global relabels + source-side BFS)
+    capped: int = 0          # moves stopped by max_sweeps with nodes active
+
+
+def _bfs_fixpoint(d, caps, n: int, plain: bool, stats):
+    """Min-plus sweeps until no distance changes, 8 per host check."""
+    k = 0
+    changed = True
+    while changed and k < n:
+        if plain:
+            new = bfs_sweeps_plain(d, caps, n, 8)
+            changed = bool(torch.any(new != d))
+            d = new
+        else:
+            changed = bool(bfs_sweeps_(d, caps, n, n_inner=8))
+        k += 8
+    if stats is not None:
+        stats.bfs_sweeps += k
+    return d
+
+
+def grid_mincut(excess0, cap_t0, caps0, max_sweeps: int = 3000, *,
+                plain: bool = False,
+                stats: CutStats | None = None) -> torch.Tensor:
+    """Phase-1 push-relabel min cut of a region batch (the schedule of the
+    JAX ``grid_mincut_fused``; regions share the loop until the last one
+    converges).
+
+    excess0 (R, H, W): source-arc capacities (pre-saturated); cap_t0
+    (R, H, W): sink-arc capacities; caps0 (R, 8, H, W): neighbour-arc
+    capacities, 0 on arcs leaving the grid. Returns source_side (R, H, W)
+    bool: the pixels that cannot reach the sink in the final residual
+    graph (distance >= n = H*W + 2)."""
+    R, H, W = excess0.shape
+    n = H * W + 2
+    e = excess0.to(torch.float32).clone().contiguous()
+    cap_t = cap_t0.to(torch.float32).clone().contiguous()
+    caps = caps0.to(torch.float32).clone().contiguous()
+    h = torch.zeros((R, H, W), dtype=torch.int32, device=e.device)
+
+    def seed():
+        return torch.where(cap_t > EPS, 1, n).to(torch.int32).contiguous()
+
+    it = 0
+    while bool(torch.any((e > EPS) & (h < n))):
+        if it >= max_sweeps:
+            if stats is not None:
+                stats.capped += 1
+            break
+        if it % RELABEL_EVERY == 0:
+            # heights are lower bounds on the residual distance: the exact
+            # BFS distance can only lift them
+            h = torch.maximum(h, _bfs_fixpoint(seed(), caps, n, plain, stats))
+        if plain:
+            e, h, cap_t, caps = pr_iterations_plain(e, h, cap_t, caps, n, 4)
+        else:
+            pr_iterations_(e, h, cap_t, caps, n, n_inner=4)
+        it += 4
+    if stats is not None:
+        stats.moves += 1
+        stats.pr_iterations += it
+    return _bfs_fixpoint(seed(), caps, n, plain, stats) >= n
+
+
+def _incident_wsum(wmaps, beta: float) -> torch.Tensor:
+    """beta * (sum of the edge weights incident to each pixel): the largest
+    pairwise-energy decrease from relabeling that pixel alone. (R, H, W)."""
+    s = torch.zeros_like(wmaps[:, 0])
+    for d in range(4):
+        di, dj = ALL_DIRS[d]
+        s = s + wmaps[:, d] + _shift2(wmaps[:, d], -di, -dj, 0.0)
+    return beta * s
+
+
+def _swap_graph(labels, unary_k, wmaps, mask, a: int, b: int, beta: float,
+                wsum):
+    """Binary min-cut graph of one alpha-beta swap move (source side =
+    label a): (excess0, cap_t0, caps0, in_play), each with the batch axis.
+
+    Dominance (persistency) freezing: a pixel whose unary margin for its
+    current label strictly beats its total incident pairwise weight keeps
+    that label in every optimal move, so it leaves the cut and acts as a
+    frozen neighbour. ``wsum`` is `_incident_wsum(wmaps, beta)`, the same
+    for every move of a pass."""
+    in_play = ((labels == a) | (labels == b)) & mask
+    u_a = unary_k[:, a]
+    u_b = unary_k[:, b]
+    keep_a = (labels == a) & ((u_b - u_a) > wsum)
+    keep_b = (labels == b) & ((u_a - u_b) > wsum)
+    in_play = in_play & ~keep_a & ~keep_b
+
+    # t-links: c0 = cost(label a), c1 = cost(label b), frozen neighbours
+    # (labels not in {a, b}, or dominance-frozen) folded in as unary shifts
+    c0 = torch.where(in_play, u_a, 0.0)
+    c1 = torch.where(in_play, u_b, 0.0)
+    for d in range(4):
+        di, dj = ALL_DIRS[d]
+        w = wmaps[:, d]
+        for s in (1, -1):
+            nb_lab = _shift2(labels, s * di, s * dj, -1)
+            nb_play = _shift2(in_play, s * di, s * dj, False)
+            w_e = w if s == 1 else _shift2(w, -di, -dj, 0.0)
+            frozen = (~nb_play) & (nb_lab >= 0)
+            add = torch.where(frozen, w_e, 0.0) * beta
+            c0 = c0 + torch.where(nb_lab != a, add, 0.0)
+            c1 = c1 + torch.where(nb_lab != b, add, 0.0)
+
+    diff = torch.where(in_play, c1 - c0, 0.0)
+    excess0 = torch.clamp_min(diff, 0.0)        # S -> p (cut => label b)
+    cap_t0 = torch.clamp_min(-diff, 0.0)        # p -> T (cut => label a)
+
+    # pairwise Potts arcs between in-play neighbours: undirected beta * w
+    fwd, bwd = [], []
+    for d in range(4):
+        di, dj = ALL_DIRS[d]
+        nb_play = _shift2(in_play, di, dj, False)
+        lam = torch.where(in_play & nb_play, wmaps[:, d] * beta, 0.0)
+        fwd.append(lam)
+        bwd.append(_nb(lam, _rev(d), 0.0))
+    caps0 = torch.stack(fwd + bwd, dim=1)
+    return excess0, cap_t0, caps0, in_play
+
+
+def _expansion_graph(labels, unary_k, wmaps, mask, alpha: int, beta: float,
+                     wsum):
+    """Binary min-cut graph of one alpha-expansion move (source side =
+    keep the current label; Kolmogorov-Zabih reduction of the weighted
+    Potts move energy, see the JAX ``expansion_move``): (excess0, cap_t0,
+    caps0, in_play). Dominance freezing as in `_swap_graph`."""
+    is_alpha = mask & (labels == alpha)
+    in_play = mask & (labels != alpha)
+    u_alpha = unary_k[:, alpha]
+    u_cur = torch.gather(unary_k, 1, labels[:, None].long())[:, 0]
+    in_play = in_play & ~((u_alpha - u_cur) > wsum)
+    # valid pixels out of the cut but not at alpha: their edges become
+    # constant shifts
+    frozen_cur = mask & (labels != alpha) & ~in_play
+
+    c0 = torch.where(in_play, u_cur, 0.0)     # keep the current label
+    c1 = torch.where(in_play, u_alpha, 0.0)   # take alpha
+    fwd = []
+    for d in range(4):
+        di, dj = ALL_DIRS[d]
+        lam = wmaps[:, d] * beta                       # edge p -> q
+        nb_lab = _shift2(labels, di, dj, -1)
+        nb_play = _shift2(in_play, di, dj, False)
+        nb_alpha = _shift2(is_alpha, di, dj, False)
+        nb_froz = _shift2(frozen_cur, di, dj, False)
+        both = in_play & nb_play
+        same = nb_lab == labels
+        c1 = c1 + torch.where(both & same, lam, 0.0)
+        # the q-side unary shift (D - C = -lam) lives at the neighbour
+        c1 = c1 - _nb(torch.where(both, lam, 0.0), _rev(d), 0.0)
+        fwd.append(torch.where(both, torch.where(same, 2.0 * lam, lam), 0.0))
+        # neighbour frozen at alpha: p pays lam iff it keeps
+        c0 = c0 + torch.where(in_play & nb_alpha, lam, 0.0)
+        # p frozen at alpha with a movable q: q pays lam iff it keeps
+        c0 = c0 + _nb(torch.where(is_alpha & nb_play, lam, 0.0), _rev(d), 0.0)
+        # neighbour frozen at its own label l_q != alpha: p pays lam if it
+        # takes alpha, and lam * [l_p != l_q] if it keeps
+        c1 = c1 + torch.where(in_play & nb_froz, lam, 0.0)
+        c0 = c0 + torch.where(in_play & nb_froz & ~same, lam, 0.0)
+        # p frozen at its label with a movable q (the mirror, at q)
+        c1 = c1 + _nb(torch.where(frozen_cur & nb_play, lam, 0.0), _rev(d),
+                      0.0)
+        c0 = c0 + _nb(torch.where(frozen_cur & nb_play & ~same, lam, 0.0),
+                      _rev(d), 0.0)
+
+    diff = torch.where(in_play, c1 - c0, 0.0)
+    excess0 = torch.clamp_min(diff, 0.0)        # S -> p (cut => take alpha)
+    cap_t0 = torch.clamp_min(-diff, 0.0)        # p -> T (cut => keep)
+    # directed arcs p -> q only: the reverse residual arcs start empty
+    caps0 = torch.stack(fwd + [torch.zeros_like(fwd[0])] * 4, dim=1)
+    return excess0, cap_t0, caps0, in_play
+
+
+def _swap_move_batch(labels, unary_k, wmaps, mask, a: int, b: int,
+                     beta: float, wsum, *, max_sweeps: int,
+                     plain: bool = False, stats: CutStats | None = None):
+    """One exact swap move over the region batch (regions share the pair).
+    Returns (labels (R, H, W), n_changed (R,) on the device)."""
+    excess0, cap_t0, caps0, in_play = _swap_graph(labels, unary_k, wmaps,
+                                                  mask, a, b, beta, wsum)
+    side = grid_mincut(excess0, cap_t0, caps0, max_sweeps, plain=plain,
+                       stats=stats)
+    new = torch.where(side, a, b).to(labels.dtype)
+    new = torch.where(in_play, new, labels)
+    return new, torch.sum(new != labels, dim=(1, 2))
+
+
+def _expansion_move_batch(labels, unary_k, wmaps, mask, alpha: int,
+                          beta: float, wsum, *, max_sweeps: int,
+                          plain: bool = False,
+                          stats: CutStats | None = None):
+    """One exact alpha-expansion move over the region batch. Returns
+    (labels (R, H, W), n_changed (R,) on the device)."""
+    excess0, cap_t0, caps0, in_play = _expansion_graph(
+        labels, unary_k, wmaps, mask, alpha, beta, wsum)
+    side = grid_mincut(excess0, cap_t0, caps0, max_sweeps, plain=plain,
+                       stats=stats)
+    new = torch.where(side, labels, alpha).to(labels.dtype)
+    new = torch.where(in_play, new, labels)
+    return new, torch.sum(new != labels, dim=(1, 2))
+
+
+def _energy_hist(labels, unary_k, wmaps, mask, beta: float, n_states: int):
+    """Per-region MRF energy (R,) float64 and the label histogram
+    (n_states,) over the batch's valid pixels. Float32 terms, summed in
+    float64; invalid edges weigh 0, so border fills never contribute."""
+    u_cur = torch.gather(unary_k, 1, labels[:, None].long())[:, 0]
+    e = torch.where(mask, u_cur, 0.0).double().sum(dim=(1, 2))
+    for d, (di, dj) in enumerate(DIRS):
+        diff = (labels != _shift2(labels, di, dj, -1)).to(wmaps.dtype)
+        e = e + beta * (wmaps[:, d] * diff).double().sum(dim=(1, 2))
+    hist = torch.bincount(labels[mask].long(), minlength=n_states)
+    return e, hist
+
+
+def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
+                      n_states: int, method: str, max_cycles: int,
+                      max_sweeps: int = 3000, tol: float = 1e-6, *,
+                      plain: bool = False,
+                      stats: CutStats | None = None) -> torch.Tensor:
+    """Exact move-making over a batch of same-shape regions (the JAX
+    ``_optimize_batched``): cycles of expansion moves (one per label) or
+    swap moves (one per pair), with GCO's pruning — a move is skipped when
+    none of the labels it depends on changed since it last ran. Change
+    counts, energies and the histogram come back to the host once per
+    cycle; a cycle with no change, or an energy drop within ``tol``
+    (relative), ends the pass."""
+    beta = _f32(beta)       # the cut capacities see beta at float32
+    wsum = _incident_wsum(wmaps, beta)
+    labels = torch.where(mask, init_labels, 0).to(torch.int32)
+    e, hist_t = _energy_hist(labels, unary_k, wmaps, mask, beta, n_states)
+    prev_e = float(e.sum())
+    hist = hist_t.cpu().numpy()
+
+    if method == "expansion":
+        moves = [(a,) for a in range(n_states)]
+    else:
+        moves = [(a, b) for a in range(n_states)
+                 for b in range(a + 1, n_states)]
+    kw = dict(max_sweeps=max_sweeps, plain=plain, stats=stats)
+
+    last_run = {}        # move -> move counter at its last run
+    changed_actual = {}  # label (or "any") -> counter of its last change
+    t = 0
+    for _ in range(max_cycles):
+        maybe = hist > 0
+        changed_opt = dict(changed_actual)
+        pending = []     # (move, counter, n_changed (R,) on the device)
+        for mv in moves:
+            lr = last_run.get(mv)
+            if method == "expansion":
+                if lr is not None and changed_opt.get("any", -1) <= lr:
+                    continue
+                labels, nch = _expansion_move_batch(
+                    labels, unary_k, wmaps, mask, mv[0], beta, wsum, **kw)
+                changed_opt["any"] = t
+            else:
+                a, b = mv
+                # skippable while both labels are provably empty; a run
+                # may repopulate either, so both are marked
+                if not (maybe[a] or maybe[b]):
+                    continue
+                if lr is not None and changed_opt.get(a, -1) <= lr \
+                        and changed_opt.get(b, -1) <= lr:
+                    continue
+                labels, nch = _swap_move_batch(
+                    labels, unary_k, wmaps, mask, a, b, beta, wsum, **kw)
+                changed_opt[a] = changed_opt[b] = t
+                maybe[a] = maybe[b] = True
+            last_run[mv] = t
+            pending.append((mv, t, nch))
+            t += 1
+        if not pending:
+            break
+
+        # one host read per cycle: change counts, energies, histogram
+        e, hist_t = _energy_hist(labels, unary_k, wmaps, mask, beta,
+                                 n_states)
+        nch_all = torch.stack([p[2] for p in pending]).cpu().numpy()
+        hist = hist_t.cpu().numpy()
+        e_now = float(e.sum())
+        total_changed = 0
+        for (mv, tt, _), nc in zip(pending, nch_all):
+            n_tot = int(nc.sum())
+            total_changed += n_tot
+            if n_tot > 0:
+                for lab in (mv if method != "expansion" else ("any",)):
+                    changed_actual[lab] = max(changed_actual.get(lab, -1), tt)
+        if total_changed == 0:
+            break
+        if prev_e - e_now <= tol * max(1.0, abs(prev_e)):
+            break
+        prev_e = e_now
+    return labels
+
+
+def _start_batch(unary_k, wmaps, mask, warm, beta: float,
+                 icm_max_sweeps: int, *, plain: bool = False) -> torch.Tensor:
+    """Labeling start (the JAX ``_start_batch_pallas``): annealed mean
+    field (K1) proposes, checkerboard ICM (K2) polishes both the proposal
+    and the warm labels, the lower Potts energy (K3) wins per region."""
+    mf = mean_field_kmajor(unary_k, wmaps, beta, plain=plain)
+    cand_a = icm_kmajor(unary_k, wmaps, mask, mf, beta, icm_max_sweeps,
+                        plain=plain)
+    cand_b = icm_kmajor(unary_k, wmaps, mask, warm, beta, icm_max_sweeps,
+                        plain=plain)
+    energy = potts_energy_plain if plain else potts_energy
+    mask_i = mask.to(torch.int32)
+    e_a = energy(unary_k, mask_i, cand_a, wmaps, beta)
+    e_b = energy(unary_k, mask_i, cand_b, wmaps, beta)
+    return torch.where((e_a <= e_b)[:, None, None], cand_a, cand_b)
+
+
+def exact_labels_batched(unary_k, wmaps, mask, warm, beta: float,
+                         n_states: int, max_cycles: int = 2,
+                         icm_max_sweeps: int = 60, method: str = "swap",
+                         max_sweeps: int = 3000, tol: float = 1e-6, *,
+                         plain: bool = False,
+                         stats: CutStats | None = None) -> torch.Tensor:
+    """Full-quality labeling of a batch of same-shape regions: mean field
+    + ICM proposes, exact graph-cut move-making finishes (``method``
+    "swap", the reference E-step's move family, or "expansion"). unary_k
+    is K-major (R, K, H, W). Returns labels (R, H, W) int32."""
+    start = _start_batch(unary_k, wmaps, mask, warm, beta, icm_max_sweeps,
+                         plain=plain)
+    return _optimize_batched(unary_k, wmaps, mask, start, beta, n_states,
+                             method, max_cycles, max_sweeps, tol,
+                             plain=plain, stats=stats)

@@ -3,7 +3,8 @@ card (needs an NVIDIA GPU with sm_90a and nvcc; skipped without CUDA).
 
 Run on a GPU machine: ``python -m pytest tests/test_torch_cuda.py -q``.
 Shapes: a small ragged grid (H and W of no tile multiple) and the chr21
-cell (R=1, K=10, H=672, W=768, F=4).
+cell (R=1, K=10, H=672, W=768, F=4). K5/K6 run on the graph of a real
+expansion move (the one with the most pixels in play) of the K1-K3 start.
 """
 
 import numpy as np
@@ -107,6 +108,120 @@ def test_k4_kernel_matches_plain(dev, shape):
         want = finish_stats_plain(*args, negate=True)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+
+
+def _cut_inputs(dev, shape):
+    """`_inputs`, or for "ragged_x2" a batch of two ragged regions (the
+    second with other warm labels), so the cut kernels see R = 2."""
+    if shape != "ragged_x2":
+        return _inputs(dev, shape)
+    a, b = _inputs(dev, "ragged"), _inputs(dev, "ragged")
+    b["warm"] = (b["warm"] + 1) % b["unary_k"].shape[1]
+    return {k: torch.cat([a[k], b[k]]).contiguous() for k in a}
+
+
+CUT_SHAPES = ["ragged", "ragged_x2", "chr21"]
+
+
+def _move_graph(x):
+    """The expansion-move graph with the most pixels in play, from the
+    K1-K3 start labels: (excess0, cap_t0, caps0, n)."""
+    from phylo_hmrf_tpu_torch.ops import maxflow as mf
+
+    K = x["unary_k"].shape[1]
+    start = mf._start_batch(x["unary_k"], x["w"], x["mask"], x["warm"], 1.0,
+                            60)
+    wsum = mf._incident_wsum(x["w"], 1.0)
+    graphs = [mf._expansion_graph(start, x["unary_k"], x["w"], x["mask"], a,
+                                  1.0, wsum) for a in range(K)]
+    excess0, cap_t0, caps0, in_play = max(graphs,
+                                          key=lambda g: int(g[3].sum()))
+    assert in_play.any()
+    H, W = excess0.shape[1:]
+    return excess0, cap_t0, caps0, H * W + 2
+
+
+@pytest.mark.parametrize("shape", CUT_SHAPES)
+def test_k6_kernel_matches_plain(dev, shape):
+    """8 sweeps: identical distances (Jacobi sweeps, integer min-plus);
+    then the fixpoint of both paths: identical."""
+    from phylo_hmrf_tpu_torch.ops.maxflow import _bfs_fixpoint
+    from phylo_hmrf_tpu_torch.ops.mincut_kernels import (bfs_sweeps_,
+                                                         bfs_sweeps_plain)
+
+    excess0, cap_t0, caps0, n = _move_graph(_cut_inputs(dev, shape))
+    d0 = torch.where(cap_t0 > 1e-6, 1, n).to(torch.int32).contiguous()
+    d = d0.clone()
+    n0 = bfs_sweeps_.launches
+    changed = bfs_sweeps_(d, caps0, n, n_inner=8)
+    want = bfs_sweeps_plain(d0, caps0, n, 8)
+    assert bfs_sweeps_.launches - n0 == 8
+    assert torch.equal(d, want)
+    assert int(changed) == int(torch.any(want != d0))
+    assert torch.equal(_bfs_fixpoint(d0.clone(), caps0, n, False, None),
+                       _bfs_fixpoint(d0.clone(), caps0, n, True, None))
+
+
+@pytest.mark.parametrize("shape", CUT_SHAPES)
+@pytest.mark.parametrize("n_inner", [1, 4])
+def test_k5_kernel_matches_plain(dev, shape, n_inner):
+    """Push-relabel iterations from the BFS-relabelled state: heights
+    identical; e, cap_t, caps within atol 1e-6 (same operations in the
+    same order with round-to-nearest intrinsics: expected bitwise)."""
+    from phylo_hmrf_tpu_torch.ops.maxflow import _bfs_fixpoint
+    from phylo_hmrf_tpu_torch.ops.mincut_kernels import (
+        pr_iterations_, pr_iterations_plain)
+
+    excess0, cap_t0, caps0, n = _move_graph(_cut_inputs(dev, shape))
+    d0 = torch.where(cap_t0 > 1e-6, 1, n).to(torch.int32).contiguous()
+    h = _bfs_fixpoint(d0, caps0, n, True, None)
+    got = [excess0.clone(), h.clone(), cap_t0.clone(), caps0.clone()]
+    want = (excess0, h, cap_t0, caps0)
+    for _ in range(3):
+        n0 = pr_iterations_.launches
+        pr_iterations_(*got, n, n_inner=n_inner)
+        assert pr_iterations_.launches - n0 == 2 * n_inner
+        want = pr_iterations_plain(*want, n, n_inner)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        for i in (0, 2, 3):
+            torch.testing.assert_close(got[i], want[i], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", CUT_SHAPES)
+def test_grid_mincut_kernel_matches_plain(dev, shape):
+    """The whole min cut on the kernels and on the plain versions: the
+    cut costs agree, rel 1e-5 (the cuts may differ where several minimum
+    cuts exist); no run hits max_sweeps."""
+    from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, grid_mincut
+    from phylo_hmrf_tpu_torch.ops.mincut_kernels import _nb
+
+    excess0, cap_t0, caps0, _ = _move_graph(_cut_inputs(dev, shape))
+
+    def cost(side):
+        c = torch.where(side, cap_t0, excess0).double().sum()
+        for a in range(8):
+            c = c + (caps0[:, a].double() * (side & ~_nb(side, a, True))).sum()
+        return float(c)
+
+    sk, sp = CutStats(), CutStats()
+    got = grid_mincut(excess0, cap_t0, caps0, stats=sk)
+    want = grid_mincut(excess0, cap_t0, caps0, plain=True, stats=sp)
+    assert sk.capped == sp.capped == 0 and sk.moves == 1
+    assert cost(got) == pytest.approx(cost(want), rel=1e-5)
+
+
+def test_polish_is_deterministic(dev):
+    """Two exact expansion polishes of the chr21 start on the kernels:
+    bitwise equal labels."""
+    from phylo_hmrf_tpu_torch.ops.maxflow import exact_labels_batched
+
+    x = _inputs(dev, "chr21")
+    outs = [exact_labels_batched(x["unary_k"], x["w"], x["mask"], x["warm"],
+                                 1.0, 10, max_cycles=1, method="expansion")
+            for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    assert (outs[0] != x["warm"])[x["mask"]].any()
 
 
 def test_estep_kernels_are_deterministic(dev):

@@ -1,5 +1,6 @@
-"""The port's whole EM fit (``final_polish=False``) against the JAX
-engine on CPU, the state carried between them, and what the port refuses.
+"""The port's whole EM fit against the JAX engine on CPU, without and
+with the final exact polish, the state carried between them, and what the
+port refuses.
 """
 
 import os
@@ -94,6 +95,30 @@ def test_fit_matches_jax_in_lockstep():
     assert mt._rng.bit_generator.state == mj._rng.bit_generator.state
 
 
+@pytest.mark.parametrize("method", ["expansion", "swap"])
+def test_fit_with_polish_matches_jax_in_lockstep(method):
+    """The lockstep fit above with the final exact polish on: the default
+    config's expansion moves, and swap moves. The iterations agree as
+    above, and the polished final labels are identical to the JAX
+    package's (both polishes are exact move-making from the same start and
+    the same moments)."""
+    cfg = PhyloHMRFConfig(n_states=3, max_iter=3, seed=1, min_iter=0,
+                          threshold=1e-12, mstep_iters=6, pad_h=8, pad_w=8,
+                          polish_method=method)
+    assert cfg.final_polish
+    out = _paired_fits(cfg, seed=0)
+    (rj, lj, _), (rt, lt, mt) = out["jax"], out["torch"]
+    np.testing.assert_allclose(rt.cost_vec, rj.cost_vec, rtol=1e-5)
+    for a, b in zip(lt, lj):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(rt.labels, rj.labels)
+    st = mt.polish_stats_
+    assert st.moves > 0 and st.pr_iterations > 0 and st.capped == 0
+    assert "final_polish" in mt.timer.summary()
+    # the polish relabeled pixels of the best iteration's E-step labels
+    assert (rt.labels != lt[rt.iter_id2]).any()
+
+
 def test_fit_matches_jax_default_solver():
     """The same with the default 150-step M-step. Iteration 0 runs before
     any M-step: rtol 1e-6. The OU objective is not convex and the two
@@ -178,12 +203,15 @@ def test_cuda_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(final_polish=True), dict(labeler="icm"), dict(labeler="lbp"),
+    dict(labeler="swap_tpu"), dict(labeler="icm"), dict(labeler="lbp"),
     dict(labeler="mf_icm+swap@2"), dict(dtype="float64"),
-    dict(kmeans_backend="sklearn")])
+    dict(kmeans_backend="sklearn"), dict(labeler="expansion_tpu"),
+    dict(labeler="mf_icm+expansion@3")])
 def test_unsupported_config_raises(kw):
+    """Everything but the mf_icm labeler in float32 raises, with the final
+    polish on (the default) or off."""
     regions, _ = synth_problem(np.random.default_rng(0), H0=8)
-    base = dict(final_polish=False, n_states=3)
+    base = dict(n_states=3)
     base.update(kw)
     with pytest.raises(NotImplementedError):
         PhyloHMRF(TREE, regions, PhyloHMRFConfig(**base), device="cpu")

@@ -362,16 +362,19 @@ def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
 
 def test_port_imports_no_jax():
     """Importing every port module in a fresh interpreter leaves jax (and
-    scikit-learn, absent on the GPU machine) out of sys.modules."""
+    scikit-learn and pandas, absent on the GPU machine) out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import phylo_hmrf_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "[importlib.import_module(n) for n in names]\n"
-        "assert len(names) >= 12, names\n"
+        "assert len(names) >= 14, names\n"
+        "assert {'phylo_hmrf_tpu_torch.ops.maxflow', "
+        "'phylo_hmrf_tpu_torch.ops.mincut_kernels'} <= set(names)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'sklearn')]\n"
+        "('jax', 'jaxlib', 'sklearn', 'pandas')]\n"
         "assert not bad, bad\n"
         "assert not any(m.startswith(('phylo_hmrf_tpu.models', "
         "'phylo_hmrf_tpu.ops', 'phylo_hmrf_tpu.parallel')) "
