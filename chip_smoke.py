@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the six kernels from ``phylo_hmrf_tpu_torch/csrc`` with nvcc (one
+Builds the eight kernels from ``phylo_hmrf_tpu_torch/csrc`` with nvcc (one
 process per source, in parallel), holds each against its plain PyTorch
-version at the chr21 shapes (R=1, K=10, H=672, W=768, F=4) and times both:
-the four E-step kernels on the E-step's operands, the two min-cut kernels
+version and times both: the four E-step kernels at the chr21 shapes (R=1,
+K=10, H=672, W=768, F=4) on the E-step's operands, the two min-cut kernels
 (K5 push-relabel, K6 BFS relabel) on a real expansion-move graph of the
 chr21 start labels, and the whole min cut on both paths. Then it checks
 one whole E-step on the kernel path against the plain path and for bitwise
@@ -14,14 +14,31 @@ determinism, holds the exact expansion polish against the C++ expansion
 oracle on the same unary, weights and start, and fits the chr21 problem
 (653 x 653 bins, 4 species, K=10, seed 0) for five EM iterations with the
 default config (``final_polish=True``, ``polish_method="expansion"``)
-through ``PhyloHMRF.fit`` and checks the result. Every phase that fails
-raises; the script exits 0 only if all passed.
+through ``PhyloHMRF.fit`` and checks the result.
+
+The multi-device paths run over a mesh of 4 shards (all on the one card
+when it is the only one): the halo kernels K7 (mean-field sweep) and K8
+(ICM phase) against their plain versions on an interior row shard of the
+spatial fit's 24-row off-diagonal block (6 rows, the shapes the fit gives
+them) and, as a scale point, of a 10 kb-scale region (3264 x 3264 bins
+padded to 3264 x 3328, the ``bench.py --stress`` shapes); their split
+identities on the 10 kb grid (K7 on 4 shards equals one K1 sweep of the
+whole grid, K8 with the global parity one K2 phase, bitwise); the
+row-sharded E-step of that region against the single-device E-step and for
+bitwise repeats (and the device busy time of both under
+``torch.profiler``); the region-sharded E-step of a 4-region chr21 bucket
+against the single-device bucket; and a default-config spatial fit of the
+chr21 region with a 20 x 653 off-diagonal block (its 24 rows give 6-row
+shards, the K7/K8 branch), whose first E-step is held against the
+single-device one region by region. Every phase that fails raises; the
+script exits 0 only if all passed.
 
 The second-to-last line of stdout is a JSON object with one entry per
-kernel (launches on the fit's main path, max abs error against the plain
-version, kernel and plain times in ms); the last line is
-``{"ok": true, "device": {...}}``. Without CUDA it exits 1 before any
-of that.
+kernel (launches on the path that runs it, max abs error against the plain
+version, kernel and plain times in ms, the bound: the least time of the
+same work on the card, from the bytes it must move and the operations it
+must do); the last line is ``{"ok": true, "device": {...}}``. Without CUDA
+it exits 1 before any of that.
 """
 
 import json
@@ -48,7 +65,17 @@ KERNELS = {
                          "phylo_hmrf_tpu/ops/mincut_pallas.py:89"),
     "K6_bfs_sweeps": ("phylo_hmrf_tpu_torch/csrc/mincut.cu",
                       "phylo_hmrf_tpu/ops/mincut_pallas.py:46"),
+    "K7_mf_sweep_halo": ("phylo_hmrf_tpu_torch/csrc/mf.cu",
+                         "phylo_hmrf_tpu/ops/mf_pallas.py:67"),
+    "K8_icm_phase_halo": ("phylo_hmrf_tpu_torch/csrc/icm.cu",
+                          "phylo_hmrf_tpu/ops/icm_pallas.py:26"),
 }
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes/s and float32 operations/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+SHARDS = 4   # shards of the multi-device phases
 
 
 def _check(ok, what):
@@ -77,12 +104,44 @@ def _max_abs(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the float32 rate."""
+    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _with_bound(k):
+    """A kernel record with its bound and the kernel's share of it."""
+    bound_ms, bound_by = _bound(k["nbytes"], k["ops"])
+    return dict(k, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / k["ms"])
+
+
+# operations per unit of work, counted from the kernels' arithmetic: one
+# mean-field sweep per state and pixel (8 products and adds of the
+# agreement, the field, the tempered softmax, the damping); one ICM phase
+# per state and active pixel (8 selects and adds, the score, the compare);
+# the energy per pixel; K4 per state and pixel (the pairwise agreement,
+# two softmaxes, the F + F^2 statistics products and adds); one
+# push-relabel iteration and one BFS sweep per pixel (8 arcs each)
+OPS_MF, OPS_ICM, OPS_ENERGY, OPS_PR, OPS_BFS = 27, 19, 24, 48, 24
+
+
+def _ops_finish(K, F):
+    return K * (16 + 10 + 2 * (F + F * F))
+
+
 def check_kernels(x, beta=1.0):
     """Each kernel against its plain version on the same device tensors.
     Returns {kernel: {"max_abs_err", "ms", "plain_ms", "unit"}}."""
     import torch
 
-    from phylo_hmrf_tpu.config import SMALL_EPS
+    from phylo_hmrf_tpu_torch.config import SMALL_EPS
     from phylo_hmrf_tpu_torch.ops.finish_kernels import (
         finish_stats, finish_stats_plain, potts_energy, potts_energy_plain)
     from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor, icm_sweep_pair
@@ -90,6 +149,8 @@ def check_kernels(x, beta=1.0):
         mean_field_kmajor, mf_sweeps, mf_sweeps_plain)
 
     out = {}
+    R, K, H, W = x["unary_k"].shape
+    npx = R * H * W
     # K1: one temperature's 8 sweeps; tolerance rtol 2e-4, atol 1e-6
     k1 = (x["q0"], x["base"], x["w"], 1.0, 0.5, beta)
     got = mf_sweeps(*k1, n_inner=8)
@@ -105,7 +166,9 @@ def check_kernels(x, beta=1.0):
         max_abs_err=_max_abs(got, want), label_agreement=agree,
         ms=_time_ms(lambda: mf_sweeps(*k1, n_inner=8)),
         plain_ms=_time_ms(lambda: mf_sweeps_plain(*k1, 8)),
-        unit="8 sweeps at one temperature", tolerance="rtol 2e-4, atol 1e-6")
+        unit="8 sweeps at one temperature", tolerance="rtol 2e-4, atol 1e-6",
+        nbytes=_nbytes(x["q0"], x["base"], x["w"], x["q0"]),
+        ops=8 * OPS_MF * K * npx)
 
     # K2: one sweep pair (8 phases) and the whole ICM loop; identical labels
     lab0 = torch.where(x["mask"], x["warm"], 0).to(torch.int32).contiguous()
@@ -124,7 +187,9 @@ def check_kernels(x, beta=1.0):
         ms=_time_ms(lambda: icm_sweep_pair(*k2)),
         plain_ms=_time_ms(lambda: icm_sweep_pair(*k2, plain=True)),
         unit="one sweep pair = 8 phase launches",
-        tolerance="identical labels")
+        tolerance="identical labels",
+        nbytes=_nbytes(lab0, x["unary_k"], x["w"], x["mask_i"], lab0),
+        ops=2 * OPS_ICM * K * npx)
 
     # K3: rtol 1e-6 (both sum float32 terms in float64)
     k3 = (x["unary_k"], x["mask_i"], x["warm"], x["w"], beta)
@@ -135,7 +200,9 @@ def check_kernels(x, beta=1.0):
         max_abs_err=_max_abs(got, want),
         ms=_time_ms(lambda: potts_energy(*k3)),
         plain_ms=_time_ms(lambda: potts_energy_plain(*k3)),
-        unit="one call (tile pass + reduce pass)", tolerance="rtol 1e-6")
+        unit="one call (tile pass + reduce pass)", tolerance="rtol 1e-6",
+        nbytes=_nbytes(x["unary_k"], x["mask_i"], x["warm"], x["w"]),
+        ops=OPS_ENERGY * npx)
 
     # K4: rtol 2e-5, atol 1e-6 on every output
     k4 = (x["unary_k"], x["img_f"], x["mask_i"], x["warm"], x["w"], beta,
@@ -150,7 +217,10 @@ def check_kernels(x, beta=1.0):
         ms=_time_ms(lambda: finish_stats(*k4, negate=True)),
         plain_ms=_time_ms(lambda: finish_stats_plain(*k4, negate=True)),
         unit="one call (tile pass + reduce pass)",
-        tolerance="rtol 2e-5, atol 1e-6")
+        tolerance="rtol 2e-5, atol 1e-6",
+        nbytes=_nbytes(x["unary_k"], x["img_f"], x["mask_i"], x["warm"],
+                       x["w"], *got),
+        ops=_ops_finish(K, x["img_f"].shape[1]) * npx)
     return out
 
 
@@ -210,7 +280,8 @@ def check_mincut(x, n_states, beta=1.0):
         ms=_time_ms(lambda: bfs_sweeps_(d8, caps0, n, n_inner=8)),
         plain_ms=_time_ms(lambda: bfs_sweeps_plain(d0, caps0, n, 8)),
         unit="8 BFS sweeps", tolerance="identical int32 distances",
-        reachable=int((fix < n).sum()))
+        reachable=int((fix < n).sum()),
+        nbytes=_nbytes(d0, caps0, d0), ops=8 * OPS_BFS * R * H * W)
 
     # K5: 4 iterations from the relabelled state (h = BFS distance).
     # Same operations in the same order with round-to-nearest intrinsics:
@@ -230,7 +301,9 @@ def check_mincut(x, n_states, beta=1.0):
         plain_ms=_time_ms(lambda: pr_iterations_plain(
             excess0, fix, cap_t0, caps0, n, 4)),
         unit="4 push-relabel iterations",
-        tolerance="identical h; e, cap_t, caps atol 1e-6")
+        tolerance="identical h; e, cap_t, caps atol 1e-6",
+        nbytes=2 * _nbytes(excess0, fix, cap_t0, caps0),
+        ops=4 * OPS_PR * R * H * W)
 
     # the whole min cut: the cut costs agree (the cuts may differ where
     # several minimum cuts exist)
@@ -260,7 +333,7 @@ def check_mincut(x, n_states, beta=1.0):
 def check_oracle(x, region, start, n_states, max_cycles, beta=1.0,
                  beta1=0.5):
     """The exact expansion polish of the port against the C++
-    alpha-expansion (``phylo_hmrf_tpu.native``, numpy + ctypes) from the
+    alpha-expansion (``phylo_hmrf_tpu_torch.native``, ctypes) from the
     same start on the same unary and weights. Gate, the reference's own:
     port energy <= oracle energy + 0.1% of its magnitude."""
     import dataclasses
@@ -268,8 +341,8 @@ def check_oracle(x, region, start, n_states, max_cycles, beta=1.0,
     import numpy as np
     import torch
 
-    from phylo_hmrf_tpu import native
-    from phylo_hmrf_tpu.data.regions import flat_edge_list
+    from phylo_hmrf_tpu_torch import native
+    from phylo_hmrf_tpu_torch.data.regions import flat_edge_list
     from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, _optimize_batched
 
     stats = CutStats()
@@ -339,29 +412,37 @@ def check_estep(x, dmaps, means, covs):
                 plain_s=t_p, bitwise_repeat=True)
 
 
-def fit_chr21(tree, region, device, max_iter=5):
-    """The port's main path: PhyloHMRF.fit with the default config (final
-    exact expansion polish) on the chr21 problem. Returns (result, model,
-    launches per kernel during the fit, each iteration's label grid)."""
-    from phylo_hmrf_tpu_torch import PhyloHMRF, PhyloHMRFConfig
+def _counters():
+    """The launch counter of every kernel wrapper, by kernel name."""
     from phylo_hmrf_tpu_torch.ops import finish_kernels, icm_kernels
     from phylo_hmrf_tpu_torch.ops import mf_kernels, mincut_kernels
 
-    counters = {"K1_mf_sweep": mf_kernels.mf_sweeps,
-                "K2_icm_phase": icm_kernels.icm_phase_,
-                "K3_potts_energy": finish_kernels.potts_energy,
-                "K4_finish_stats": finish_kernels.finish_stats,
-                "K5_pr_iterations": mincut_kernels.pr_iterations_,
-                "K6_bfs_sweeps": mincut_kernels.bfs_sweeps_}
-    cfg = PhyloHMRFConfig(n_states=10, max_iter=max_iter, seed=0)
-    _check(cfg.final_polish and cfg.polish_method == "expansion",
-           "the default config no longer polishes with expansion moves")
-    model = PhyloHMRF(tree, [region], cfg, device=device)
+    return {"K1_mf_sweep": mf_kernels.mf_sweeps,
+            "K2_icm_phase": icm_kernels.icm_phase_,
+            "K3_potts_energy": finish_kernels.potts_energy,
+            "K4_finish_stats": finish_kernels.finish_stats,
+            "K5_pr_iterations": mincut_kernels.pr_iterations_,
+            "K6_bfs_sweeps": mincut_kernels.bfs_sweeps_,
+            "K7_mf_sweep_halo": mf_kernels.mf_sweep_halo,
+            "K8_icm_phase_halo": icm_kernels.icm_phase_halo_}
+
+
+def fit_model(tree, regions, cfg, device=None, mesh=None, state=None):
+    """``PhyloHMRF.fit`` with the launch counters set to 0 just before and
+    read just after. Returns (result, model, launches per kernel, each
+    iteration's label grids)."""
+    from phylo_hmrf_tpu_torch import PhyloHMRF
+    from phylo_hmrf_tpu_torch.convert import import_state
+
+    model = PhyloHMRF(tree, regions, cfg, mesh=mesh, device=device)
+    if state is not None:
+        import_state(model, state)
     grids = []
+    counters = _counters()
     for fn in counters.values():
         fn.launches = 0
-    res = model.fit(verbose=True,
-                    callback=lambda m, it, row, g: grids.append(g[0].clone()))
+    res = model.fit(verbose=True, callback=lambda m, it, row, g: grids.append(
+        [x.clone() for x in g]))
     launches = {k: fn.launches for k, fn in counters.items()}
     return res, model, launches, grids
 
@@ -370,7 +451,8 @@ def check_fit(res, model, true, grids):
     """Costs, the .mat round trip, and the polish: it ran, no move hit
     max_sweeps, and its labels have no higher MRF energy than the best
     iteration's E-step labels it started from (both under the restored
-    moments). Returns (best-match accuracy, polish record)."""
+    moments; summed over the regions). Returns (best-match accuracy,
+    polish record)."""
     import numpy as np
     import torch
 
@@ -400,29 +482,340 @@ def check_fit(res, model, true, grids):
     st = model.polish_stats_
     _check(st is not None and st.moves > 0, "the final polish did not run")
     _check(st.capped == 0, f"{st.capped} polish moves hit max_sweeps")
-    (region,) = model.regions
-    (_, img, mask, dmaps), = model._bucket_arrays.values()
-    dev = img.device
-    unary_k = -gaussian_logpdf_kmajor(
-        img, torch.as_tensor(res.means, dtype=torch.float32, device=dev),
-        torch.as_tensor(res.covars, dtype=torch.float32, device=dev))
-    w = weight_maps(dmaps, model.cfg.beta1)
-    before = grids[res.iter_id2][None].to(torch.int32)
-    after = torch.as_tensor(region.labels_to_grid(res.labels), device=dev,
-                            dtype=torch.int32)[None]
-    mask_i = mask.to(torch.int32)
-    e_before, e_after = (float(potts_energy(unary_k, mask_i, lab, w,
-                                            model.cfg.beta)[0])
-                         for lab in (before, after))
+    e_before = e_after = 0.0
+    relabeled = 0
+    flat = np.split(res.labels, model.offsets[1:-1])
+    for idxs, img, mask, dmaps in model._bucket_arrays.values():
+        dev = img.device
+        unary_k = -gaussian_logpdf_kmajor(
+            img, torch.as_tensor(res.means, dtype=torch.float32, device=dev),
+            torch.as_tensor(res.covars, dtype=torch.float32, device=dev))
+        w = weight_maps(dmaps, model.cfg.beta1)
+        mask_i = mask.to(torch.int32)
+        before = torch.stack([grids[res.iter_id2][ri].to(dev)
+                              for ri in idxs]).to(torch.int32)
+        after = torch.stack([torch.as_tensor(
+            model.regions[ri].labels_to_grid(flat[ri]), device=dev)
+            for ri in idxs]).to(torch.int32)
+        e_before += float(potts_energy(unary_k, mask_i, before, w,
+                                       model.cfg.beta).double().sum())
+        e_after += float(potts_energy(unary_k, mask_i, after, w,
+                                      model.cfg.beta).double().sum())
+        relabeled += int((before != after)[mask].sum())
     _check(e_after <= e_before + 1e-6 * abs(e_before),
            f"polish raised the energy: {e_before} -> {e_after}")
     polish = dict(
-        energy_before=e_before, energy_after=e_after,
-        relabeled=int((before != after)[mask].sum()), moves=st.moves,
-        pr_iterations_per_move=st.pr_iterations / st.moves,
+        energy_before=e_before, energy_after=e_after, relabeled=relabeled,
+        moves=st.moves, pr_iterations_per_move=st.pr_iterations / st.moves,
         bfs_sweeps_per_move=st.bfs_sweeps / st.moves,
         moves_at_max_sweeps=st.capped)
     return float(best_match_accuracy(res.labels, true)), polish
+
+
+def _compare_estep(got, want, masks, what):
+    """Gates of one E-step against another on the same inputs, region by
+    region: label agreement over the region's valid pixels >= 0.999, its
+    stats and costs relative error < 1e-3 (a label flipped at a near-tie
+    between float orders moves them by ~1/N). got/want: (label grids,
+    per-region (post, obs, obs2), per-region costs); arrays or tensors.
+    Returns {"regions": [per-region record]}."""
+    import numpy as np
+
+    def host(a):
+        return a.detach().cpu().numpy() if hasattr(a, "detach") else \
+            np.asarray(a)
+
+    per = []
+    for r, (a, b, m) in enumerate(zip(got[0], want[0], masks)):
+        m = host(m)
+        agree = float((host(a) == host(b))[m].mean())
+        stats_rel = max(float((np.abs(host(s)[r] - host(t)[r])
+                               / np.maximum(np.abs(host(t)[r]), 1e-3)).max())
+                        for s, t in zip(got[1], want[1]))
+        c, d = host(got[2])[r], host(want[2])[r]
+        cost_rel = float((np.abs(c - d) / np.abs(d)).max())
+        _check(agree >= 0.999,
+               f"{what}, region {r}: labels agree on only {agree}")
+        _check(stats_rel < 1e-3, f"{what}, region {r}: stats rel err "
+                                 f"{stats_rel}")
+        _check(cost_rel < 1e-3, f"{what}, region {r}: cost rel err "
+                                f"{cost_rel}")
+        per.append(dict(valid_pixels=int(m.sum()), label_agreement=agree,
+                        stats_max_rel=stats_rel, cost_max_rel=cost_rel))
+    return {"regions": per}
+
+
+def _shard_slab(x, lo, hi, halo):
+    """Rows [lo - halo, hi + halo) of the last-but-one axis, contiguous."""
+    return x[..., lo - halo:hi + halo, :].contiguous()
+
+
+def check_halo_kernels(x, n_shards, beta=1.0):
+    """K7 and K8 against their plain versions on shard 1 of ``n_shards``
+    row shards of one region's operands (both neighbours real). Returns
+    {kernel: row}."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_phase_halo_,
+                                                      icm_phase_halo_plain)
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import (mf_sweep_halo,
+                                                     mf_sweep_halo_plain)
+
+    R, K, H, W = x["unary_k"].shape
+    Hl = H // n_shards
+    lo, hi = Hl, 2 * Hl
+    out = {}
+    # K7: one sweep at T=1 on shard 1; K1's gate, rtol 2e-4, atol 1e-6
+    k7 = (_shard_slab(x["q0"], lo, hi, 1), _shard_slab(x["base"], lo, hi, 0),
+          _shard_slab(x["w"], lo, hi, 1), 1.0, 0.5, beta)
+    got, want = mf_sweep_halo(*k7), mf_sweep_halo_plain(*k7)
+    torch.cuda.synchronize()
+    _check(torch.allclose(got, want, rtol=2e-4, atol=1e-6),
+           f"K7 disagrees: max abs err {_max_abs(got, want)}")
+    out["K7_mf_sweep_halo"] = dict(
+        max_abs_err=_max_abs(got, want),
+        ms=_time_ms(lambda: mf_sweep_halo(*k7)),
+        plain_ms=_time_ms(lambda: mf_sweep_halo_plain(*k7)),
+        unit=f"one sweep of a {Hl}-row shard (+2 halo rows)",
+        tolerance="rtol 2e-4, atol 1e-6",
+        nbytes=_nbytes(k7[0], k7[1], k7[2], got),
+        ops=OPS_MF * K * Hl * W, shard=[Hl, W])
+
+    # K8: the phase (a, b) = (0, 1) on shard 1, global parity; identical
+    lab0 = torch.where(x["mask"], x["warm"], 0).to(torch.int32).contiguous()
+    a_eff = (0 + lo) % 2
+    k8 = (_shard_slab(lab0, lo, hi, 1), _shard_slab(x["unary_k"], lo, hi, 0),
+          _shard_slab(x["w"], lo, hi, 1), _shard_slab(x["mask_i"], lo, hi, 0),
+          beta, a_eff, 1)
+    want = icm_phase_halo_plain(*k8)
+    got = icm_phase_halo_(k8[0].clone(), *k8[1:])
+    _check(torch.equal(got, want),
+           f"K8: {int((got != want).sum())} labels differ")
+    work = k8[0].clone()
+    active = Hl * W // 4     # the phase's pixels
+    out["K8_icm_phase_halo"] = dict(
+        max_abs_err=float((got != want).sum()),
+        ms=_time_ms(lambda: icm_phase_halo_(work, *k8[1:])),
+        plain_ms=_time_ms(lambda: icm_phase_halo_plain(*k8)),
+        unit=f"one phase of a {Hl}-row shard (+2 halo rows)",
+        tolerance="identical labels",
+        # what one phase must move: every label and weight of the slab
+        # (each pixel is a neighbour), the unary and mask of the phase's
+        # pixels, their labels written
+        nbytes=(_nbytes(k8[0], k8[2]) + active * (4 * K + 4 + 4)),
+        ops=OPS_ICM * K * active, shard=[Hl, W])
+    return out
+
+
+def check_split(x, mesh, beta=1.0):
+    """The split identities over the mesh's shards, bitwise: K7 with 1-row
+    halos equals one K1 sweep of the whole grid, K8 with the global parity
+    each K2 phase."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_phase_,
+                                                      icm_phase_halo_)
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import mf_sweep_halo, mf_sweeps
+    from phylo_hmrf_tpu_torch.parallel.halo import extend_rows
+
+    Hl = x["unary_k"].shape[-2] // mesh.size
+    lab0 = torch.where(x["mask"], x["warm"], 0).to(torch.int32).contiguous()
+
+    def shards(t):
+        return [c.contiguous() for c in torch.chunk(t, mesh.size, dim=-2)]
+    full = mf_sweeps(x["q0"], x["base"], x["w"], 1.0, 0.5, beta, n_inner=1)
+    split = torch.cat([mf_sweep_halo(qe, b, we, 1.0, 0.5, beta)
+                       for qe, b, we in zip(extend_rows(shards(x["q0"])),
+                                            shards(x["base"]),
+                                            extend_rows(shards(x["w"])))],
+                      dim=-2)
+    _check(torch.equal(split, full), "K7 on the shards != one K1 sweep")
+    phases_equal = 0
+    for a in (0, 1):
+        for b in (0, 1):
+            full = icm_phase_(lab0.clone(), x["unary_k"], x["w"], x["mask_i"],
+                              beta, a, b)
+            lab_ext = extend_rows(shards(lab0))
+            for i, (le, u, we, m) in enumerate(zip(
+                    lab_ext, shards(x["unary_k"]), extend_rows(shards(x["w"])),
+                    shards(x["mask_i"]))):
+                icm_phase_halo_(le, u, we, m, beta, (a + i * Hl) % 2, b)
+            split = torch.cat([le[:, 1:-1] for le in lab_ext], dim=1)
+            _check(torch.equal(split, full),
+                   f"K8 phase ({a}, {b}) on the shards != the K2 phase")
+            phases_equal += 1
+    torch.cuda.synchronize()
+    return dict(k7_split_equals_k1=True,
+                k8_split_equals_k2_phases=phases_equal,
+                grid=list(x["unary_k"].shape[-2:]))
+
+
+def _device_busy_s(fn):
+    """Seconds of device kernel time in one run of ``fn`` under
+    ``torch.profiler`` (the kernels of one stream do not overlap), and the
+    kernel count; (None, 0) when the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us, n = 0.0, 0
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            busy_us += e.self_device_time_total
+            n += 1
+    return (busy_us * 1e-6 if busy_us > 0 else None), n
+
+
+def check_spatial_estep(x, img, dmaps, means, covs, mesh):
+    """The row-sharded E-step of the 10 kb region over the mesh against the
+    single-device `_estep_bucket` on the same inputs (the gates of
+    `_compare_estep`), then repeated: bitwise equal."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.models.hmrf import _estep_bucket
+    from phylo_hmrf_tpu_torch.parallel.halo import make_rowsharded_estep
+
+    fn = make_rowsharded_estep(mesh, weighted_pp=False, max_sweeps=60)
+
+    def timed(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = f()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    single, t_single = timed(lambda: _estep_bucket(
+        img[None], x["mask"], dmaps[None], x["warm"], means, covs, 1.0, 0.5,
+        weighted_pp=False, max_sweeps=60))
+    args = (img, x["mask"][0], dmaps, x["warm"][0], means, covs, 1.0, 0.5)
+    spatial, t_spatial = timed(lambda: fn(*args))
+    rec = _compare_estep(
+        ([spatial[0]], [s[None] for s in spatial[1]], spatial[2][None]),
+        ([single[0][0]], single[1], single[2]), [x["mask"][0]],
+        "spatial E-step")
+    again, t_again = timed(lambda: fn(*args))
+    _check(torch.equal(again[0], spatial[0])
+           and torch.equal(again[2], spatial[2])
+           and all(torch.equal(a, b) for a, b in zip(again[1], spatial[1])),
+           "the spatial E-step is not bitwise repeatable")
+    rec.update(single_s=t_single, spatial_s=min(t_spatial, t_again),
+               spatial_first_s=t_spatial, bitwise_repeat=True,
+               shape=list(img.shape))
+    # device busy time under the profiler; the idle share is taken
+    # against the unprofiled wall (the profiler inflates host time)
+    for name, f, wall in (
+            ("single", lambda: _estep_bucket(
+                img[None], x["mask"], dmaps[None], x["warm"], means, covs,
+                1.0, 0.5, weighted_pp=False, max_sweeps=60), t_single),
+            ("spatial", lambda: fn(*args), rec["spatial_s"])):
+        busy, n = _device_busy_s(f)
+        rec[f"{name}_device_busy_s"] = busy
+        rec[f"{name}_device_kernels"] = n
+        rec[f"{name}_idle_share"] = (None if busy is None
+                                     else max(0.0, 1.0 - busy / wall))
+    return rec
+
+
+def check_region_estep(mesh, device, seeds=(0, 1, 2, 3)):
+    """The region-sharded E-step of a bucket of chr21 regions (seeds 0-3,
+    the moments of seed 0) over the mesh against the single-device bucket:
+    identical labels, stats and costs rtol 1e-6; says whether bitwise."""
+    import numpy as np
+    import torch
+
+    from phylo_hmrf_tpu_torch.models.hmrf import _estep_bucket
+    from phylo_hmrf_tpu_torch.parallel import sharding
+    from phylo_hmrf_tpu_torch.synth import chr21_problem
+
+    probs = [chr21_problem(s) for s in seeds]
+    _, _, means, covs, _, _ = probs[0]
+    img = np.stack([p[1].img for p in probs])
+    mask = np.stack([p[1].mask for p in probs])
+    dmaps = np.stack([p[1].dmaps for p in probs])
+    warm = np.stack([p[1].labels_to_grid(p[4]) for p in probs])
+    mt, ct = (torch.as_tensor(a, dtype=torch.float32, device=device)
+              for a in (means, covs))
+    kw = dict(weighted_pp=False, max_sweeps=60)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = _estep_bucket(dev(img), dev(mask), dev(dmaps), dev(warm), mt,
+                           ct, 1.0, 0.5, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pimg, pmask, pdmaps, R = sharding.pad_bucket_to_devices(
+        img, mask, dmaps, mesh.size)
+    pwarm = np.concatenate([warm, np.zeros((pimg.shape[0] - R,)
+                                           + warm.shape[1:], np.int32)])
+    placed = sharding.device_put_bucket(mesh, pimg, pmask, pdmaps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    sharded = sharding.make_sharded_estep(mesh, **kw)(
+        *placed, dev(pwarm), mt, ct, 1.0, 0.5)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    _check(torch.equal(sharded[0][:R], single[0]),
+           "region-sharded labels differ from the single-device bucket")
+    for a, b in zip(sharded[1], single[1]):
+        _check(torch.allclose(a[:R], b, rtol=1e-6, atol=0),
+               f"region-sharded stats differ: {_max_abs(a[:R], b)}")
+    _check(torch.allclose(sharded[2][:R], single[2], rtol=1e-6, atol=0),
+           "region-sharded costs differ")
+    bitwise = (all(torch.equal(a[:R], b) for a, b in zip(sharded[1],
+                                                         single[1]))
+               and torch.equal(sharded[2][:R], single[2]))
+    return dict(regions=R, single_s=t1 - t0, sharded_s=t3 - t2,
+                bitwise=bitwise, shape=list(img.shape))
+
+
+def offdiag_block():
+    """The spatial fit's 20 x 653 off-diagonal block of seed 0, padded to
+    24 x 768: 6-row shards over 4, the K7/K8 branch."""
+    from phylo_hmrf_tpu_torch.synth import synteny_problem
+
+    return synteny_problem(0, 20, 653, False, pad_h=8)
+
+
+def spatial_fit(mesh, device, max_iter=3):
+    """The default config over the mesh in ``shard_mode="spatial"`` on the
+    chr21 region (672 rows: 168-row shards, the deep-halo K1/K2 branch)
+    and a 20 x 653 off-diagonal block of the same seed (24 rows: 6-row
+    shards, the K7/K8 branch). Its first E-step is held against the
+    single-device E-step from the same state, then it fits. Returns
+    (result, model, launches, grids, E-step record, truth)."""
+    import numpy as np
+
+    from phylo_hmrf_tpu_torch import PhyloHMRF, PhyloHMRFConfig
+    from phylo_hmrf_tpu_torch.convert import export_state, import_state
+    from phylo_hmrf_tpu_torch.synth import chr21_problem
+
+    tree, diag, _, _, _, true_d = chr21_problem(0)
+    _, off, _, _, _, true_o = offdiag_block()
+    regions = [diag, off]
+    cfg = PhyloHMRFConfig(n_states=10, max_iter=max_iter, seed=0,
+                          shard_mode="spatial")
+    _check(cfg.final_polish and cfg.polish_method == "expansion",
+           "the default config no longer polishes with expansion moves")
+    probe = PhyloHMRF(tree, regions, cfg, mesh=mesh)
+    _check(probe._spatial, "the meshed model is not in spatial mode")
+    probe.initialize()
+    state = export_state(probe)
+    single = PhyloHMRF(tree, regions, cfg, device=device)
+    import_state(single, state)
+    got = probe.estep(probe.means_, probe.covars_, probe.labels_local)
+    want = single.estep(single.means_, single.covars_, single.labels_local)
+    rec = _compare_estep(got, want, [r.mask for r in regions],
+                         "spatial fit's first E-step")
+    rec["shard_rows"] = [r.shape[0] // mesh.size for r in regions]
+    res, model, launches, grids = fit_model(tree, regions, cfg, mesh=mesh,
+                                            state=state)
+    return res, model, launches, grids, rec, np.concatenate([true_d, true_o])
 
 
 def main() -> int:
@@ -432,6 +825,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from phylo_hmrf_tpu_torch import PhyloHMRFConfig, _build
+    from phylo_hmrf_tpu_torch.parallel.mesh import make_mesh
     from phylo_hmrf_tpu_torch.synth import chr21_problem, kernel_inputs
 
     smi = subprocess.run(
@@ -465,27 +859,26 @@ def main() -> int:
     kernels = check_kernels(x)
     mincut, cut, start = check_mincut(x, K)
     kernels.update(mincut)
-    for name, k in kernels.items():
-        print(f"[{name}] max_abs_err={k['max_abs_err']:.3g} "
-              f"kernel={k['ms']:.3f}ms plain={k['plain_ms']:.3f}ms "
-              f"({k['unit']})")
     print(f"[mincut] {json.dumps(cut)}")
 
     dmaps = torch.as_tensor(region.dmaps[None], device=dev)
-    est = check_estep(x, dmaps,
-                      torch.as_tensor(means, dtype=torch.float32, device=dev),
-                      torch.as_tensor(covs, dtype=torch.float32, device=dev))
+    mt, ct = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+              for a in (means, covs))
+    est = check_estep(x, dmaps, mt, ct)
     print(f"[estep] {json.dumps(est)}")
 
     oracle = check_oracle(x, region, start, K,
                           PhyloHMRFConfig().swap_tpu_cycles)
     print(f"[oracle] {json.dumps(oracle)}")
 
+    # the main path: the default single-device fit
     t0 = time.perf_counter()
-    res, model, launches, grids = fit_chr21(tree, region, dev)
+    res, model, launches, grids = fit_model(
+        tree, [region], PhyloHMRFConfig(n_states=10, max_iter=5, seed=0),
+        device=dev)
     fit_s = time.perf_counter() - t0
-    for name, n in launches.items():
-        _check(n > 0, f"{name} never launched on the fit's path")
+    for name in list(KERNELS)[:6]:
+        _check(launches[name] > 0, f"{name} never launched on the fit's path")
     acc, polish = check_fit(res, model, true, grids)
     summ = model.timer.summary()
     em_s = sum(summ[p]["total_s"] for p in ("estep", "mstep") if p in summ)
@@ -497,13 +890,70 @@ def main() -> int:
                best_match_accuracy=acc, cost_vec=res.cost_vec.tolist())
     print(f"[fit] {json.dumps(fit)}")
 
+    # the multi-device paths, over SHARDS shards of the visible cards
+    mesh = make_mesh((SHARDS,))
+    print(f"[mesh] shards -> devices: {mesh.describe()}")
+    # K7/K8 at the shapes the spatial fit gives them: an interior 6-row
+    # shard of its off-diagonal block
+    _, off, mo, co, wo, _ = offdiag_block()
+    kernels.update(check_halo_kernels(kernel_inputs(off, mo, co, wo, dev),
+                                      SHARDS))
+    t0 = time.perf_counter()
+    _, r10, m10, c10, w10, _ = chr21_problem(0, h0=3264)
+    x10 = kernel_inputs(r10, m10, c10, w10, dev)
+    print(f"[10kb] region {r10.shape} samples {r10.n_samples} "
+          f"made in {time.perf_counter() - t0:.1f}s")
+    # the same kernels on an 816-row shard of the 10 kb region: a scale
+    # point, no path of this run launches them at that shape
+    for name, k in check_halo_kernels(x10, SHARDS).items():
+        k = _with_bound(k)
+        kernels[name]["at_10kb"] = k
+        print(f"[{name} at 10kb] max_abs_err={k['max_abs_err']:.3g} "
+              f"kernel={k['ms']:.3f}ms plain={k['plain_ms']:.3f}ms "
+              f"bound={k['bound_ms'] * 1e3:.1f}us "
+              f"({100 * k['share_of_bound']:.1f}% of it) ({k['unit']})")
+    split = check_split(x10, mesh)
+    print(f"[split] {json.dumps(split)}")
+    img10 = torch.as_tensor(r10.img, device=dev)
+    dmaps10 = torch.as_tensor(r10.dmaps, device=dev)
+    m10t, c10t = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                  for a in (m10, c10))
+    sp = check_spatial_estep(x10, img10, dmaps10, m10t, c10t, mesh)
+    print(f"[spatial_estep] {json.dumps(sp)}")
+    del x10, img10, dmaps10
+    reg = check_region_estep(mesh, dev)
+    print(f"[region_estep] {json.dumps(reg)}")
+
+    t0 = time.perf_counter()
+    sres, smodel, slaunches, sgrids, sest, strue = spatial_fit(mesh, dev)
+    sfit_s = time.perf_counter() - t0
+    for name in KERNELS:
+        _check(slaunches[name] > 0,
+               f"{name} never launched on the spatial fit's path")
+    sacc, spolish = check_fit(sres, smodel, strue, sgrids)
+    ssumm = smodel.timer.summary()
+    sfit = dict(n_iters=sres.n_iters, fit_s=sfit_s, first_estep=sest,
+                estep_s=ssumm["estep"]["total_s"] / ssumm["estep"]["count"],
+                final_polish_s=ssumm["final_polish"]["total_s"],
+                polish=spolish, phases=ssumm, launches=slaunches,
+                best_match_accuracy=sacc, cost_vec=sres.cost_vec.tolist())
+    print(f"[spatial_fit] {json.dumps(sfit)}")
+
     rows = []
     for name, (src, replaces) in KERNELS.items():
-        k = kernels[name]
+        k = kernels[name] = _with_bound(kernels[name])
+        bound_ms, bound_by = k["bound_ms"], k["bound_by"]
+        path_launches = slaunches if name.startswith(("K7", "K8")) else \
+            launches
+        print(f"[{name}] max_abs_err={k['max_abs_err']:.3g} "
+              f"kernel={k['ms']:.3f}ms plain={k['plain_ms']:.3f}ms "
+              f"bound={bound_ms * 1e3:.1f}us ({bound_by}, "
+              f"{100 * k['share_of_bound']:.1f}% of it) ({k['unit']})")
         rows.append(dict(name=name, route="cuda", source=src,
-                         replaces=replaces, launches=launches[name],
+                         replaces=replaces, launches=path_launches[name],
                          max_abs_err=k["max_abs_err"], ms=k["ms"],
-                         plain_ms=k["plain_ms"]))
+                         plain_ms=k["plain_ms"], bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None))
     print(f"[kernels] {json.dumps(kernels)}")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -125,16 +125,19 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes (every one returns int = cudaError_t)
 _SIGNATURES = {
-    # K1: q, base, w, out, R, K, H, W, T, damp, one_minus_damp, beta, stream
-    "phmrf_mf_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
-    # K2: labels, unary, w, mask, R, K, H, W, beta, phase_a, phase_b, stream
-    "phmrf_icm_phase": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    # K1 (halo 0) and K7 (halo 1): q, base, w, out, R, K, H, W, halo, T,
+    #     damp, one_minus_damp, beta, stream
+    "phmrf_mf_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                       _P],
+    # K2 (halo 0) and K8 (halo 1): labels, unary, w, mask, R, K, H, W, halo,
+    #     beta, phase_a, phase_b, stream
+    "phmrf_icm_phase": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # K3: unary, mask, labels, w, partial, out, R, K, H, W, beta, stream
     "phmrf_potts_energy": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # K4: lp, img, mask, labels, w, partial, out, R, K, F, H, W,
-    #     beta, small_eps, negate, stream
+    #     beta, small_eps, negate, out_f64, stream
     "phmrf_finish_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _F, _F, _I, _P],
+                           _F, _F, _I, _I, _P],
     # K5: e, h, h_scratch, cap_t, caps, out, R, H, W, n, n_inner, stream
     "phmrf_pr_iterations": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # K6: d, scratch, caps, R, H, W, n, n_inner, changed, stream
@@ -168,6 +171,14 @@ def check(err: int, what: str) -> None:
 def stream_of(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(t):
+    """Context that makes ``t``'s card the current one: a kernel launches
+    on the current card, so every launch runs under its operands' card
+    (shards of a mesh may sit on several)."""
+    import torch
+    return torch.cuda.device(t.device)
 
 
 def check_tensors(what: str, **specs) -> None:

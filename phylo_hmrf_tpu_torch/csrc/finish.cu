@@ -248,8 +248,11 @@ __global__ void finish_tile_kernel(const float* __restrict__ lp,
   for (int o = tid; o < nout; o += F_CHUNK) out[o] = acc[o];
 }
 
+// out is float32, or float64 for callers that add up several calls' sums
+// (the row shards of one region) before rounding once
+template <typename T>
 __global__ void finish_reduce_kernel(const double* __restrict__ partial,
-                                     float* __restrict__ out, int R,
+                                     T* __restrict__ out, int R,
                                      int n_tiles, int nout) {
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long)R * nout) return;
@@ -257,17 +260,17 @@ __global__ void finish_reduce_kernel(const double* __restrict__ partial,
   double s = 0.0;
   for (int t = 0; t < n_tiles; ++t)
     s += partial[((long)r * n_tiles + t) * nout + o];
-  out[idx] = (float)s;
+  out[idx] = (T)s;
 }
 
 extern "C" int phmrf_finish_tiles(int H) { return ceil_div(H, F_TILE_ROWS); }
 
 extern "C" int phmrf_finish_stats(const float* lp, const float* img,
                                   const int* mask, const int* labels,
-                                  const float* w, double* partial, float* out,
+                                  const float* w, double* partial, void* out,
                                   int R, int K, int F, int H, int W,
                                   float beta, float small_eps, int negate,
-                                  void* stream) {
+                                  int out_f64, void* stream) {
   if (K < 1 || K > PHMRF_KMAX || F < 1 || F > PHMRF_FMAX || R < 1 || H < 1 ||
       W < 1)
     return (int)cudaErrorInvalidValue;
@@ -279,7 +282,11 @@ extern "C" int phmrf_finish_stats(const float* lp, const float* img,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long n = (long)R * nout;
-  finish_reduce_kernel<<<ceil_div(n, 256), 256, 0, st>>>(partial, out, R,
-                                                         n_tiles, nout);
+  if (out_f64)
+    finish_reduce_kernel<double><<<ceil_div(n, 256), 256, 0, st>>>(
+        partial, (double*)out, R, n_tiles, nout);
+  else
+    finish_reduce_kernel<float><<<ceil_div(n, 256), 256, 0, st>>>(
+        partial, (float*)out, R, n_tiles, nout);
   return (int)cudaGetLastError();
 }

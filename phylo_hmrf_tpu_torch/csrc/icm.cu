@@ -1,7 +1,10 @@
-// K2: one checkerboard-ICM phase, labels updated in place.
+// K2 and K8: one checkerboard-ICM phase, labels updated in place.
 //
-// Replaces phylo_hmrf_tpu/ops/icm_pallas.py::_icm_sweeppair_kernel (entry
-// _icm_sweep_pair_padded, driven by icm_pallas). The TPU kernel runs the
+// K2 (halo = 0) replaces phylo_hmrf_tpu/ops/icm_pallas.py::
+// _icm_sweeppair_kernel (entry _icm_sweep_pair_padded, driven by
+// icm_pallas); K8 (halo = 1) replaces _icm_phase_kernel (entry
+// icm_phase_pallas, halo_extended=True), the phase of a row shard between
+// two one-row label exchanges. The TPU sweep-pair kernel runs the
 // eight phases of two sweeps, (a, b) in (0,0),(0,1),(1,0),(1,1) twice, on a
 // VMEM slab; here each phase is one launch, so eight launches make the same
 // sweep pair. Pixels of colour (row % 2, col % 2) == (a, b) are never
@@ -20,13 +23,24 @@
 // reads K unary values each; one pixel per thread, the K scores in
 // registers. The two-sweep temporal blocking of the TPU kernel (one unary
 // read per pair) is later work.
+//
+// Halo rows: with halo = 1, labels and w are (R, ., H + 2, W) arrays whose
+// first and last rows hold the neighbouring shards' boundary rows (zeros
+// at the ends of the mesh), while unary and mask hold only the H center
+// rows. The threads cover the center colour; labels and w are read, and
+// labels written, at row h + halo of the extended array, whose height
+// bounds the neighbour guard; the halo rows are never written. The colour
+// row parity pa is that of the center row h: a shard passes its global
+// parity, (a + first global row) % 2. With halo = 0 this is K2's code
+// exactly. K8 is bounded like K2, plus two rows of labels and w per shard.
 #include "common.cuh"
 
 __global__ void icm_phase_kernel(int* __restrict__ labels,
                                  const float* __restrict__ unary,
                                  const float* __restrict__ w,
                                  const int* __restrict__ mask, int R, int K,
-                                 int H, int W, float beta, int pa, int pb) {
+                                 int H, int W, int halo, float beta, int pa,
+                                 int pb) {
   const int Hc = (H - pa + 1) / 2;   // rows of colour pa
   const int Wc = (W - pb + 1) / 2;   // cols of colour pb
   const long per_r = (long)Hc * Wc;
@@ -39,10 +53,12 @@ __global__ void icm_phase_kernel(int* __restrict__ labels,
   const long HW = (long)H * W;
   const long p = (long)h * W + x;
   if (mask[(long)r * HW + p] == 0) return;
+  const int He = H + 2 * halo;          // rows of labels and w
+  const long HWe = (long)He * W;
 
   Nbrs n;
-  load_nbrs(w + (long)r * 4 * HW, H, W, h, x, n);
-  int* lab_r = labels + (long)r * HW;
+  load_nbrs(w + (long)r * 4 * HWe, He, W, h + halo, x, n);
+  int* lab_r = labels + (long)r * HWe;
   int nb[8];
 #pragma unroll
   for (int s = 0; s < 8; ++s) nb[s] = n.ok[s] ? lab_r[n.off[s]] : -1;
@@ -64,19 +80,19 @@ __global__ void icm_phase_kernel(int* __restrict__ labels,
       }
     }
   }
-  lab_r[p] = best;
+  lab_r[p + (long)halo * W] = best;
 }
 
 extern "C" int phmrf_icm_phase(int* labels, const float* unary,
                                const float* w, const int* mask, int R, int K,
-                               int H, int W, float beta, int pa, int pb,
-                               void* stream) {
-  if (K < 1 || K > PHMRF_KMAX || (pa & ~1) || (pb & ~1))
+                               int H, int W, int halo, float beta, int pa,
+                               int pb, void* stream) {
+  if (K < 1 || K > PHMRF_KMAX || (pa & ~1) || (pb & ~1) || (halo & ~1))
     return (int)cudaErrorInvalidValue;
   const long n = (long)R * ((H - pa + 1) / 2) * ((W - pb + 1) / 2);
   if (n <= 0) return 0;
   const int threads = 256;
   icm_phase_kernel<<<ceil_div(n, threads), threads, 0, (cudaStream_t)stream>>>(
-      labels, unary, w, mask, R, K, H, W, beta, pa, pb);
+      labels, unary, w, mask, R, K, H, W, halo, beta, pa, pb);
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,20 @@
 """PhyloHMRF — the model class and EM engine, PyTorch port.
 
 Counterpart of ``phylo_hmrf_tpu/models/hmrf.py`` for its production path:
-the ``mf_icm`` labeler, float32, one device, then the exact final polish.
-Per EM iteration:
+the ``mf_icm`` labeler, float32, then the exact final polish, on one
+device or over a mesh of shards (``mesh=make_mesh(...)``). Per EM
+iteration:
 
 * E-step (`_estep_bucket`, per shape bucket of regions): the K-major unary
   from `gaussian_logpdf_kmajor`, annealed mean field (kernel K1), two
   checkerboard-ICM runs, from the mean-field labels and from the warm
   labels (K2), the lower Potts energy of the two (K3), then the fused
   posterior / cost / statistics pass (K4). Statistics come back per region
-  and the host sums them in float64 in region order.
+  and the host sums them in float64 in region order. With a mesh,
+  ``shard_mode="region"`` (the default) deals each bucket's regions over
+  the shards (``parallel/sharding.py``) and ``shard_mode="spatial"`` splits
+  each region's rows over them with halo exchange (``parallel/halo.py``,
+  kernels K1/K2 on deep halos, K7/K8 per sweep or phase).
 * M-step (`mstep`): one batched boxed L-BFGS solve of the OU parameters of
   all K states on the device, the validity check and the OU moments, with
   the reference's retry ladder and the fallback to the init params.
@@ -25,9 +30,12 @@ bookkeeping, the numpy RNG draw order) follows the JAX engine line for
 line, so a fit started from the same state follows the same trajectory up
 to float rounding.
 
+With a mesh, the init, the M-step and the final polish run on the mesh's
+first device, which also keeps each whole region bucket for the polish.
+
 What raises rather than running: any labeler but ``mf_icm``,
-``dtype="float64"``, a mesh, ``kmeans_backend="sklearn"`` and
-checkpoint/resume arguments to ``fit``. Config fields read by the JAX
+``dtype="float64"``, ``kmeans_backend="sklearn"`` and checkpoint/resume
+arguments to ``fit``. Config fields read by the JAX
 engine only to work around XLA or a remote TPU have no counterpart here;
 each is noted where the JAX engine reads it (see `_check_config`).
 """
@@ -41,22 +49,27 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from phylo_hmrf_tpu.config import PhyloHMRFConfig, SMALL_EPS
-from phylo_hmrf_tpu.data.regions import RegionGrid
-from phylo_hmrf_tpu.tree import PhyloTree
-from phylo_hmrf_tpu.utils.profiling import ConvergenceMonitor, PhaseTimer
+from phylo_hmrf_tpu_torch.config import PhyloHMRFConfig, SMALL_EPS
 from phylo_hmrf_tpu_torch.convert import to_numpy as _to_numpy
+from phylo_hmrf_tpu_torch.data.regions import RegionGrid
 from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
 from phylo_hmrf_tpu_torch.models.ou import (
     TreeTensors, check_params, ou_moments_batch, ou_nll_init, ou_nll_stats,
     propagate_mean_guess, tree_tensors)
-from phylo_hmrf_tpu_torch.ops.finish_kernels import (finish_stats,
-                                                     finish_stats_plain)
+from phylo_hmrf_tpu_torch.ops.finish_kernels import (
+    cost_vec_from_sums, finish_stats, finish_stats_plain)
 from phylo_hmrf_tpu_torch.ops.kmeans import kmeans
 from phylo_hmrf_tpu_torch.ops.lbfgs import minimize_boxed
 from phylo_hmrf_tpu_torch.ops.maxflow import (CutStats, _start_batch,
                                               exact_labels_batched)
 from phylo_hmrf_tpu_torch.ops.potts import valid_maps, weight_maps
+from phylo_hmrf_tpu_torch.parallel.halo import (
+    estep_region_rowsharded, gather_rows, shard_rows)
+from phylo_hmrf_tpu_torch.parallel.mesh import Mesh
+from phylo_hmrf_tpu_torch.parallel.sharding import (
+    device_put_bucket, make_sharded_estep, pad_bucket_to_devices)
+from phylo_hmrf_tpu_torch.tree import PhyloTree
+from phylo_hmrf_tpu_torch.utils.profiling import ConvergenceMonitor, PhaseTimer
 
 
 @dataclasses.dataclass
@@ -109,13 +122,7 @@ def _finish_fused(lp_k, img, mask, dmaps, labels, beta, beta1,
     post, obs, obs2, sums = fn(lp_k, img_f, mask.to(torch.int32),
                                labels.to(torch.int32), w_pp, beta, SMALL_EPS,
                                negate=from_unary)
-    n_valid = sums[:, 3]
-    nv = torch.clamp(n_valid, min=1.0)
-    pairwise_cost = sums[:, 0] / nv
-    pairwise_nrm = -sums[:, 1] / nv
-    unary_cost = -sums[:, 2] / nv
-    cost_vec = torch.stack([pairwise_cost, pairwise_nrm, unary_cost,
-                            unary_cost + pairwise_nrm], dim=-1)
+    cost_vec, n_valid = cost_vec_from_sums(sums)
     return (post, obs, obs2), cost_vec, n_valid
 
 
@@ -198,14 +205,14 @@ def _check_config(cfg: PhyloHMRFConfig, mesh) -> None:
     ``em_pipeline`` (its pipelined loop is bitwise the sequential loop, so
     the port runs the sequential one); ``prewarm_compiles`` (warms XLA
     compiles; the port has no compile step); ``use_pallas`` (the kernels
-    run exactly when the tensors are on a CUDA device); ``shard_mode`` (no
-    mesh). The JAX engine's VMEM tile
-    pickers and its ``_map_buckets`` compile-overlap threads and
+    run exactly when the tensors are on a CUDA device). The JAX engine's
+    VMEM tile pickers and its ``_map_buckets`` compile-overlap threads and
     ``_dev_warm`` warm-label cache served XLA and the remote TPU link: the
     port's warm labels stay on the device anyway (the previous E-step's
     label tensors are passed straight back in)."""
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU (mesh) runs are not ported yet")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a phylo_hmrf_tpu_torch.parallel.mesh."
+                        f"Mesh (make_mesh), got {type(mesh).__name__}")
     if cfg.labeler != "mf_icm":
         raise NotImplementedError(
             f"labeler={cfg.labeler!r} is not ported yet; only 'mf_icm' runs")
@@ -220,23 +227,49 @@ def _check_config(cfg: PhyloHMRFConfig, mesh) -> None:
 
 
 class PhyloHMRF:
-    """Phylo-HMRF model over a set of region grids, on one torch device.
+    """Phylo-HMRF model over a set of region grids, on one torch device or
+    over the shards of a ``mesh`` (`parallel.mesh.make_mesh`).
 
-    ``device="cuda"`` runs the CUDA kernels and raises when CUDA is absent;
-    ``device="cpu"`` runs every kernel's plain PyTorch version."""
+    ``device="cuda"`` (the default without a mesh) runs the CUDA kernels
+    and raises when CUDA is absent; ``device="cpu"`` runs every kernel's
+    plain PyTorch version. With a mesh, each shard runs on its own device
+    and the model's ``device`` is the mesh's first."""
 
     def __init__(self, tree: PhyloTree, regions: Sequence[RegionGrid],
                  config: PhyloHMRFConfig | None = None, mesh=None, *,
-                 device="cuda"):
+                 device=None):
         self.tree = tree
         self.regions = list(regions)
         self.cfg = config or PhyloHMRFConfig()
+        self.mesh = mesh
         cfg = self.cfg
+        # the spatial checks first, with the JAX engine's errors
+        self._n_shards = mesh.size if isinstance(mesh, Mesh) else 1
+        self._spatial = (self._n_shards > 1 and cfg.shard_mode == "spatial")
+        if self._spatial:
+            if cfg.labeler != "mf_icm":
+                raise ValueError(
+                    f"shard_mode='spatial' only supports labeler='mf_icm' "
+                    f"(the row-sharded E-step is the MF+ICM pipeline); got "
+                    f"labeler={cfg.labeler!r} — use shard_mode='region' "
+                    f"for the other labelers")
+            for r in self.regions:
+                if r.shape[0] % self._n_shards:
+                    raise ValueError(
+                        f"spatial sharding needs region H divisible by the "
+                        f"mesh size ({self._n_shards}); region "
+                        f"{r.region_id} has H={r.shape[0]} — raise pad_h")
         _check_config(cfg, mesh)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' requested but CUDA is not "
-                               "available")
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device={device!r} is not the mesh's first "
+                                 f"device {mesh.devices[0]}")
+            device = mesh.devices[0]
+        self.device = torch.device("cuda" if device is None else device)
+        for dev in (mesh.devices if mesh is not None else [self.device]):
+            if dev.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(f"device {dev} requested but CUDA is not "
+                                   f"available")
 
         self.n_states = cfg.n_states
         self.n_features = tree.n_leaves
@@ -256,19 +289,40 @@ class PhyloHMRF:
             for i, r in enumerate(self.regions)],
             dtype=np.int64).reshape(-1, 10)
 
-        # shape buckets, held on the device for the whole fit
+        # shape buckets, held on the (first) device for the whole fit; with
+        # a mesh they serve the final polish, and the E-step reads the
+        # sharded copies: padded region blocks per shard (region mode) or
+        # row blocks of every region (spatial mode)
         buckets = {}
         for idx, r in enumerate(self.regions):
             buckets.setdefault(r.shape, []).append(idx)
         self._bucket_arrays = {}
+        self._sharded_buckets = {}
         for shape, idxs in buckets.items():
-            img = np.stack([self.regions[i].img for i in idxs])
+            img = np.stack([self.regions[i].img
+                            for i in idxs]).astype(np.float32)
             mask = np.stack([self.regions[i].mask for i in idxs])
-            dmaps = np.stack([self.regions[i].dmaps for i in idxs])
+            dmaps = np.stack([self.regions[i].dmaps
+                              for i in idxs]).astype(np.float32)
             self._bucket_arrays[shape] = (
-                idxs, self._dev(img.astype(np.float32)),
-                torch.as_tensor(mask, device=self.device),
-                self._dev(dmaps.astype(np.float32)))
+                idxs, self._dev(img), torch.as_tensor(mask,
+                                                      device=self.device),
+                self._dev(dmaps))
+            if self._n_shards > 1 and not self._spatial:
+                self._sharded_buckets[shape] = (idxs, *device_put_bucket(
+                    mesh, *pad_bucket_to_devices(img, mask, dmaps,
+                                                 self._n_shards)[:3]))
+        if self._spatial:
+            self._spatial_arrays = [
+                (shard_rows(mesh, torch.as_tensor(r.img, dtype=torch.float32)),
+                 shard_rows(mesh, torch.as_tensor(r.mask)),
+                 shard_rows(mesh, torch.as_tensor(r.dmaps,
+                                                  dtype=torch.float32), 1))
+                for r in self.regions]
+        elif self._n_shards > 1:
+            self._sharded_estep = make_sharded_estep(
+                mesh, weighted_pp=(cfg.estimate_type == 3),
+                max_sweeps=cfg.icm_max_sweeps)
         self._tt = tree_tensors(tree, self.device)
 
         # mutable fit state
@@ -374,7 +428,8 @@ class PhyloHMRF:
     # ------------------------------------------------------------------
 
     def estep(self, means, covars, warm_grids):
-        """E-step over all buckets. Returns (label grids per region, as
+        """E-step over all buckets (on a mesh: over the shards, in the
+        config's ``shard_mode``). Returns (label grids per region, as
         device tensors; per-region stats (post (R, K), obs (R, K, F),
         obs2 (R, K, F, F)); costs (R, 4); n_valid (R,)), the numbers in
         float64 numpy after one read-back for the whole E-step."""
@@ -390,25 +445,57 @@ class PhyloHMRF:
         means_t = self._dev(means)
         covars_t = self._dev(covars)
 
-        packed = []
-        for idxs, img, mask, dmaps in self._bucket_arrays.values():
+        kw = dict(weighted_pp=(cfg.estimate_type == 3),
+                  max_sweeps=cfg.icm_max_sweeps)
+
+        def warm_of(idxs, pad=0):
             warm = torch.stack([
                 torch.as_tensor(warm_grids[i], device=self.device)
                 for i in idxs]).to(torch.int32)
-            labels, (p, o, o2), cv, nv = _estep_bucket(
-                img, mask, dmaps, warm, means_t, covars_t, cfg.beta,
-                cfg.beta1, weighted_pp=(cfg.estimate_type == 3),
-                max_sweeps=cfg.icm_max_sweeps)
-            for bi, ri in enumerate(idxs):
-                label_grids[ri] = labels[bi]
-            Rb = len(idxs)
-            packed.append(torch.cat([p.reshape(Rb, -1), o.reshape(Rb, -1),
-                                     o2.reshape(Rb, -1), cv.reshape(Rb, -1),
-                                     nv.reshape(Rb, 1)], dim=1).flatten())
+            if pad:   # the empty regions padding a bucket to the mesh
+                warm = torch.cat([warm, warm.new_zeros(
+                    (pad,) + warm.shape[1:])])
+            return warm
+
+        done = []   # (region indices, post, obs, obs2, costs, n_valid)
+        if self._spatial:
+            for ri, (img, mask, dmaps) in enumerate(self._spatial_arrays):
+                labels, (p, o, o2), cv, nv = estep_region_rowsharded(
+                    img, mask, dmaps, shard_rows(self.mesh, warm_of([ri])[0]),
+                    means_t, covars_t, cfg.beta, cfg.beta1, **kw)
+                label_grids[ri] = gather_rows(labels, self.device)
+                done.append(([ri], p[None], o[None], o2[None], cv[None],
+                             nv[None]))
+        elif self._n_shards > 1:
+            for idxs, img, mask, dmaps in self._sharded_buckets.values():
+                r_pad = sum(x.shape[0] for x in img)
+                labels, (p, o, o2), cv, nv = self._sharded_estep(
+                    img, mask, dmaps, warm_of(idxs, r_pad - len(idxs)),
+                    means_t, covars_t, cfg.beta, cfg.beta1)
+                done.append((idxs, p, o, o2, cv, nv))
+                for bi, ri in enumerate(idxs):
+                    label_grids[ri] = labels[bi]
+        else:
+            for idxs, img, mask, dmaps in self._bucket_arrays.values():
+                labels, (p, o, o2), cv, nv = _estep_bucket(
+                    img, mask, dmaps, warm_of(idxs), means_t, covars_t,
+                    cfg.beta, cfg.beta1, **kw)
+                done.append((idxs, p, o, o2, cv, nv))
+                for bi, ri in enumerate(idxs):
+                    label_grids[ri] = labels[bi]
+        packed = []
+        for idxs, p, o, o2, cv, nv in done:
+            Rb = len(idxs)   # padding regions of a sharded bucket dropped
+            packed.append(torch.cat([p[:Rb].reshape(Rb, -1),
+                                     o[:Rb].reshape(Rb, -1),
+                                     o2[:Rb].reshape(Rb, -1),
+                                     cv[:Rb].reshape(Rb, -1),
+                                     nv[:Rb].reshape(Rb, 1)],
+                                    dim=1).flatten())
         host = _to_numpy(torch.cat(packed)).astype(np.float64)
         cols = [K, K * F, K * F * F, 4, 1]
         at = 0
-        for idxs, *_ in self._bucket_arrays.values():
+        for idxs, *_ in done:
             block = host[at:at + len(idxs) * sum(cols)].reshape(len(idxs), -1)
             at += block.size
             p, o, o2, cv, nv = np.split(block, np.cumsum(cols)[:-1], axis=1)

@@ -27,8 +27,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from phylo_hmrf_tpu.config import SMALL_EPS
-from phylo_hmrf_tpu.tree import PhyloTree
+from phylo_hmrf_tpu_torch.config import SMALL_EPS
+from phylo_hmrf_tpu_torch.tree import PhyloTree
 
 _ALPHA_FLOOR = 1e-7   # ratio = lambda / (2 alpha) only where alpha > 1e-7
 

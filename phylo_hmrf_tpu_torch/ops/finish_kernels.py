@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from phylo_hmrf_tpu.data.regions import DIRS
+from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch import _build
 from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2
 
@@ -58,10 +58,11 @@ def potts_energy(unary_k, mask_i, labels, wmaps, beta):
     partial = torch.empty(R * n_tiles * 2, dtype=torch.float64,
                           device=unary_k.device)
     out = torch.empty(R, dtype=torch.float32, device=unary_k.device)
-    _build.check(lib.phmrf_potts_energy(
-        unary_k.data_ptr(), mask_i.data_ptr(), labels.data_ptr(),
-        wmaps.data_ptr(), partial.data_ptr(), out.data_ptr(), R, K, H, W,
-        float(beta), _build.stream_of(out)), "K3 potts_energy")
+    with _build.on_device(out):
+        _build.check(lib.phmrf_potts_energy(
+            unary_k.data_ptr(), mask_i.data_ptr(), labels.data_ptr(),
+            wmaps.data_ptr(), partial.data_ptr(), out.data_ptr(), R, K, H, W,
+            float(beta), _build.stream_of(out)), "K3 potts_energy")
     potts_energy.launches += 1
     return out
 
@@ -70,7 +71,7 @@ potts_energy.launches = 0
 
 
 def finish_stats_plain(lp_k, img_f, mask_i, labels, wpp, beta, small_eps,
-                       negate: bool = False):
+                       negate: bool = False, float64: bool = False):
     """Plain version of K4 (same outputs as `finish_stats`)."""
     R, K, H, W = lp_k.shape
     Fd = img_f.shape[1]
@@ -115,11 +116,25 @@ def finish_stats_plain(lp_k, img_f, mask_i, labels, wpp, beta, small_eps,
     post = gm.sum(dim=-1)
     obs = torch.einsum("rkn,rfn->rkf", gm, x)
     obs2 = torch.einsum("rkn,rqn->rkq", gm, xx).reshape(R, K, Fd, Fd)
-    return (post.float(), obs.float(), obs2.float(), sums.float())
+    out = (post, obs, obs2, sums)
+    return out if float64 else tuple(t.float() for t in out)
+
+
+def cost_vec_from_sums(sums):
+    """(sums (R, 8) of `finish_stats`) -> (cost_vec (R, 4) = [pairwise,
+    pairwise_nrm, unary, cost1] as means over the valid pixels (the JAX
+    `posteriors_and_costs` semantics), n_valid (R,))."""
+    n_valid = sums[:, 3]
+    nv = torch.clamp(n_valid, min=1.0)
+    pairwise_cost = sums[:, 0] / nv
+    pairwise_nrm = -sums[:, 1] / nv
+    unary_cost = -sums[:, 2] / nv
+    return torch.stack([pairwise_cost, pairwise_nrm, unary_cost,
+                        unary_cost + pairwise_nrm], dim=-1), n_valid
 
 
 def finish_stats(lp_k, img_f, mask_i, labels, wpp, beta, small_eps, *,
-                 negate: bool = False):
+                 negate: bool = False, float64: bool = False):
     """Fused posterior / cost / stats pass over a region batch.
 
     lp_k (R, K, H, W) log-densities, or with ``negate`` the unary
@@ -127,10 +142,12 @@ def finish_stats(lp_k, img_f, mask_i, labels, wpp, beta, small_eps, *,
     tensor). wpp (R, 4, H, W) are the pairwise-potential weights
     (`weight_maps` for estimate_type 3, `valid_maps` otherwise). Returns
     (post (R, K), obs (R, K, F), obs2 (R, K, F, F),
-    sums (R, 8) = [pp_sum, ppn_sum, lp_sum, n_valid, 0, 0, 0, 0])."""
+    sums (R, 8) = [pp_sum, ppn_sum, lp_sum, n_valid, 0, 0, 0, 0]), float32,
+    or with ``float64`` the float64 sums before their one rounding (for
+    adding up the row shards of a region)."""
     if lp_k.device.type == "cpu":
         return finish_stats_plain(lp_k, img_f, mask_i, labels, wpp, beta,
-                                  small_eps, negate)
+                                  small_eps, negate, float64)
     R, K, H, W = lp_k.shape
     Fd = img_f.shape[1]
     _build.check_tensors(
@@ -145,17 +162,20 @@ def finish_stats(lp_k, img_f, mask_i, labels, wpp, beta, small_eps, *,
     n_tiles = lib.phmrf_finish_tiles(H)
     dev = lp_k.device
     partial = torch.empty(R * n_tiles * nout, dtype=torch.float64, device=dev)
-    out = torch.empty(R, nout, dtype=torch.float32, device=dev)
-    _build.check(lib.phmrf_finish_stats(
-        lp_k.data_ptr(), img_f.data_ptr(), mask_i.data_ptr(),
-        labels.data_ptr(), wpp.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), R, K, Fd, H, W, float(beta), float(small_eps),
-        int(bool(negate)), _build.stream_of(out)), "K4 finish_stats")
+    dtype = torch.float64 if float64 else torch.float32
+    out = torch.empty(R, nout, dtype=dtype, device=dev)
+    with _build.on_device(out):
+        _build.check(lib.phmrf_finish_stats(
+            lp_k.data_ptr(), img_f.data_ptr(), mask_i.data_ptr(),
+            labels.data_ptr(), wpp.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), R, K, Fd, H, W, float(beta), float(small_eps),
+            int(bool(negate)), int(bool(float64)), _build.stream_of(out)),
+            "K4 finish_stats")
     finish_stats.launches += 1
     post = out[:, :K]
     obs = out[:, K:K + K * Fd].reshape(R, K, Fd)
     obs2 = out[:, K + K * Fd:nstat].reshape(R, K, Fd, Fd)
-    sums = torch.cat([out[:, nstat:], torch.zeros(R, 4, device=dev)], dim=1)
+    sums = torch.cat([out[:, nstat:], out.new_zeros(R, 4)], dim=1)
     return post, obs, obs2, sums
 
 

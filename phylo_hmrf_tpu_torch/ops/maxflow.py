@@ -26,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from phylo_hmrf_tpu.data.regions import DIRS
+from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch.ops.finish_kernels import (
     _f32, potts_energy, potts_energy_plain)
 from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor

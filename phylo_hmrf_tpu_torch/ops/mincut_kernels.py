@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from phylo_hmrf_tpu.data.regions import DIRS
+from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch import _build
 from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2
 
@@ -62,10 +62,11 @@ def bfs_sweeps_(d, caps, n: int, *, n_inner: int = 8) -> torch.Tensor:
     lib = _build.load()
     scratch = torch.empty_like(d)
     changed = torch.empty((), dtype=torch.int32, device=d.device)
-    _build.check(lib.phmrf_bfs_sweeps(
-        d.data_ptr(), scratch.data_ptr(), caps.data_ptr(), R, H, W, int(n),
-        int(n_inner), changed.data_ptr(), _build.stream_of(d)),
-        "K6 bfs_sweeps")
+    with _build.on_device(d):
+        _build.check(lib.phmrf_bfs_sweeps(
+            d.data_ptr(), scratch.data_ptr(), caps.data_ptr(), R, H, W, int(n),
+            int(n_inner), changed.data_ptr(), _build.stream_of(d)),
+            "K6 bfs_sweeps")
     bfs_sweeps_.launches += n_inner      # one kernel launch per sweep
     return changed
 
@@ -122,10 +123,11 @@ def pr_iterations_(e, h, cap_t, caps, n: int, *, n_inner: int = 4) -> None:
     lib = _build.load()
     h_scratch = torch.empty_like(h)
     out = torch.empty_like(caps)
-    _build.check(lib.phmrf_pr_iterations(
-        e.data_ptr(), h.data_ptr(), h_scratch.data_ptr(), cap_t.data_ptr(),
-        caps.data_ptr(), out.data_ptr(), R, H, W, int(n), int(n_inner),
-        _build.stream_of(e)), "K5 pr_iterations")
+    with _build.on_device(e):
+        _build.check(lib.phmrf_pr_iterations(
+            e.data_ptr(), h.data_ptr(), h_scratch.data_ptr(), cap_t.data_ptr(),
+            caps.data_ptr(), out.data_ptr(), R, H, W, int(n), int(n_inner),
+            _build.stream_of(e)), "K5 pr_iterations")
     pr_iterations_.launches += 2 * n_inner   # push + relabel per iteration
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from phylo_hmrf_tpu.data.regions import DIRS
+from phylo_hmrf_tpu_torch.data.regions import DIRS
 
 
 def weight_maps(dmaps: torch.Tensor, beta1: float) -> torch.Tensor:

@@ -1,0 +1,275 @@
+"""Spatial (row-sharded) E-step with halo exchange — counterpart of
+``phylo_hmrf_tpu/parallel/halo.py``.
+
+One region's rows are split over the shards of a mesh (`parallel/mesh.py`)
+for the grids that dominate a fit, such as a chromosome at 10 kb. Every
+function takes and returns per-shard lists: element i lives on shard i's
+device. `extend_rows` is the counterpart of ``ppermute``: each shard gets
+its neighbours' boundary rows, zeros at the ends of the mesh; `psum` sums
+per-shard values in shard order on the first shard's device.
+
+Correctness of the halo (as in the JAX module): every Potts operator reads
+per-direction edge-weight maps; an edge crossing a shard boundary has its
+weight stored on exactly one side, so extending labels / q and the weights
+by the exchanged rows makes each shard's center rows exact. Zero-filled
+end rows are the "no edge" encoding: label 0, mask 0, weight 0, q 0, never
+updated (mask 0) and never weighed (weight exactly 0).
+
+Per-shard kernel operands use the batched layout of the kernels with one
+region: q, unary_k (1, K, Hl, W); weights (1, 4, Hl, W); labels, mask
+(1, Hl, W); rows are axis -2 throughout. Which kernels run:
+
+* mean field: with 1 <= ``iters_per_temp`` <= 8 and Hl >= 8, one 8-row
+  exchange per temperature and K1 (``mf_sweeps``) on the extended slabs
+  (the exchanged rows evolve in the kernel exactly as the neighbour
+  computes them for the first 8 sweeps); otherwise one 1-row exchange per
+  sweep and K7 (``mf_sweep_halo``);
+* ICM: with Hl >= 8, one 8-row exchange per sweep pair and K2 on the
+  extended slabs with the global colour parity; otherwise one 1-row
+  exchange per phase and K8 (``icm_phase_halo_``).
+
+The JAX package takes its kernel branch only for TPU tile shapes (Hl % 8 ==
+0, W % 128 == 0); the CUDA kernels take any shape, so this port takes it
+for every shard. The energy (K3) and the finishing statistics (K4) run on
+each shard's 1-row halo-extended slab with the halo rows masked out.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from phylo_hmrf_tpu_torch.config import SMALL_EPS
+from phylo_hmrf_tpu_torch.data.regions import DIRS
+from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
+from phylo_hmrf_tpu_torch.ops.finish_kernels import (
+    cost_vec_from_sums, finish_stats, potts_energy)
+from phylo_hmrf_tpu_torch.ops.icm import MF_TEMPS
+from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_phase_halo_,
+                                                  icm_sweep_pair)
+from phylo_hmrf_tpu_torch.ops.mf_kernels import (
+    _shift2, expected_field_sums, mf_sweep_halo, mf_sweeps)
+from phylo_hmrf_tpu_torch.ops.potts import valid_maps, weight_maps
+
+HALO = 8   # deep-halo depth: K1 sweeps / K2 phases per exchange
+
+
+def extend_rows(xs, depth: int = 1):
+    """Add ``depth`` rows on each side of axis -2 of every shard's tensor:
+    the last rows of the shard above and the first rows of the shard below,
+    zeros at the ends of the mesh. Each shard needs ``depth`` <= its row
+    count."""
+    out = []
+    for i, x in enumerate(xs):
+        shape = list(x.shape)
+        shape[-2] = depth
+        above = (xs[i - 1][..., -depth:, :].to(x.device) if i > 0
+                 else x.new_zeros(shape))
+        below = (xs[i + 1][..., :depth, :].to(x.device) if i + 1 < len(xs)
+                 else x.new_zeros(shape))
+        out.append(torch.cat([above, x, below], dim=-2))
+    return out
+
+
+def psum(xs):
+    """Sum of the shards' values in shard order, on the first device."""
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = acc + x.to(acc.device)
+    return acc
+
+
+def _center(x, depth: int):
+    return x[..., depth:x.shape[-2] - depth, :].contiguous()
+
+
+def _zero_rows(x):
+    """``x`` with one zero row on each side of axis -2."""
+    shape = list(x.shape)
+    shape[-2] = 1
+    z = x.new_zeros(shape)
+    return torch.cat([z, x, z], dim=-2)
+
+
+def _mf_base(unary_k, w_ext, beta):
+    """base = unary + beta * wsum with the cross-shard backward weights.
+    unary_k (1, K, Hl, W); w_ext (1, 4, Hl+2, W) halo-extended."""
+    wsum_ext = torch.zeros_like(w_ext[:, 0])
+    for d, (dr, dc) in enumerate(DIRS):
+        wsum_ext = wsum_ext + w_ext[:, d] + _shift2(w_ext[:, d], -dr, -dc)
+    return unary_k + beta * wsum_ext[:, None, 1:-1]
+
+
+def _mean_field_halo_kernels(unary_k, w_ext, beta, temps, iters_per_temp,
+                             damping):
+    """Annealed mean field on the row shards; returns labels per shard
+    (1, Hl, W) int32. K1 on 8-row-extended slabs, or K7 per sweep (module
+    docstring)."""
+    base = [_mf_base(u, w, beta) for u, w in zip(unary_k, w_ext)]
+    q = [F.softmax(-u, dim=1) for u in unary_k]
+    if 1 <= iters_per_temp <= HALO and q[0].shape[-2] >= HALO:
+        # the per-E-step constant slabs are exchanged once
+        base_ext = extend_rows(base, HALO)
+        w_ext8 = extend_rows([_center(w, 1) for w in w_ext], HALO)
+        for T in temps:
+            q_ext = extend_rows(q, HALO)
+            q = [_center(mf_sweeps(qe, be, we, T, damping, beta,
+                                   n_inner=iters_per_temp), HALO)
+                 for qe, be, we in zip(q_ext, base_ext, w_ext8)]
+    else:
+        for T in temps:
+            for _ in range(iters_per_temp):
+                q_ext = extend_rows(q, 1)
+                q = [mf_sweep_halo(qe, b, w, T, damping, beta)
+                     for qe, b, w in zip(q_ext, base, w_ext)]
+    # final hard assignment at T -> 0, as `mean_field_kmajor` does
+    labels = []
+    for qe, w, u in zip(extend_rows(q, 1), w_ext, unary_k):
+        agree, wsum = expected_field_sums(qe, w)
+        field = u + beta * (wsum[:, None, 1:-1] - agree[..., 1:-1, :])
+        labels.append(torch.argmin(field, dim=1).to(torch.int32))
+    return labels
+
+
+def _icm_halo_kernels(unary_k, w_ext, mask, init_labels, beta,
+                      max_sweeps: int):
+    """Checkerboard ICM on the row shards from ``init_labels``; returns
+    labels per shard (1, Hl, W) int32. The colour parity is that of the
+    global row (a shard starts at row shard * Hl). Runs while any label of
+    the region changed (summed over the shards, read once per sweep pair
+    on the K2 branch, once per sweep on the K8 branch) and fewer than
+    ``max_sweeps`` sweeps ran."""
+    Hl = unary_k[0].shape[-2]
+    row0 = [i * Hl for i in range(len(unary_k))]
+    mask_i = [m.to(torch.int32) for m in mask]
+    labels = [torch.where(m, w, 0).to(torch.int32).contiguous()
+              for m, w in zip(mask, init_labels)]
+    changed, sweep = 1, 0
+    if Hl >= HALO:
+        # per-E-step constant slabs exchanged once
+        unp = extend_rows(unary_k, HALO)
+        wp = extend_rows([_center(w, 1) for w in w_ext], HALO)
+        maskp = extend_rows(mask_i, HALO)
+        while changed > 0 and sweep < max_sweeps:
+            labp = extend_rows(labels, HALO)
+            new = [_center(icm_sweep_pair(lp, u, w, m, beta,
+                                          row_offset=r0 - HALO), HALO)
+                   for lp, u, w, m, r0 in zip(labp, unp, wp, maskp, row0)]
+            changed = int(psum([torch.count_nonzero(a != b)
+                                for a, b in zip(new, labels)]))
+            labels = new
+            sweep += 2
+        return labels
+
+    while changed > 0 and sweep < max_sweeps:
+        counts = [torch.zeros((), dtype=torch.int64, device=lab.device)
+                  for lab in labels]
+        for a in (0, 1):
+            for b in (0, 1):
+                lab_ext = extend_rows(labels, 1)
+                for i, r0 in enumerate(row0):
+                    out = icm_phase_halo_(lab_ext[i], unary_k[i], w_ext[i],
+                                          mask_i[i], beta, (a + r0) % 2, b)
+                    new = _center(out, 1)
+                    counts[i] = counts[i] + torch.count_nonzero(
+                        new != labels[i])
+                    labels[i] = new
+        changed = int(psum(counts))
+        sweep += 1
+    return labels
+
+
+def _energy_halo(labels, unary_z, w_z, mask_z, beta):
+    """The region's MRF energy: K3 on each shard's slab of exchanged labels
+    with one halo row on each side, where unary, mask and weights are zero
+    (``*_z``). So each shard counts its own pixels and the forward edges
+    whose weights it stores, into the next shard's first row. Summed over
+    the shards in shard order, float64."""
+    return psum([potts_energy(u, m, le, w, beta).double()
+                 for le, u, w, m in zip(extend_rows(labels, 1), unary_z, w_z,
+                                        mask_z)])
+
+
+def estep_region_rowsharded(img, mask, dmaps, warm, means, covars, beta,
+                            beta1, *, weighted_pp: bool, max_sweeps: int,
+                            temps=MF_TEMPS, iters_per_temp: int = 8,
+                            damping: float = 0.5):
+    """The E-step of one region whose rows are split over shards. Lists
+    per shard, each on its shard's device: img (Hl, W, F), mask (Hl, W)
+    bool, dmaps (4, Hl, W), warm (Hl, W); means (K, F) and covars
+    (K, F, F) on any device.
+
+    Returns (labels per shard (Hl, W) int32, stats (post (K,), obs (K, F),
+    obs2 (K, F, F)), cost_vec (4,), n_valid ()), the last three summed over
+    the shards in shard order (float64, then float32) on the first
+    shard's device."""
+    unary_k, w_cut, mask_b = [], [], []
+    for x, m, dm in zip(img, mask, dmaps):
+        dev = x.device
+        unary_k.append(-gaussian_logpdf_kmajor(
+            x[None], means.to(dev), covars.to(dev)).contiguous())
+        w_cut.append(weight_maps(dm[None], beta1).contiguous())
+        mask_b.append(m[None])
+    w_ext = extend_rows(w_cut, 1)
+    warm_b = [w[None].to(torch.int32) for w in warm]
+
+    mf = _mean_field_halo_kernels(unary_k, w_ext, beta, temps,
+                                  iters_per_temp, damping)
+    cand_a = _icm_halo_kernels(unary_k, w_ext, mask_b, mf, beta, max_sweeps)
+    cand_b = _icm_halo_kernels(unary_k, w_ext, mask_b, warm_b, beta,
+                               max_sweeps)
+    # K3 and K4 on the halo-extended slabs: the halo rows have mask 0, so
+    # only the center pixels count
+    unary_z = [_zero_rows(u) for u in unary_k]
+    mask_z = [_zero_rows(m.to(torch.int32)) for m in mask_b]
+    w_z = [_zero_rows(w) for w in w_cut]
+    e_a = _energy_halo(cand_a, unary_z, w_z, mask_z, beta)
+    e_b = _energy_halo(cand_b, unary_z, w_z, mask_z, beta)
+    labels = cand_a if bool(e_a <= e_b) else cand_b
+
+    # K4's pairwise potential at a center pixel reads the labels and the
+    # backward-edge weights of the exchanged rows
+    w_pp = w_cut if weighted_pp else [valid_maps(dm[None]) for dm in dmaps]
+    parts = [finish_stats(u, _zero_rows(x[None].permute(0, 3, 1, 2)), m, le,
+                          we, beta, SMALL_EPS, negate=True, float64=True)
+             for le, we, u, x, m in zip(extend_rows(labels, 1),
+                                        extend_rows(w_pp, 1), unary_z, img,
+                                        mask_z)]
+    post, obs, obs2, sums = (psum(list(ts)).float() for ts in zip(*parts))
+    cost_vec, n_valid = cost_vec_from_sums(sums)
+    return ([lab[0] for lab in labels], (post[0], obs[0], obs2[0]),
+            cost_vec[0], n_valid[0])
+
+
+def shard_rows(mesh, x: torch.Tensor, row_axis: int = 0):
+    """Split ``x`` into ``mesh.size`` equal row blocks along ``row_axis``,
+    block i on shard i's device."""
+    n = mesh.size
+    if x.shape[row_axis] % n:
+        raise ValueError(f"{x.shape[row_axis]} rows do not split over "
+                         f"{n} shards")
+    return [c.to(d).contiguous()
+            for c, d in zip(torch.chunk(x, n, dim=row_axis), mesh.devices)]
+
+
+def gather_rows(xs, device) -> torch.Tensor:
+    """The per-shard row blocks (rows on axis 0) joined into one tensor on
+    ``device``."""
+    return torch.cat([x.to(device) for x in xs])
+
+
+def make_rowsharded_estep(mesh, *, weighted_pp: bool, max_sweeps: int,
+                          iters_per_temp: int = 8):
+    """The row-sharded E-step on global tensors: img (H, W, F), mask
+    (H, W), dmaps (4, H, W), warm (H, W) with H divisible by the mesh size
+    (pad rows with mask=False). Returns (labels (H, W) on the first
+    shard's device, summed stats, cost_vec, n_valid)."""
+    def run(img, mask, dmaps, warm, means, covars, beta, beta1):
+        labels, stats, cost_vec, n_valid = estep_region_rowsharded(
+            shard_rows(mesh, img), shard_rows(mesh, mask),
+            shard_rows(mesh, dmaps, 1), shard_rows(mesh, warm), means,
+            covars, beta, beta1, weighted_pp=weighted_pp,
+            max_sweeps=max_sweeps, iters_per_temp=iters_per_temp)
+        return (gather_rows(labels, mesh.devices[0]), stats, cost_vec,
+                n_valid)
+    return run

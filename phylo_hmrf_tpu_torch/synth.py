@@ -1,5 +1,7 @@
 """The repo's headline problem, made from a seed: one chr21-like diagonal
-synteny region of 653 x 653 bins (50 kb), 4 species, K = 10 states.
+synteny region of 653 x 653 bins (50 kb), 4 species, K = 10 states; the
+same generator makes the 10 kb-scale region (3264 x 3264 bins) of the
+spatial E-step and off-diagonal blocks.
 
 The same generator as ``bench.py`` (``_bench_tree_and_moments`` and
 ``_sample_blocky``): blocky true labels, per-state Gaussian emissions
@@ -11,8 +13,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from phylo_hmrf_tpu.data.regions import flat_index_order, region_from_samples
-from phylo_hmrf_tpu.tree import build_tree
+from phylo_hmrf_tpu_torch.data.regions import (flat_index_order,
+                                               region_from_samples)
+from phylo_hmrf_tpu_torch.tree import build_tree
 
 CHR21_H0 = 653     # chr21 synteny 14.0-46.7 Mb at 50 kb
 CHR21_K = 10
@@ -56,6 +59,15 @@ def ou_moments_np(p, tree):
 def chr21_problem(seed: int = 0, h0: int = CHR21_H0, K: int = CHR21_K):
     """(tree, region, means, covs, warm_flat, true_flat) for one diagonal
     h0 x h0 region, padded to multiples of (32, 128) like the benchmark."""
+    return synteny_problem(seed, h0, h0, True, K)
+
+
+def synteny_problem(seed: int = 0, h0: int = CHR21_H0, w0: int = CHR21_H0,
+                    is_diag: bool = True, K: int = CHR21_K,
+                    pad_h: int = 32):
+    """`chr21_problem` for an h0 x w0 region, diagonal or off-diagonal
+    (an off-diagonal synteny block pairs two chromosome stretches); the
+    same seed gives the same state moments whatever the shape."""
     rng = np.random.default_rng(seed)
     tree = bench_tree()
     F = tree.n_leaves
@@ -69,9 +81,9 @@ def chr21_problem(seed: int = 0, h0: int = CHR21_H0, K: int = CHR21_K):
         means[c] = m
         covs[c] = V + 1e-3 * np.eye(F)
 
-    ii, jj = np.indices((h0, h0))
+    ii, jj = np.indices((h0, w0))
     true_lab = ((ii // 24 + jj // 24) % K).astype(np.int32)
-    rows, cols = flat_index_order(h0, h0, True)
+    rows, cols = flat_index_order(h0, w0, is_diag)
     lab_flat = true_lab[rows, cols]
     x = np.empty((lab_flat.shape[0], F), np.float32)
     for c in range(K):
@@ -82,7 +94,7 @@ def chr21_problem(seed: int = 0, h0: int = CHR21_H0, K: int = CHR21_K):
     warm = lab_flat.copy()
     flip = rng.random(warm.shape[0]) < 0.15
     warm[flip] = rng.integers(0, K, flip.sum())
-    region = region_from_samples(x, h0, h0, True, pad_h=32, pad_w=128)
+    region = region_from_samples(x, h0, w0, is_diag, pad_h=pad_h, pad_w=128)
     return tree, region, means, covs, warm, lab_flat
 
 
@@ -97,7 +109,7 @@ def kernel_inputs(region, means, covs, warm_flat, device, beta=1.0,
     from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
     from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2
     from phylo_hmrf_tpu_torch.ops.potts import weight_maps
-    from phylo_hmrf_tpu.data.regions import DIRS
+    from phylo_hmrf_tpu_torch.data.regions import DIRS
 
     def dev(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a)[None], dtype=dtype,

@@ -1,0 +1,8 @@
+"""Host helpers of the port: the ``.mat`` writers (``io``), the phase
+timer and convergence monitor (``profiling``) and ``best_match_accuracy``
+(``metrics``)."""
+
+from phylo_hmrf_tpu_torch.utils.io import load_estimate, save_estimate
+from phylo_hmrf_tpu_torch.utils.metrics import best_match_accuracy
+
+__all__ = ["best_match_accuracy", "load_estimate", "save_estimate"]

@@ -1,10 +1,5 @@
-"""Host helpers the port's users need where only the port is installed.
-
-``save_estimate`` / ``load_estimate`` are the shared writers of the
-reference ``.mat`` schema (``phylo_hmrf_tpu/utils/io.py``, numpy and scipy
-only). ``best_match_accuracy`` is copied from
-``phylo_hmrf_tpu/utils/metrics.py``, whose module imports scikit-learn at
-the top for its other metrics.
+"""``best_match_accuracy``, copied from ``phylo_hmrf_tpu/utils/metrics.py``
+(whose module imports scikit-learn at the top for its other metrics).
 """
 
 from __future__ import annotations
@@ -12,9 +7,7 @@ from __future__ import annotations
 import numpy as np
 from scipy.optimize import linear_sum_assignment
 
-from phylo_hmrf_tpu.utils.io import load_estimate, save_estimate
-
-__all__ = ["best_match_accuracy", "load_estimate", "save_estimate"]
+__all__ = ["best_match_accuracy"]
 
 
 def best_match_accuracy(pred, true) -> float:

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (needs an NVIDIA GPU with sm_90a and nvcc; skipped without CUDA).
 
-Run on a GPU machine: ``python -m pytest tests/test_torch_cuda.py -q``.
+Run on a GPU machine: ``python -m pytest tests/test_torch_cuda.py -q
+--noconftest``.
 Shapes: a small ragged grid (H and W of no tile multiple) and the chr21
 cell (R=1, K=10, H=672, W=768, F=4). K5/K6 run on the graph of a real
 expansion move (the one with the most pixels in play) of the K1-K3 start.
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from phylo_hmrf_tpu.config import SMALL_EPS
+from phylo_hmrf_tpu_torch.config import SMALL_EPS
 
 pytestmark = pytest.mark.cuda
 
@@ -26,7 +27,7 @@ def dev():
 
 
 def _inputs(dev, shape):
-    from phylo_hmrf_tpu.data.regions import region_from_samples
+    from phylo_hmrf_tpu_torch.data.regions import region_from_samples
     from phylo_hmrf_tpu_torch.synth import chr21_problem, kernel_inputs
 
     if shape == "chr21":
@@ -108,6 +109,11 @@ def test_k4_kernel_matches_plain(dev, shape):
         want = finish_stats_plain(*args, negate=True)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+        # the float64 sums round to the float32 outputs, bitwise
+        got64 = finish_stats(*args, negate=True, float64=True)
+        for a, b in zip(got64, got):
+            assert a.dtype == torch.float64
+            assert torch.equal(a.float(), b)
 
 
 def _cut_inputs(dev, shape):
@@ -252,3 +258,139 @@ def test_wrappers_check_operands(dev):
         potts_energy(x["unary_k"], x["mask"], x["warm"], x["w"], 1.0)
     with pytest.raises(ValueError):
         potts_energy(x["unary_k"], x["mask_i"], x["warm"].cpu(), x["w"], 1.0)
+
+
+def _halo_shards(x, n):
+    """Each input of the halo kernels cut into n row shards (contiguous)."""
+    def cut(t):
+        return [c.contiguous() for c in torch.chunk(t, n, dim=-2)]
+    lab0 = torch.where(x["mask"], x["warm"], 0).to(torch.int32).contiguous()
+    return {k: cut(v) for k, v in (("q0", x["q0"]), ("base", x["base"]),
+                                   ("w", x["w"]), ("unary_k", x["unary_k"]),
+                                   ("mask_i", x["mask_i"]), ("lab0", lab0))}
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k7_kernel_matches_plain(dev, shape):
+    """K7 on every shard of 4 (1-row halos): rtol 2e-4, atol 1e-6 against
+    its plain version; one launch per call."""
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import (mf_sweep_halo,
+                                                     mf_sweep_halo_plain)
+    from phylo_hmrf_tpu_torch.parallel.halo import extend_rows
+
+    sh = _halo_shards(_inputs(dev, shape), 4)
+    for qe, b, we in zip(extend_rows(sh["q0"]), sh["base"],
+                         extend_rows(sh["w"])):
+        n0 = mf_sweep_halo.launches
+        got = mf_sweep_halo(qe, b, we, 0.5, 0.5, 1.0)
+        want = mf_sweep_halo_plain(qe, b, we, 0.5, 0.5, 1.0)
+        torch.cuda.synchronize()
+        assert mf_sweep_halo.launches - n0 == 1
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k8_kernel_matches_plain(dev, shape):
+    """K8 on every shard of 4, all four phases with the global parity:
+    labels identical to its plain version, halo rows untouched."""
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_phase_halo_,
+                                                      icm_phase_halo_plain)
+    from phylo_hmrf_tpu_torch.parallel.halo import extend_rows
+
+    sh = _halo_shards(_inputs(dev, shape), 4)
+    row0 = 0
+    for le, u, we, m in zip(extend_rows(sh["lab0"]), sh["unary_k"],
+                            extend_rows(sh["w"]), sh["mask_i"]):
+        for a in (0, 1):
+            for b in (0, 1):
+                ae = (a + row0) % 2
+                want = icm_phase_halo_plain(le, u, we, m, 1.0, ae, b)
+                got = icm_phase_halo_(le.clone(), u, we, m, 1.0, ae, b)
+                assert torch.equal(got, want)
+                le = want
+        row0 += u.shape[-2]
+
+
+@pytest.mark.parametrize("shape", ["ragged"])
+def test_halo_split_identity(dev, shape):
+    """On the card, bitwise: K7 over 4 row shards with exchanged halos is
+    one K1 sweep of the whole grid; K8 over the shards with the global
+    parity is one K2 phase; K1's 8 sweeps and K2's sweep pair on 8-row
+    halos (2 shards) are the whole grid's. (`chip_smoke.py` checks the K7/K8
+    identities at the 10 kb scale.)"""
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_phase_,
+                                                      icm_phase_halo_,
+                                                      icm_sweep_pair)
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import mf_sweep_halo, mf_sweeps
+    from phylo_hmrf_tpu_torch.parallel.halo import _center, extend_rows
+
+    x = _inputs(dev, shape)
+    sh = _halo_shards(x, 4)
+    full = mf_sweeps(x["q0"], x["base"], x["w"], 0.5, 0.5, 1.0, n_inner=1)
+    split = [mf_sweep_halo(qe, b, we, 0.5, 0.5, 1.0) for qe, b, we in zip(
+        extend_rows(sh["q0"]), sh["base"], extend_rows(sh["w"]))]
+    assert torch.equal(torch.cat(split, dim=-2), full)
+    lab0 = torch.cat(sh["lab0"], dim=-2)
+    for a in (0, 1):
+        for b in (0, 1):
+            full = icm_phase_(lab0.clone(), x["unary_k"], x["w"], x["mask_i"],
+                              1.0, a, b)
+            lab_ext, row0 = extend_rows(sh["lab0"]), 0
+            for le, u, we, m in zip(lab_ext, sh["unary_k"],
+                                    extend_rows(sh["w"]), sh["mask_i"]):
+                icm_phase_halo_(le, u, we, m, 1.0, (a + row0) % 2, b)
+                row0 += u.shape[-2]
+            assert torch.equal(torch.cat([le[:, 1:-1] for le in lab_ext],
+                                         dim=1), full)
+    H = x["q0"].shape[-2]
+    if H // 2 >= 8:
+        two = _halo_shards(x, 2)
+        full = mf_sweeps(x["q0"], x["base"], x["w"], 0.5, 0.5, 1.0,
+                         n_inner=8)
+        split = [_center(mf_sweeps(qe, be, we, 0.5, 0.5, 1.0, n_inner=8), 8)
+                 for qe, be, we in zip(*(extend_rows(two[k], 8)
+                                         for k in ("q0", "base", "w")))]
+        assert torch.equal(torch.cat(split, dim=-2), full)
+        full = icm_sweep_pair(lab0, x["unary_k"], x["w"], x["mask_i"], 1.0)
+        row0 = [0, two["lab0"][0].shape[-2]]
+        split = [_center(icm_sweep_pair(le, u, we, m, 1.0,
+                                        row_offset=r0 - 8), 8)
+                 for r0, le, u, we, m in zip(row0, *(
+                     extend_rows(two[k], 8)
+                     for k in ("lab0", "unary_k", "w", "mask_i")))]
+        assert torch.equal(torch.cat(split, dim=-2), full)
+
+
+def test_rowsharded_estep_on_the_card(dev):
+    """The spatial E-step over 4 shards on the card against the
+    single-device E-step on the chr21 inputs: labels agree >= 0.999 of the
+    valid pixels, stats and costs within 1e-3 relative, a repeat bitwise;
+    its energy and statistics launch K3 and K4."""
+    from phylo_hmrf_tpu_torch.models.hmrf import _estep_bucket
+    from phylo_hmrf_tpu_torch.ops.finish_kernels import (finish_stats,
+                                                         potts_energy)
+    from phylo_hmrf_tpu_torch.parallel.halo import make_rowsharded_estep
+    from phylo_hmrf_tpu_torch.parallel.mesh import make_mesh
+    from phylo_hmrf_tpu_torch.synth import chr21_problem
+
+    x = _inputs(dev, "chr21")
+    _, region, means, covs, _, _ = chr21_problem(0)
+    dmaps = torch.as_tensor(region.dmaps, device=dev)
+    m = torch.as_tensor(means, dtype=torch.float32, device=dev)
+    c = torch.as_tensor(covs, dtype=torch.float32, device=dev)
+    kw = dict(weighted_pp=False, max_sweeps=60)
+    l1, s1, c1, _ = _estep_bucket(x["img"], x["mask"], dmaps[None],
+                                  x["warm"], m, c, 1.0, 0.5, **kw)
+    fn = make_rowsharded_estep(make_mesh((4,), devices=[dev]), **kw)
+    args = (x["img"][0], x["mask"][0], dmaps, x["warm"][0], m, c, 1.0, 0.5)
+    n3, n4 = potts_energy.launches, finish_stats.launches
+    l2, s2, c2, _ = fn(*args)
+    assert potts_energy.launches - n3 == 2 * 4     # two candidates
+    assert finish_stats.launches - n4 == 4
+    assert (l2 == l1[0])[x["mask"][0]].float().mean().item() >= 0.999
+    for a, b in zip(s2, s1):
+        torch.testing.assert_close(a, b[0], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(c2, c1[0], rtol=1e-3, atol=0)
+    l3, s3, c3, _ = fn(*args)
+    assert torch.equal(l3, l2) and torch.equal(c3, c2)
+    assert all(torch.equal(a, b) for a, b in zip(s3, s2))

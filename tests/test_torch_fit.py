@@ -218,9 +218,12 @@ def test_unsupported_config_raises(kw):
 
 
 def test_unsupported_run_options_raise(tmp_path):
+    """A mesh that is not the port's `Mesh` raises (meshes from
+    `parallel.mesh.make_mesh` run: tests/test_torch_halo.py), and so do
+    the checkpoint/resume arguments of fit."""
     regions, _ = synth_problem(np.random.default_rng(0), H0=8)
     cfg = PhyloHMRFConfig(final_polish=False, n_states=3)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="make_mesh"):
         PhyloHMRF(TREE, regions, cfg, mesh=object(), device="cpu")
     model = PhyloHMRF(TREE, regions, cfg, device="cpu")
     with pytest.raises(NotImplementedError):

@@ -346,7 +346,8 @@ def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
     from phylo_hmrf_tpu_torch.ops import mf_kernels
 
     counters = (mf_kernels.mf_sweeps, icm_kernels.icm_phase_,
-                finish_kernels.potts_energy, finish_kernels.finish_stats)
+                finish_kernels.potts_energy, finish_kernels.finish_stats,
+                mf_kernels.mf_sweep_halo, icm_kernels.icm_phase_halo_)
     before = [f.launches for f in counters]
     wm, mask, img_f, logprob_k, labels = _finish_problem(rng, R=1)
     mf_kernels.mf_sweeps(_t(-logprob_k), _t(-logprob_k), _t(wm), 1.0, 0.5,
@@ -357,29 +358,168 @@ def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
                                 _t(wm), 1.0)
     finish_kernels.finish_stats(_t(logprob_k), _t(img_f), _t(mask),
                                 _t(labels), _t(wm), 1.0, SMALL_EPS)
+    pad = (0, 0, 1, 1)   # one zero halo row on each side
+    wm_ext = torch.nn.functional.pad(_t(wm), pad)
+    mf_kernels.mf_sweep_halo(torch.nn.functional.pad(_t(-logprob_k), pad),
+                             _t(-logprob_k), wm_ext, 1.0, 0.5, 1.0)
+    icm_kernels.icm_phase_halo_(torch.nn.functional.pad(_t(labels), pad),
+                                _t(-logprob_k), wm_ext, _t(mask), 1.0, 1, 0)
     assert [f.launches for f in counters] == before
 
 
 def test_port_imports_no_jax():
-    """Importing every port module in a fresh interpreter leaves jax (and
-    scikit-learn and pandas, absent on the GPU machine) out of
-    sys.modules."""
+    """In a fresh interpreter whose import system refuses jax and every
+    module of the JAX package (``phylo_hmrf_tpu`` and
+    ``phylo_hmrf_tpu.*``), as well as scikit-learn and pandas (absent on
+    the GPU machine), every port module and ``chip_smoke`` import; and no
+    import statement in their sources, lazy ones inside functions
+    included, names a refused module."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import ast, importlib, pathlib, pkgutil, sys\n"
+        "REFUSED = ('jax', 'jaxlib', 'phylo_hmrf_tpu', 'sklearn', 'pandas')\n"
+        "class Refuse:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in REFUSED:\n"
+        "            raise ImportError(f'refused: {name}')\n"
+        "sys.meta_path.insert(0, Refuse())\n"
         "import phylo_hmrf_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
-        "[importlib.import_module(n) for n in names]\n"
-        "assert len(names) >= 14, names\n"
-        "assert {'phylo_hmrf_tpu_torch.ops.maxflow', "
-        "'phylo_hmrf_tpu_torch.ops.mincut_kernels'} <= set(names)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'sklearn', 'pandas')]\n"
-        "assert not bad, bad\n"
-        "assert not any(m.startswith(('phylo_hmrf_tpu.models', "
-        "'phylo_hmrf_tpu.ops', 'phylo_hmrf_tpu.parallel')) "
-        "for m in sys.modules)\n")
+        "mods = [importlib.import_module(n) for n in names]\n"
+        "mods.append(importlib.import_module('chip_smoke'))\n"
+        "assert len(names) >= 24, names\n"
+        "assert {'phylo_hmrf_tpu_torch.parallel.halo', "
+        "'phylo_hmrf_tpu_torch.parallel.sharding', "
+        "'phylo_hmrf_tpu_torch.native', 'phylo_hmrf_tpu_torch.config', "
+        "'phylo_hmrf_tpu_torch.tree', "
+        "'phylo_hmrf_tpu_torch.data.regions'} <= set(names)\n"
+        "for m in mods:\n"
+        "    tree = ast.parse(pathlib.Path(m.__file__).read_text())\n"
+        "    for node in ast.walk(tree):\n"
+        "        if isinstance(node, ast.Import):\n"
+        "            found = [a.name for a in node.names]\n"
+        "        elif isinstance(node, ast.ImportFrom):\n"
+        "            found = [node.module or '']\n"
+        "        else:\n"
+        "            continue\n"
+        "        bad = [f for f in found if f.split('.')[0] in REFUSED]\n"
+        "        assert not bad, (m.__name__, node.lineno, bad)\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in REFUSED]\n"
+        "assert not loaded, loaded\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("part", ["dirs", "regions", "tree", "config",
+                                  "mat_roundtrip", "oracle"])
+def test_port_copies_match_jax_package(tmp_path, part):
+    """The port's own copies of the JAX package's jax-free modules give
+    what the originals give on the same inputs: ``DIRS``; the
+    ``region_from_samples`` arrays and ``flat_edge_list`` of a diagonal
+    and an off-diagonal region; the ``build_tree`` / ``load_tree``
+    matrices; ``PhyloHMRFConfig``'s field names and defaults (and
+    ``SMALL_EPS``); a ``.mat`` written by one package and read by the
+    other; the C++ oracle (same source, same expansion labels and
+    energy)."""
+    rng = np.random.default_rng(5)
+    if part == "dirs":
+        from phylo_hmrf_tpu.data import regions as jr
+        from phylo_hmrf_tpu_torch.data import regions as tr
+        assert tr.DIRS == jr.DIRS
+    elif part == "regions":
+        from phylo_hmrf_tpu.data import regions as jr
+        from phylo_hmrf_tpu_torch.data import regions as tr
+        for H0, W0, is_diag in ((20, 20, True), (12, 30, False)):
+            rows, _ = jr.flat_index_order(H0, W0, is_diag)
+            for a, b in zip(tr.flat_index_order(H0, W0, is_diag),
+                            jr.flat_index_order(H0, W0, is_diag)):
+                np.testing.assert_array_equal(a, b)
+            vals = (rng.random((rows.shape[0], 3)) + 0.1).astype(np.float32)
+            kw = dict(pad_h=8, pad_w=16, chrom=3, region_id=2, start1=5)
+            a = tr.region_from_samples(vals, H0, W0, is_diag, **kw)
+            b = jr.region_from_samples(vals, H0, W0, is_diag, **kw)
+            for f in ("img", "mask", "dmaps", "flat_rows", "flat_cols"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+            assert a.len_vec_row(0, 9) == b.len_vec_row(0, 9)
+            np.testing.assert_array_equal(tr.flat_edge_list(a),
+                                          jr.flat_edge_list(b))
+            np.testing.assert_array_equal(
+                tr.edge_distance_maps(a.img, a.mask, is_diag, 4),
+                jr.edge_distance_maps(b.img, b.mask, is_diag, 4))
+    elif part == "tree":
+        from phylo_hmrf_tpu import tree as jt
+        from phylo_hmrf_tpu_torch import tree as tt
+        edges = [(0, 1), (1, 2), (1, 3), (3, 4), (4, 5), (4, 6), (3, 7)]
+        (tmp_path / "edge.txt").write_text(
+            "".join(f"{a}\t{b}\n" for a, b in edges))
+        (tmp_path / "bl.txt").write_text("0\t32\t20\t6\t6\t6\t12\n")
+        (tmp_path / "sp.txt").write_text("a\nb\nc\nd\n")
+        files = [str(tmp_path / f) for f in ("edge.txt", "bl.txt", "sp.txt")]
+        for a, b in ((tt.build_tree(edges), jt.build_tree(edges)),
+                     (tt.load_tree(*files), jt.load_tree(*files))):
+            for f in ("parent", "topo_order", "leaf_nodes", "A1", "A2",
+                      "pair_mrca", "pair_rows", "pair_cols", "pair_list"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+            assert (a.n_nodes, a.n_params, a.species) == (
+                b.n_nodes, b.n_params, b.species)
+            assert hash(a) == hash(tt.build_tree(edges))
+    elif part == "config":
+        import dataclasses
+
+        from phylo_hmrf_tpu import config as jc
+        from phylo_hmrf_tpu_torch import config as tc
+
+        def defaults(cls):
+            return {f.name: (f.default if f.default is not dataclasses.MISSING
+                             else f.default_factory())
+                    for f in dataclasses.fields(cls)}
+        assert defaults(tc.PhyloHMRFConfig) == defaults(jc.PhyloHMRFConfig)
+        assert list(defaults(tc.PhyloHMRFConfig)) == list(
+            defaults(jc.PhyloHMRFConfig))
+        assert tc.SMALL_EPS == jc.SMALL_EPS and tc.LABELERS == jc.LABELERS
+        kw = dict(n_states=4, shard_mode="spatial", labeler="mf_icm+swap@3")
+        assert (tc.PhyloHMRFConfig(**kw).to_dict()
+                == jc.PhyloHMRFConfig(**kw).to_dict())
+    elif part == "mat_roundtrip":
+        import types
+
+        from phylo_hmrf_tpu.utils import io as jio
+        from phylo_hmrf_tpu_torch.utils import io as tio
+        res = types.SimpleNamespace(
+            labels=rng.integers(0, 5, 40), params_vec=rng.random((5, 16)),
+            params_vec1=rng.random((5, 16)), iter_id1=3, iter_id2=4,
+            cost_vec=rng.random((6, 4)), means=rng.random((5, 4)),
+            covars=rng.random((5, 4, 4)), params_list=rng.random((6, 5, 16)))
+        len_vec = rng.integers(0, 9, (2, 10))
+        for save, load in ((tio.save_estimate, jio.load_estimate),
+                           (jio.save_estimate, tio.load_estimate)):
+            out = str(tmp_path / save.__module__.split(".")[0])
+            path = save(res, len_vec, out, 0, 1.0, 5)
+            got = load(path)
+            want = jio.result_dict(res, len_vec)
+            for k, v in want.items():
+                np.testing.assert_array_equal(np.asarray(got[k]).squeeze(),
+                                              np.asarray(v).squeeze())
+            got_npz = load(path[:-3] + "npz")
+            np.testing.assert_array_equal(got_npz["covars"], res.covars)
+    else:
+        from phylo_hmrf_tpu import native as jn
+        from phylo_hmrf_tpu.data.regions import flat_edge_list
+        from phylo_hmrf_tpu_torch import native as tn
+        with open(os.path.join(os.path.dirname(jn.__file__),
+                               "maxflow.cc"), "rb") as f:
+            assert open(tn.SOURCE, "rb").read() == f.read()
+        if not jn.available():
+            pytest.skip("no g++")
+        (region,) = _regions(rng, 12, 12, pad_w=16)
+        edges = flat_edge_list(region)
+        w = np.exp(-0.5 * edges[:, 2])
+        unary = rng.random((region.n_samples, 4))
+        start = rng.integers(0, 4, region.n_samples).astype(np.int32)
+        a = tn.potts_expansion(edges, w, unary, 1.0, start, 50)
+        b = jn.potts_expansion(edges, w, unary, 1.0, start, 50)
+        np.testing.assert_array_equal(a, b)
+        assert (tn.potts_energy(edges, w, unary, 1.0, a)
+                == jn.potts_energy(edges, w, unary, 1.0, b))
