@@ -8,10 +8,13 @@ process per source, in parallel), holds each against its plain PyTorch
 version and times both: the four E-step kernels at the chr21 shapes (R=1,
 K=10, H=672, W=768, F=4) on the E-step's operands, the two min-cut kernels
 (K5 push-relabel, K6 BFS relabel) on a real expansion-move graph of the
-chr21 start labels, and the whole min cut on both paths. Then it checks
-one whole E-step on the kernel path against the plain path and for bitwise
-determinism, holds the exact expansion polish against the C++ expansion
-oracle on the same unary, weights and start, and fits the chr21 problem
+chr21 start labels, bitwise, and the whole min cut on both paths (the same
+cut). Then it checks one whole E-step on the kernel path against the plain
+path and for bitwise determinism, holds the exact expansion polish against
+the C++ expansion oracle on the same unary, weights and start, runs one
+cycle of the polish on both paths (identical labels), profiles one polish
+pass (``[polish_profile]``: device busy time, idle share, K5/K6 device
+time, host reads per move), and fits the chr21 problem
 (653 x 653 bins, 4 species, K=10, seed 0) for five EM iterations with the
 default config (``final_polish=True``, ``polish_method="expansion"``)
 through ``PhyloHMRF.fit`` and checks the result.
@@ -35,10 +38,12 @@ script exits 0 only if all passed.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel (launches on the path that runs it, max abs error against the plain
-version, kernel and plain times in ms, the bound: the least time of the
-same work on the card, from the bytes it must move and the operations it
-must do); the last line is ``{"ok": true, "device": {...}}``. Without CUDA
-it exits 1 before any of that.
+version, kernel and plain times in ms of one unit of work, the bound: the
+least time of the same work on the card, from the bytes it must move and
+the operations it must do; then the launches per unit, the units per fit
+and the ms per fit lost to the bound); the last line is
+``{"ok": true, "device": {...}}``. Without CUDA it exits 1 before any of
+that.
 """
 
 import json
@@ -83,8 +88,12 @@ def _check(ok, what):
         raise AssertionError(what)
 
 
-def _time_ms(fn, reps=5):
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up."""
+def _time_ms(fn, reps=5, queued=False):
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up.
+    ``queued``: the card first sleeps ~1 ms, so the host has queued the
+    start event, ``fn``'s launches and the end event before the start
+    event runs: the window holds the device time of the launches alone,
+    not the wrapper's host work before them."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -92,12 +101,23 @@ def _time_ms(fn, reps=5):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _timed(fn, plain_fn):
+    """The timings of a kernel row: ``ms`` the device time of one unit
+    (queued launches), ``call_ms`` one call with its host work in the
+    window (how this script timed every kernel before), ``plain_ms`` the
+    plain version's call."""
+    return dict(ms=_time_ms(fn, queued=True), call_ms=_time_ms(fn),
+                plain_ms=_time_ms(plain_fn))
 
 
 def _max_abs(a, b):
@@ -164,9 +184,10 @@ def check_kernels(x, beta=1.0):
     _check(agree > 0.999, f"K1 mean-field labels agree on only {agree}")
     out["K1_mf_sweep"] = dict(
         max_abs_err=_max_abs(got, want), label_agreement=agree,
-        ms=_time_ms(lambda: mf_sweeps(*k1, n_inner=8)),
-        plain_ms=_time_ms(lambda: mf_sweeps_plain(*k1, 8)),
-        unit="8 sweeps at one temperature", tolerance="rtol 2e-4, atol 1e-6",
+        **_timed(lambda: mf_sweeps(*k1, n_inner=8),
+                 lambda: mf_sweeps_plain(*k1, 8)),
+        unit="8 sweeps at one temperature", launches_per_unit=8,
+        tolerance="rtol 2e-4, atol 1e-6",
         nbytes=_nbytes(x["q0"], x["base"], x["w"], x["q0"]),
         ops=8 * OPS_MF * K * npx)
 
@@ -184,9 +205,9 @@ def check_kernels(x, beta=1.0):
            f"K2 ICM loop: {int((full != full_p).sum())} labels differ")
     out["K2_icm_phase"] = dict(
         max_abs_err=float((got != want).sum()),
-        ms=_time_ms(lambda: icm_sweep_pair(*k2)),
-        plain_ms=_time_ms(lambda: icm_sweep_pair(*k2, plain=True)),
-        unit="one sweep pair = 8 phase launches",
+        **_timed(lambda: icm_sweep_pair(*k2),
+                 lambda: icm_sweep_pair(*k2, plain=True)),
+        unit="one sweep pair = 8 phase launches", launches_per_unit=8,
         tolerance="identical labels",
         nbytes=_nbytes(lab0, x["unary_k"], x["w"], x["mask_i"], lab0),
         ops=2 * OPS_ICM * K * npx)
@@ -198,9 +219,9 @@ def check_kernels(x, beta=1.0):
            f"K3 disagrees: {got.tolist()} vs {want.tolist()}")
     out["K3_potts_energy"] = dict(
         max_abs_err=_max_abs(got, want),
-        ms=_time_ms(lambda: potts_energy(*k3)),
-        plain_ms=_time_ms(lambda: potts_energy_plain(*k3)),
-        unit="one call (tile pass + reduce pass)", tolerance="rtol 1e-6",
+        **_timed(lambda: potts_energy(*k3), lambda: potts_energy_plain(*k3)),
+        unit="one call (tile pass + reduce pass)", launches_per_unit=1,
+        tolerance="rtol 1e-6",
         nbytes=_nbytes(x["unary_k"], x["mask_i"], x["warm"], x["w"]),
         ops=OPS_ENERGY * npx)
 
@@ -214,9 +235,9 @@ def check_kernels(x, beta=1.0):
                f"K4 disagrees: max abs err {_max_abs(a, b)}")
     out["K4_finish_stats"] = dict(
         max_abs_err=max(_max_abs(a, b) for a, b in zip(got, want)),
-        ms=_time_ms(lambda: finish_stats(*k4, negate=True)),
-        plain_ms=_time_ms(lambda: finish_stats_plain(*k4, negate=True)),
-        unit="one call (tile pass + reduce pass)",
+        **_timed(lambda: finish_stats(*k4, negate=True),
+                 lambda: finish_stats_plain(*k4, negate=True)),
+        unit="one call (tile pass + reduce pass)", launches_per_unit=1,
         tolerance="rtol 2e-5, atol 1e-6",
         nbytes=_nbytes(x["unary_k"], x["img_f"], x["mask_i"], x["warm"],
                        x["w"], *got),
@@ -249,7 +270,7 @@ def check_mincut(x, n_states, beta=1.0):
 
     from phylo_hmrf_tpu_torch.ops import maxflow as mf
     from phylo_hmrf_tpu_torch.ops.mincut_kernels import (
-        EPS, bfs_sweeps_, bfs_sweeps_plain, pr_iterations_,
+        EPS, bfs_sweeps, bfs_sweeps_plain, pr_iterations,
         pr_iterations_plain)
 
     start = mf._start_batch(x["unary_k"], x["w"], x["mask"], x["warm"], beta,
@@ -266,47 +287,56 @@ def check_mincut(x, n_states, beta=1.0):
     d0 = torch.where(cap_t0 > EPS, 1, n).to(torch.int32).contiguous()
     out = {}
 
-    # K6: 8 Jacobi sweeps bitwise, then the fixpoint: identical distances
-    d8 = d0.clone()
-    bfs_sweeps_(d8, caps0, n, n_inner=8)
-    _check(torch.equal(d8, bfs_sweeps_plain(d0, caps0, n, 8)),
-           "K6: 8 sweeps differ from the plain version")
+    # K6: 8 Jacobi sweeps in one launch, bitwise, with the plain result's
+    # changed flag; then the fixpoint: identical distances
+    flag = torch.zeros((), dtype=torch.int32, device=d0.device)
+    d8, _ = bfs_sweeps(d0, caps0, n, n_inner=8, flag=flag, tag=7)
+    want = bfs_sweeps_plain(d0, caps0, n, 8)
+    _check(torch.equal(d8, want), "K6: 8 sweeps differ from the plain version")
+    _check((int(flag) == 7) == bool(torch.any(want != d0)),
+           "K6: the changed flag differs from the plain result's")
     fix = mf._bfs_fixpoint(d0.clone(), caps0, n, False, None)
     fix_p = mf._bfs_fixpoint(d0.clone(), caps0, n, True, None)
     _check(torch.equal(fix, fix_p),
            f"K6 fixpoint: {int((fix != fix_p).sum())} distances differ")
     out["K6_bfs_sweeps"] = dict(
-        max_abs_err=float((fix - fix_p).abs().max()),
-        ms=_time_ms(lambda: bfs_sweeps_(d8, caps0, n, n_inner=8)),
-        plain_ms=_time_ms(lambda: bfs_sweeps_plain(d0, caps0, n, 8)),
-        unit="8 BFS sweeps", tolerance="identical int32 distances",
+        max_abs_err=float((d8 - want).abs().max()),
+        **_timed(lambda: bfs_sweeps(d0, caps0, n, n_inner=8, out=d8,
+                                    flag=flag),
+                 lambda: bfs_sweeps_plain(d0, caps0, n, 8)),
+        unit="8 BFS sweeps", launches_per_unit=1,
+        tolerance="identical int32 distances",
         reachable=int((fix < n).sum()),
         nbytes=_nbytes(d0, caps0, d0), ops=8 * OPS_BFS * R * H * W)
 
-    # K5: 4 iterations from the relabelled state (h = BFS distance).
-    # Same operations in the same order with round-to-nearest intrinsics:
-    # expected bitwise; the gate allows atol 1e-6 on the floats
-    st = [excess0.clone(), fix.clone(), cap_t0.clone(), caps0.clone()]
-    pr_iterations_(*st, n, n_inner=4)
-    want = pr_iterations_plain(excess0, fix, cap_t0, caps0, n, 4)
-    _check(torch.equal(st[1], want[1]),
-           f"K5: {int((st[1] != want[1]).sum())} heights differ")
-    err = max(_max_abs(st[i], want[i]) for i in (0, 2, 3))
-    _check(err <= 1e-6, f"K5 disagrees: max abs err {err}")
-    work = [t.clone() for t in st]
+    # K5: 4 iterations in one launch from the relabelled state (h = BFS
+    # distance), three calls in a row. Same operations in the same order
+    # with round-to-nearest intrinsics: bitwise, with the plain result's
+    # active flag
+    st = want = (excess0, fix, cap_t0, caps0)
+    for tag in (1, 2, 3):
+        st, _ = pr_iterations(*st, n, n_inner=4, flag=flag, tag=tag)
+        want = pr_iterations_plain(*want, n, 4)
+        diff = [int((a != b).sum()) for a, b in zip(st, want)]
+        _check(not any(diff), f"K5 call {tag}: values differ {diff}")
+        _check((int(flag) == tag) == bool(torch.any((want[0] > EPS)
+                                                    & (want[1] < n))),
+               "K5: the active flag differs from the plain result's")
+    err = max(_max_abs(a, b) for a, b in zip(st, want))
+    spare = tuple(torch.empty_like(t) for t in st)
     out["K5_pr_iterations"] = dict(
-        max_abs_err=err,
-        bitwise=all(torch.equal(a, b) for a, b in zip(st, want)),
-        ms=_time_ms(lambda: pr_iterations_(*work, n, n_inner=4)),
-        plain_ms=_time_ms(lambda: pr_iterations_plain(
-            excess0, fix, cap_t0, caps0, n, 4)),
-        unit="4 push-relabel iterations",
-        tolerance="identical h; e, cap_t, caps atol 1e-6",
+        max_abs_err=err, bitwise=True,
+        **_timed(lambda: pr_iterations(*st, n, n_inner=4, out=spare,
+                                       flag=flag),
+                 lambda: pr_iterations_plain(excess0, fix, cap_t0, caps0, n,
+                                             4)),
+        unit="4 push-relabel iterations", launches_per_unit=1,
+        tolerance="bitwise e, h, cap_t, caps",
         nbytes=2 * _nbytes(excess0, fix, cap_t0, caps0),
         ops=4 * OPS_PR * R * H * W)
 
-    # the whole min cut: the cut costs agree (the cuts may differ where
-    # several minimum cuts exist)
+    # the whole min cut: with K5/K6 bitwise and the same schedule, the
+    # same cut and the same work on both paths
     runs = {}
     for name, plain in (("kernel", False), ("plain", True)):
         stats = mf.CutStats()
@@ -316,18 +346,82 @@ def check_mincut(x, n_states, beta=1.0):
                               stats=stats)
         torch.cuda.synchronize()
         runs[name] = (side, time.perf_counter() - t0, stats)
-    costs = {k: _cut_cost(v[0], excess0, cap_t0, caps0)
-             for k, v in runs.items()}
-    rel = abs(costs["kernel"] - costs["plain"]) / max(1.0,
-                                                       abs(costs["plain"]))
-    _check(rel <= 1e-5, f"min cut costs differ: {costs}")
-    cut = dict(alpha=alpha, in_play=in_play[alpha], cost=costs,
-               cost_rel_err=rel,
-               differing_pixels=int((runs["kernel"][0]
-                                     != runs["plain"][0]).sum()),
+    _check(torch.equal(runs["kernel"][0], runs["plain"][0]),
+           "min cut: the kernel path's cut differs from the plain path's")
+    _check(runs["kernel"][2] == runs["plain"][2],
+           f"min cut: the paths did different work: {runs}")
+    cost = _cut_cost(runs["kernel"][0], excess0, cap_t0, caps0)
+    cut = dict(alpha=alpha, in_play=in_play[alpha], cost=cost,
                kernel_s=runs["kernel"][1], plain_s=runs["plain"][1],
-               stats={k: dataclasses.asdict(v[2]) for k, v in runs.items()})
+               stats=dataclasses.asdict(runs["kernel"][2]))
     return out, cut, start
+
+
+def check_polish_paths(x, start, n_states, beta=1.0):
+    """One cycle of exact expansion moves from the chr21 start on the
+    kernel path and on the plain path (the polish of
+    ``exact_labels_batched`` after its start): identical labels and the
+    same work."""
+    import dataclasses
+
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, _optimize_batched
+
+    runs = {}
+    for name, plain in (("kernel", False), ("plain", True)):
+        stats = CutStats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lab = _optimize_batched(x["unary_k"], x["w"], x["mask"], start, beta,
+                                n_states, "expansion", 1, plain=plain,
+                                stats=stats)
+        torch.cuda.synchronize()
+        runs[name] = (lab, time.perf_counter() - t0, stats)
+    _check(torch.equal(runs["kernel"][0], runs["plain"][0]),
+           "polish: the kernel path's labels differ from the plain path's: "
+           f"{int((runs['kernel'][0] != runs['plain'][0]).sum())} pixels")
+    _check(runs["kernel"][2] == runs["plain"][2],
+           "polish: the paths did different work")
+    return dict(max_cycles=1, identical_labels=True,
+                relabeled=int((runs["kernel"][0] != start).sum()),
+                kernel_s=runs["kernel"][1], plain_s=runs["plain"][1],
+                stats=dataclasses.asdict(runs["kernel"][2]))
+
+
+def profile_polish(x, start, n_states, max_cycles, beta=1.0):
+    """One `_optimize_batched` expansion pass from the chr21 start (the
+    fit's polish cycles) under ``torch.profiler``: device busy seconds,
+    the idle share against an unprofiled run's wall, K5 and K6 device ms
+    by kernel name, the kernel count, host reads per move."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, _optimize_batched
+
+    stats = CutStats()
+
+    def run(st=None):
+        return _optimize_batched(x["unary_k"], x["w"], x["mask"], start,
+                                 beta, n_states, "expansion", max_cycles,
+                                 stats=st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, n, by_name = _device_busy_s(run)
+    k5 = [v for k, v in by_name.items() if "pr_tile_kernel" in k]
+    k6 = [v for k, v in by_name.items() if "bfs_tile_kernel" in k]
+    return dict(
+        wall_s=wall, device_busy_s=busy, kernels=n,
+        idle_share=None if busy is None else max(0.0, 1.0 - busy / wall),
+        k5_device_ms=sum(v[0] for v in k5) * 1e-3,
+        k5_launches=sum(v[1] for v in k5),
+        k6_device_ms=sum(v[0] for v in k6) * 1e-3,
+        k6_launches=sum(v[1] for v in k6),
+        moves=stats.moves, host_reads_per_move=stats.host_reads / stats.moves,
+        pr_iterations_per_move=stats.pr_iterations / stats.moves,
+        bfs_sweeps_per_move=stats.bfs_sweeps / stats.moves)
 
 
 def check_oracle(x, region, start, n_states, max_cycles, beta=1.0,
@@ -421,8 +515,8 @@ def _counters():
             "K2_icm_phase": icm_kernels.icm_phase_,
             "K3_potts_energy": finish_kernels.potts_energy,
             "K4_finish_stats": finish_kernels.finish_stats,
-            "K5_pr_iterations": mincut_kernels.pr_iterations_,
-            "K6_bfs_sweeps": mincut_kernels.bfs_sweeps_,
+            "K5_pr_iterations": mincut_kernels.pr_iterations,
+            "K6_bfs_sweeps": mincut_kernels.bfs_sweeps,
             "K7_mf_sweep_halo": mf_kernels.mf_sweep_halo,
             "K8_icm_phase_halo": icm_kernels.icm_phase_halo_}
 
@@ -574,9 +668,9 @@ def check_halo_kernels(x, n_shards, beta=1.0):
            f"K7 disagrees: max abs err {_max_abs(got, want)}")
     out["K7_mf_sweep_halo"] = dict(
         max_abs_err=_max_abs(got, want),
-        ms=_time_ms(lambda: mf_sweep_halo(*k7)),
-        plain_ms=_time_ms(lambda: mf_sweep_halo_plain(*k7)),
+        **_timed(lambda: mf_sweep_halo(*k7), lambda: mf_sweep_halo_plain(*k7)),
         unit=f"one sweep of a {Hl}-row shard (+2 halo rows)",
+        launches_per_unit=1,
         tolerance="rtol 2e-4, atol 1e-6",
         nbytes=_nbytes(k7[0], k7[1], k7[2], got),
         ops=OPS_MF * K * Hl * W, shard=[Hl, W])
@@ -595,9 +689,10 @@ def check_halo_kernels(x, n_shards, beta=1.0):
     active = Hl * W // 4     # the phase's pixels
     out["K8_icm_phase_halo"] = dict(
         max_abs_err=float((got != want).sum()),
-        ms=_time_ms(lambda: icm_phase_halo_(work, *k8[1:])),
-        plain_ms=_time_ms(lambda: icm_phase_halo_plain(*k8)),
+        **_timed(lambda: icm_phase_halo_(work, *k8[1:]),
+                 lambda: icm_phase_halo_plain(*k8)),
         unit=f"one phase of a {Hl}-row shard (+2 halo rows)",
+        launches_per_unit=1,
         tolerance="identical labels",
         # what one phase must move: every label and weight of the slab
         # (each pixel is a neighbour), the unary and mask of the phase's
@@ -652,8 +747,9 @@ def check_split(x, mesh, beta=1.0):
 
 def _device_busy_s(fn):
     """Seconds of device kernel time in one run of ``fn`` under
-    ``torch.profiler`` (the kernels of one stream do not overlap), and the
-    kernel count; (None, 0) when the profiler sees no device time."""
+    ``torch.profiler`` (the kernels of one stream do not overlap), the
+    kernel count, and {kernel name: [device us, count]}; (None, 0, {})
+    when the profiler sees no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -662,12 +758,15 @@ def _device_busy_s(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy_us, n = 0.0, 0
+    busy_us, n, by_name = 0.0, 0, {}
     for e in prof.events():
         if str(e.device_type).endswith("CUDA"):
             busy_us += e.self_device_time_total
             n += 1
-    return (busy_us * 1e-6 if busy_us > 0 else None), n
+            v = by_name.setdefault(e.name, [0.0, 0])
+            v[0] += e.self_device_time_total
+            v[1] += 1
+    return (busy_us * 1e-6 if busy_us > 0 else None), n, by_name
 
 
 def check_spatial_estep(x, img, dmaps, means, covs, mesh):
@@ -712,7 +811,7 @@ def check_spatial_estep(x, img, dmaps, means, covs, mesh):
                 img[None], x["mask"], dmaps[None], x["warm"], means, covs,
                 1.0, 0.5, weighted_pp=False, max_sweeps=60), t_single),
             ("spatial", lambda: fn(*args), rec["spatial_s"])):
-        busy, n = _device_busy_s(f)
+        busy, n, _ = _device_busy_s(f)
         rec[f"{name}_device_busy_s"] = busy
         rec[f"{name}_device_kernels"] = n
         rec[f"{name}_idle_share"] = (None if busy is None
@@ -867,9 +966,10 @@ def main() -> int:
     est = check_estep(x, dmaps, mt, ct)
     print(f"[estep] {json.dumps(est)}")
 
-    oracle = check_oracle(x, region, start, K,
-                          PhyloHMRFConfig().swap_tpu_cycles)
+    cycles = PhyloHMRFConfig().swap_tpu_cycles     # the fit's polish
+    oracle = check_oracle(x, region, start, K, cycles)
     print(f"[oracle] {json.dumps(oracle)}")
+    print(f"[polish_paths] {json.dumps(check_polish_paths(x, start, K))}")
 
     # the main path: the default single-device fit
     t0 = time.perf_counter()
@@ -889,6 +989,10 @@ def main() -> int:
                polish=polish, phases=summ, launches=launches,
                best_match_accuracy=acc, cost_vec=res.cost_vec.tolist())
     print(f"[fit] {json.dumps(fit)}")
+    # after the fit: a profiler run can leave host overhead on later
+    # launches, and the fit's host-bound phases would pay it
+    print(f"[polish_profile] "
+          f"{json.dumps(profile_polish(x, start, K, cycles))}")
 
     # the multi-device paths, over SHARDS shards of the visible cards
     mesh = make_mesh((SHARDS,))
@@ -909,7 +1013,8 @@ def main() -> int:
         k = _with_bound(k)
         kernels[name]["at_10kb"] = k
         print(f"[{name} at 10kb] max_abs_err={k['max_abs_err']:.3g} "
-              f"kernel={k['ms']:.3f}ms plain={k['plain_ms']:.3f}ms "
+              f"kernel={k['ms']:.3f}ms call={k['call_ms']:.3f}ms "
+              f"plain={k['plain_ms']:.3f}ms "
               f"bound={k['bound_ms'] * 1e3:.1f}us "
               f"({100 * k['share_of_bound']:.1f}% of it) ({k['unit']})")
     split = check_split(x10, mesh)
@@ -945,15 +1050,24 @@ def main() -> int:
         bound_ms, bound_by = k["bound_ms"], k["bound_by"]
         path_launches = slaunches if name.startswith(("K7", "K8")) else \
             launches
+        # units of the timed work per fit, and the ms they lose to the
+        # bound: the ranking of the kernels to redesign
+        units = path_launches[name] / k["launches_per_unit"]
+        lost = units * (k["ms"] - bound_ms)
         print(f"[{name}] max_abs_err={k['max_abs_err']:.3g} "
-              f"kernel={k['ms']:.3f}ms plain={k['plain_ms']:.3f}ms "
+              f"kernel={k['ms']:.3f}ms call={k['call_ms']:.3f}ms "
+              f"plain={k['plain_ms']:.3f}ms "
               f"bound={bound_ms * 1e3:.1f}us ({bound_by}, "
-              f"{100 * k['share_of_bound']:.1f}% of it) ({k['unit']})")
+              f"{100 * k['share_of_bound']:.1f}% of it) ({k['unit']}); "
+              f"{units:g} units per fit, {lost:.1f} ms lost per fit")
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=path_launches[name],
                          max_abs_err=k["max_abs_err"], ms=k["ms"],
                          plain_ms=k["plain_ms"], bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None))
+                         bound_by=bound_by, library_ms=None,
+                         unit=k["unit"], call_ms=k["call_ms"],
+                         launches_per_unit=k["launches_per_unit"],
+                         units_per_fit=units, ms_lost_per_fit=lost))
     print(f"[kernels] {json.dumps(kernels)}")
     print(smi)
     print(json.dumps({"kernels": rows}))

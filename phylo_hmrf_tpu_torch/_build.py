@@ -138,10 +138,12 @@ _SIGNATURES = {
     #     beta, small_eps, negate, out_f64, stream
     "phmrf_finish_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _F, _F, _I, _I, _P],
-    # K5: e, h, h_scratch, cap_t, caps, out, R, H, W, n, n_inner, stream
-    "phmrf_pr_iterations": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # K6: d, scratch, caps, R, H, W, n, n_inner, changed, stream
-    "phmrf_bfs_sweeps": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # K5: e, h, cap_t, caps, e_out, h_out, cap_t_out, caps_out, R, H, W, n,
+    #     n_inner, flag, tag, stream
+    "phmrf_pr_iterations": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _P, _I, _P],
+    # K6: d, d_out, caps, R, H, W, n, n_inner, flag, tag, stream
+    "phmrf_bfs_sweeps": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
     # tile counts the wrappers size the partial-sum buffers with
     "phmrf_energy_tiles": [_I],
     "phmrf_finish_tiles": [_I],
@@ -184,19 +186,21 @@ def on_device(t):
 def check_tensors(what: str, **specs) -> None:
     """Validate kernel operands before their pointers go to C: each keyword
     is ``name=(tensor, dtype, shape)``; all must be contiguous, of that
-    dtype and shape, and on one CUDA device."""
+    dtype and shape, and on one CUDA device. (It runs on every launch of
+    the min-cut loop, so it reads each attribute once.)"""
     device = None
     for name, (t, dtype, shape) in specs.items():
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{what}: {name} is on {t.device}, not CUDA")
+        index = t.get_device()
         if device is None:
-            device = t.device
-        elif t.device != device:
+            device = index
+        elif index != device:
             raise ValueError(f"{what}: {name} is on {t.device}, "
-                             f"other operands on {device}")
+                             f"other operands on cuda:{device}")
         if t.dtype != dtype:
             raise TypeError(f"{what}: {name} is {t.dtype}, needs {dtype}")
-        if tuple(t.shape) != tuple(shape):
+        if t.shape != tuple(shape):
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
                              f"needs {tuple(shape)}")
         if not t.is_contiguous():

@@ -5,11 +5,11 @@ Counterpart of ``phylo_hmrf_tpu/ops/maxflow_tpu.py``, same names. The min
 cut is the data-parallel push-relabel of ``grid_mincut_fused`` with the JAX
 schedule: a global relabel (BFS toward the sink, kernel K6) whenever
 ``it % 32 == 0``, push-relabel iterations (kernel K5) four at a time, the
-convergence test read on the host once per four iterations, at most
-``max_sweeps`` iterations. Everything else here is plain tensor code, as it
-is XLA code in the JAX package: the move graphs (alpha-beta swap and
-alpha-expansion, with dominance freezing), the move loop with GCO-style
-pruning, and the energies.
+convergence test read on the host once per four iterations (on the kernel
+path: K5's device flag), at most ``max_sweeps`` iterations. Everything
+else here is plain tensor code, as it is XLA code in the JAX package: the
+move graphs (alpha-beta swap and alpha-expansion, with dominance
+freezing), the move loop with GCO-style pruning, and the energies.
 
 Layouts carry a leading region-batch axis, as the JAX batched entry points
 do: labels, mask (R, H, W); unary_k (R, K, H, W) K-major; wmaps
@@ -32,7 +32,7 @@ from phylo_hmrf_tpu_torch.ops.finish_kernels import (
 from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
 from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2, mean_field_kmajor
 from phylo_hmrf_tpu_torch.ops.mincut_kernels import (
-    ALL_DIRS, EPS, _nb, _rev, bfs_sweeps_, bfs_sweeps_plain, pr_iterations_,
+    ALL_DIRS, EPS, _nb, _rev, bfs_sweeps, bfs_sweeps_plain, pr_iterations,
     pr_iterations_plain)
 
 RELABEL_EVERY = 32     # iterations between global relabels (BFS)
@@ -46,19 +46,57 @@ class CutStats:
     pr_iterations: int = 0   # push-relabel iterations over all moves
     bfs_sweeps: int = 0      # BFS sweeps (global relabels + source-side BFS)
     capped: int = 0          # moves stopped by max_sweeps with nodes active
+    host_reads: int = 0      # loop tests read back to the host
 
 
-def _bfs_fixpoint(d, caps, n: int, plain: bool, stats):
-    """Min-plus sweeps until no distance changes, 8 per host check."""
+def _read(x, stats):
+    """One host read of a loop test, a 0-d tensor."""
+    if stats is not None:
+        stats.host_reads += 1
+    return x.item()
+
+
+class _Flag:
+    """The device word K5 and K6 set to their call's tag when the host
+    loop must go on. The tag grows with every call, so the word is never
+    cleared."""
+
+    def __init__(self, device):
+        self.word = torch.zeros((), dtype=torch.int32, device=device)
+        self.tag = 0
+
+    def next(self) -> dict:
+        """The keywords of the next kernel call: the word and a new tag."""
+        self.tag += 1
+        return dict(flag=self.word, tag=self.tag)
+
+    def read(self, stats) -> bool:
+        """Whether the last call set the word (one host read)."""
+        return _read(self.word, stats) == self.tag
+
+
+def _bfs_fixpoint(d, caps, n: int, plain: bool, stats, spare=None,
+                  flag: _Flag | None = None):
+    """Min-plus sweeps from the seed ``d`` until no distance changes, 8 per
+    host check. The kernel path runs them as K6 launches that ping-pong
+    ``d`` with ``spare`` (a second distance plane) and reads ``flag``;
+    both are made here when the caller has none. Returns the distances
+    (on the kernel path, in ``d`` or ``spare``)."""
+    if not plain:
+        spare = torch.empty_like(d) if spare is None else spare
+        flag = _Flag(d.device) if flag is None else flag
     k = 0
     changed = True
     while changed and k < n:
         if plain:
             new = bfs_sweeps_plain(d, caps, n, 8)
-            changed = bool(torch.any(new != d))
+            changed = bool(_read(torch.any(new != d), stats))
             d = new
         else:
-            changed = bool(bfs_sweeps_(d, caps, n, n_inner=8))
+            new, _ = bfs_sweeps(d, caps, n, n_inner=8, out=spare,
+                                **flag.next())
+            d, spare = new, d
+            changed = flag.read(stats)
         k += 8
     if stats is not None:
         stats.bfs_sweeps += k
@@ -76,36 +114,60 @@ def grid_mincut(excess0, cap_t0, caps0, max_sweeps: int = 3000, *,
     (R, H, W): sink-arc capacities; caps0 (R, 8, H, W): neighbour-arc
     capacities, 0 on arcs leaving the grid. Returns source_side (R, H, W)
     bool: the pixels that cannot reach the sink in the final residual
-    graph (distance >= n = H*W + 2)."""
+    graph (distance >= n = H*W + 2).
+
+    The kernel path owns two sets of state buffers and a spare distance
+    plane for the whole cut: each K5 call reads one set and writes the
+    other, each K6 call one plane into the other, and the loop tests read
+    the kernels' device flag. The plain path tests with ``torch.any``."""
     R, H, W = excess0.shape
     n = H * W + 2
-    e = excess0.to(torch.float32).clone().contiguous()
-    cap_t = cap_t0.to(torch.float32).clone().contiguous()
-    caps = caps0.to(torch.float32).clone().contiguous()
-    h = torch.zeros((R, H, W), dtype=torch.int32, device=e.device)
+    state = (excess0.to(torch.float32).clone().contiguous(),
+             torch.zeros((R, H, W), dtype=torch.int32, device=excess0.device),
+             cap_t0.to(torch.float32).clone().contiguous(),
+             caps0.to(torch.float32).clone().contiguous())
+    spare = flag = spare_d = None
+    if not plain:
+        spare = tuple(torch.empty_like(t) for t in state)
+        spare_d = torch.empty_like(state[1])
+        flag = _Flag(excess0.device)
 
-    def seed():
-        return torch.where(cap_t > EPS, 1, n).to(torch.int32).contiguous()
+    def distances(cap_t, caps):
+        # the BFS from the sink seed: 1 where the sink arc is residual (a
+        # new plane per global relabel, made with kernels the move graphs
+        # have loaded already: a first masked_fill_ would load another
+        # module of PyTorch's kernels in the middle of the cut)
+        seed = torch.where(cap_t > EPS, 1, n).to(torch.int32)
+        return _bfs_fixpoint(seed, caps, n, plain, stats, spare=spare_d,
+                             flag=flag)
 
+    e, h = state[:2]
+    active = bool(_read(torch.any((e > EPS) & (h < n)), stats))
     it = 0
-    while bool(torch.any((e > EPS) & (h < n))):
+    while active:
         if it >= max_sweeps:
             if stats is not None:
                 stats.capped += 1
             break
+        e, h, cap_t, caps = state
         if it % RELABEL_EVERY == 0:
             # heights are lower bounds on the residual distance: the exact
             # BFS distance can only lift them
-            h = torch.maximum(h, _bfs_fixpoint(seed(), caps, n, plain, stats))
+            torch.maximum(h, distances(cap_t, caps), out=h)
         if plain:
-            e, h, cap_t, caps = pr_iterations_plain(e, h, cap_t, caps, n, 4)
+            state = pr_iterations_plain(e, h, cap_t, caps, n, 4)
+            active = bool(_read(torch.any((state[0] > EPS)
+                                          & (state[1] < n)), stats))
         else:
-            pr_iterations_(e, h, cap_t, caps, n, n_inner=4)
+            state, _ = pr_iterations(e, h, cap_t, caps, n, n_inner=4,
+                                     out=spare, **flag.next())
+            spare = (e, h, cap_t, caps)
+            active = flag.read(stats)
         it += 4
     if stats is not None:
         stats.moves += 1
         stats.pr_iterations += it
-    return _bfs_fixpoint(seed(), caps, n, plain, stats) >= n
+    return distances(state[2], state[3]) >= n
 
 
 def _incident_wsum(wmaps, beta: float) -> torch.Tensor:

@@ -1,16 +1,20 @@
 """K5 (push-relabel iterations) and K6 (BFS min-plus sweeps) of the grid
 min-cut, with their CUDA kernels (``csrc/mincut.cu``).
 
-Counterpart of ``phylo_hmrf_tpu/ops/mincut_pallas.py``: ``pr_iterations_``
-replaces ``pr_iterations_pallas`` and ``bfs_sweeps_`` replaces
+Counterpart of ``phylo_hmrf_tpu/ops/mincut_pallas.py``: ``pr_iterations``
+replaces ``pr_iterations_pallas`` and ``bfs_sweeps`` replaces
 ``bfs_sweeps_pallas``. Layout: e, cap_t (R, H, W) float32; h, d (R, H, W)
 int32; caps (R, 8, H, W) float32 with the arc directions of ``ALL_DIRS``.
 Arcs leaving the grid must carry capacity exactly 0 (the move graphs of
 ``ops/maxflow.py`` are built so).
 
-Both wrappers update their state tensors in place (the loop in
-``maxflow.grid_mincut`` owns them). On a CPU tensor they run the plain
-version; on a CUDA tensor they launch the kernel or raise.
+Both wrappers are functional, as the JAX entries are: they read their
+state and write the new state to ``out`` (buffers the caller owns; new
+tensors when it gives none), and set a device word ``flag`` to ``tag``
+when the host loop must go on. A call with a fresh tag needs no clearing
+of the word, so the loop in ``maxflow.grid_mincut`` allocates nothing per
+call. On a CPU tensor they run the plain version; on a CUDA tensor they
+launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2
 
 ALL_DIRS = tuple(DIRS) + tuple((-di, -dj) for (di, dj) in DIRS)
 EPS = 1e-6
+BFS_MAX_INNER = 8    # sweeps one K6 launch can run (its halo is 8 pixels)
+PR_MAX_INNER = 4     # iterations one K5 launch can run (radius 2 each)
 
 
 def _rev(d: int) -> int:
@@ -33,6 +39,10 @@ def _nb(x: torch.Tensor, d: int, fill) -> torch.Tensor:
     """Value at the direction-d neighbour of each pixel (``fill`` outside)."""
     di, dj = ALL_DIRS[d]
     return _shift2(x, di, dj, fill)
+
+
+def _new_flag(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=device)
 
 
 def bfs_sweeps_plain(d, caps, n: int, n_inner: int):
@@ -47,31 +57,37 @@ def bfs_sweeps_plain(d, caps, n: int, n_inner: int):
     return d
 
 
-def bfs_sweeps_(d, caps, n: int, *, n_inner: int = 8) -> torch.Tensor:
-    """``n_inner`` BFS sweeps on ``d`` in place. Returns a 0-d int32 tensor
-    on d's device, nonzero iff some distance changed (read by the caller
-    once per call)."""
+def bfs_sweeps(d, caps, n: int, *, n_inner: int = 8, out=None, flag=None,
+               tag: int = 1):
+    """``n_inner`` (<= 8) BFS sweeps from ``d`` (not written) into ``out``,
+    in one K6 launch. Returns (new d, flag): the 0-d int32 ``flag`` holds
+    ``tag`` iff some distance changed (a new flag starts at 0)."""
+    if not 1 <= n_inner <= BFS_MAX_INNER:
+        raise ValueError(f"bfs_sweeps: n_inner {n_inner} not in 1..8")
+    out = torch.empty_like(d) if out is None else out
+    flag = _new_flag(d.device) if flag is None else flag
     if d.device.type == "cpu":
         new = bfs_sweeps_plain(d, caps, n, n_inner)
-        changed = torch.any(new != d).to(torch.int32)
-        d.copy_(new)
-        return changed
+        if torch.any(new != d):
+            flag.fill_(tag)
+        return out.copy_(new), flag
     R, H, W = d.shape
-    _build.check_tensors("bfs_sweeps_", d=(d, torch.int32, (R, H, W)),
-                         caps=(caps, torch.float32, (R, 8, H, W)))
-    lib = _build.load()
-    scratch = torch.empty_like(d)
-    changed = torch.empty((), dtype=torch.int32, device=d.device)
+    _build.check_tensors("bfs_sweeps", d=(d, torch.int32, (R, H, W)),
+                         out=(out, torch.int32, (R, H, W)),
+                         caps=(caps, torch.float32, (R, 8, H, W)),
+                         flag=(flag, torch.int32, ()))
+    if out.data_ptr() == d.data_ptr():
+        raise ValueError("bfs_sweeps: out must be another buffer than d")
     with _build.on_device(d):
-        _build.check(lib.phmrf_bfs_sweeps(
-            d.data_ptr(), scratch.data_ptr(), caps.data_ptr(), R, H, W, int(n),
-            int(n_inner), changed.data_ptr(), _build.stream_of(d)),
+        _build.check(_build.load().phmrf_bfs_sweeps(
+            d.data_ptr(), out.data_ptr(), caps.data_ptr(), R, H, W, int(n),
+            int(n_inner), flag.data_ptr(), int(tag), _build.stream_of(d)),
             "K6 bfs_sweeps")
-    bfs_sweeps_.launches += n_inner      # one kernel launch per sweep
-    return changed
+    bfs_sweeps.launches += 1
+    return out, flag
 
 
-bfs_sweeps_.launches = 0
+bfs_sweeps.launches = 0
 
 
 def pr_iterations_plain(e, h, cap_t, caps, n: int, n_inner: int):
@@ -107,28 +123,44 @@ def pr_iterations_plain(e, h, cap_t, caps, n: int, n_inner: int):
     return e, h, cap_t, caps
 
 
-def pr_iterations_(e, h, cap_t, caps, n: int, *, n_inner: int = 4) -> None:
-    """``n_inner`` push-relabel iterations, updating e, h, cap_t and caps
-    in place."""
+def pr_iterations(e, h, cap_t, caps, n: int, *, n_inner: int = 4, out=None,
+                  flag=None, tag: int = 1):
+    """``n_inner`` (<= 4) push-relabel iterations in one K5 launch, from
+    (e, h, cap_t, caps) (not written) into ``out``, a 4-tuple of buffers
+    of the same shapes. Returns (new (e, h, cap_t, caps), flag): the 0-d
+    int32 ``flag`` holds ``tag`` iff some node is active (e > EPS, h < n)
+    after them (a new flag starts at 0)."""
+    if not 1 <= n_inner <= PR_MAX_INNER:
+        raise ValueError(f"pr_iterations: n_inner {n_inner} not in 1..4")
+    state = (e, h, cap_t, caps)
+    out = tuple(torch.empty_like(t) for t in state) if out is None else out
+    flag = _new_flag(e.device) if flag is None else flag
     if e.device.type == "cpu":
-        for t, new in zip((e, h, cap_t, caps),
-                          pr_iterations_plain(e, h, cap_t, caps, n, n_inner)):
-            t.copy_(new)
-        return
+        new = pr_iterations_plain(e, h, cap_t, caps, n, n_inner)
+        if torch.any((new[0] > EPS) & (new[1] < n)):
+            flag.fill_(tag)
+        return tuple(o.copy_(t) for o, t in zip(out, new)), flag
     R, H, W = e.shape
+    plane = (R, H, W)
     _build.check_tensors(
-        "pr_iterations_", e=(e, torch.float32, (R, H, W)),
-        h=(h, torch.int32, (R, H, W)), cap_t=(cap_t, torch.float32, (R, H, W)),
-        caps=(caps, torch.float32, (R, 8, H, W)))
-    lib = _build.load()
-    h_scratch = torch.empty_like(h)
-    out = torch.empty_like(caps)
+        "pr_iterations", e=(e, torch.float32, plane),
+        h=(h, torch.int32, plane), cap_t=(cap_t, torch.float32, plane),
+        caps=(caps, torch.float32, (R, 8, H, W)),
+        e_out=(out[0], torch.float32, plane),
+        h_out=(out[1], torch.int32, plane),
+        cap_t_out=(out[2], torch.float32, plane),
+        caps_out=(out[3], torch.float32, (R, 8, H, W)),
+        flag=(flag, torch.int32, ()))
+    if any(o.data_ptr() == t.data_ptr() for o, t in zip(out, state)):
+        raise ValueError("pr_iterations: out must be other buffers than the "
+                         "state")
     with _build.on_device(e):
-        _build.check(lib.phmrf_pr_iterations(
-            e.data_ptr(), h.data_ptr(), h_scratch.data_ptr(), cap_t.data_ptr(),
-            caps.data_ptr(), out.data_ptr(), R, H, W, int(n), int(n_inner),
+        _build.check(_build.load().phmrf_pr_iterations(
+            *(t.data_ptr() for t in state), *(t.data_ptr() for t in out),
+            R, H, W, int(n), int(n_inner), flag.data_ptr(), int(tag),
             _build.stream_of(e)), "K5 pr_iterations")
-    pr_iterations_.launches += 2 * n_inner   # push + relabel per iteration
+    pr_iterations.launches += 1
+    return out, flag
 
 
-pr_iterations_.launches = 0
+pr_iterations.launches = 0

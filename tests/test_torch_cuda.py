@@ -5,7 +5,9 @@ Run on a GPU machine: ``python -m pytest tests/test_torch_cuda.py -q
 --noconftest``.
 Shapes: a small ragged grid (H and W of no tile multiple) and the chr21
 cell (R=1, K=10, H=672, W=768, F=4). K5/K6 run on the graph of a real
-expansion move (the one with the most pixels in play) of the K1-K3 start.
+expansion move (the one with the most pixels in play) of the K1-K3 start,
+and on random cut instances whose shapes put pixels on every kind of tile
+edge.
 """
 
 import numpy as np
@@ -149,21 +151,22 @@ def _move_graph(x):
 
 @pytest.mark.parametrize("shape", CUT_SHAPES)
 def test_k6_kernel_matches_plain(dev, shape):
-    """8 sweeps: identical distances (Jacobi sweeps, integer min-plus);
-    then the fixpoint of both paths: identical."""
+    """8 sweeps in one launch: identical distances (Jacobi sweeps, integer
+    min-plus), the input untouched, the changed flag that of the plain
+    result; then the fixpoint of both paths: identical."""
     from phylo_hmrf_tpu_torch.ops.maxflow import _bfs_fixpoint
-    from phylo_hmrf_tpu_torch.ops.mincut_kernels import (bfs_sweeps_,
+    from phylo_hmrf_tpu_torch.ops.mincut_kernels import (bfs_sweeps,
                                                          bfs_sweeps_plain)
 
     excess0, cap_t0, caps0, n = _move_graph(_cut_inputs(dev, shape))
     d0 = torch.where(cap_t0 > 1e-6, 1, n).to(torch.int32).contiguous()
-    d = d0.clone()
-    n0 = bfs_sweeps_.launches
-    changed = bfs_sweeps_(d, caps0, n, n_inner=8)
+    keep = d0.clone()
+    n0 = bfs_sweeps.launches
+    d, changed = bfs_sweeps(d0, caps0, n, n_inner=8, tag=3)
     want = bfs_sweeps_plain(d0, caps0, n, 8)
-    assert bfs_sweeps_.launches - n0 == 8
-    assert torch.equal(d, want)
-    assert int(changed) == int(torch.any(want != d0))
+    assert bfs_sweeps.launches - n0 == 1
+    assert torch.equal(d, want) and torch.equal(d0, keep)
+    assert (int(changed) == 3) == bool(torch.any(want != d0))
     assert torch.equal(_bfs_fixpoint(d0.clone(), caps0, n, False, None),
                        _bfs_fixpoint(d0.clone(), caps0, n, True, None))
 
@@ -171,34 +174,121 @@ def test_k6_kernel_matches_plain(dev, shape):
 @pytest.mark.parametrize("shape", CUT_SHAPES)
 @pytest.mark.parametrize("n_inner", [1, 4])
 def test_k5_kernel_matches_plain(dev, shape, n_inner):
-    """Push-relabel iterations from the BFS-relabelled state: heights
-    identical; e, cap_t, caps within atol 1e-6 (same operations in the
-    same order with round-to-nearest intrinsics: expected bitwise)."""
+    """Push-relabel iterations from the BFS-relabelled state, 3 calls in a
+    row: e, h, cap_t and caps bitwise equal to the plain version's (same
+    operations in the same order with round-to-nearest intrinsics), one
+    launch a call, the active flag that of the plain result."""
     from phylo_hmrf_tpu_torch.ops.maxflow import _bfs_fixpoint
     from phylo_hmrf_tpu_torch.ops.mincut_kernels import (
-        pr_iterations_, pr_iterations_plain)
+        EPS, pr_iterations, pr_iterations_plain)
 
     excess0, cap_t0, caps0, n = _move_graph(_cut_inputs(dev, shape))
     d0 = torch.where(cap_t0 > 1e-6, 1, n).to(torch.int32).contiguous()
     h = _bfs_fixpoint(d0, caps0, n, True, None)
-    got = [excess0.clone(), h.clone(), cap_t0.clone(), caps0.clone()]
-    want = (excess0, h, cap_t0, caps0)
-    for _ in range(3):
-        n0 = pr_iterations_.launches
-        pr_iterations_(*got, n, n_inner=n_inner)
-        assert pr_iterations_.launches - n0 == 2 * n_inner
+    got = want = (excess0, h, cap_t0, caps0)
+    for tag in range(1, 4):
+        n0 = pr_iterations.launches
+        got, flag = pr_iterations(*got, n, n_inner=n_inner, tag=tag)
+        assert pr_iterations.launches - n0 == 1
         want = pr_iterations_plain(*want, n, n_inner)
         torch.cuda.synchronize()
-        assert torch.equal(got[1], want[1])
-        for i in (0, 2, 3):
-            torch.testing.assert_close(got[i], want[i], rtol=0, atol=1e-6)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        active = bool(torch.any((want[0] > EPS) & (want[1] < n)))
+        assert (int(flag) == tag) == active
+
+
+def _random_cut(dev, shape, seed, directed):
+    """A random weighted-Potts cut instance (R, H, W) made with numpy:
+    undirected neighbour arcs (a swap move's graph) or forward arcs only
+    (an expansion move's), 0 on arcs leaving the grid, sink arcs on 30% of
+    the pixels; returns (excess, cap_t, caps, n, sparse BFS seed)."""
+    from phylo_hmrf_tpu_torch.ops.mincut_kernels import ALL_DIRS, _nb, _rev
+
+    rng = np.random.default_rng(seed)
+    R, H, W = shape
+    excess = (rng.random(shape) * 2 * (rng.random(shape) < 0.5))
+    cap_t = (rng.random(shape) * 2 * (rng.random(shape) < 0.3))
+    caps = np.zeros((R, 8, H, W))
+    for a in range(4):
+        di, dj = ALL_DIRS[a]
+        lam = rng.random(shape) * 0.5
+        if di:
+            lam[:, -di:, :] = 0
+        if dj > 0:
+            lam[:, :, -dj:] = 0
+        elif dj < 0:
+            lam[:, :, :-dj] = 0
+        caps[:, a] += lam
+        if not directed:
+            caps[:, _rev(a)] += _nb(torch.from_numpy(lam), _rev(a),
+                                    0.0).numpy()
+    t = [torch.as_tensor(x, dtype=torch.float32, device=dev)
+         for x in (excess, cap_t, caps)]
+    n = H * W + 2
+    few = torch.as_tensor(rng.random(shape) < 0.03, device=dev)
+    seed_d = torch.where(few & (t[1] > 1e-6), 1, n).to(torch.int32)
+    return (*t, n, seed_d)
+
+
+# tile edges: a grid smaller than one tile (K5 and K6 take 32 x 64
+# interiors), H and W one more than a tile multiple, W < 8, two regions
+# with different graphs, three tiles each way
+TILE_SHAPES = [(1, 23, 37), (1, 33, 65), (1, 40, 5), (2, 30, 70),
+               (1, 97, 193)]
+
+
+@pytest.mark.parametrize("directed", [False, True])
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+def test_k6_tile_edges_match_plain(dev, shape, directed):
+    """K6 at every depth 1-8, chained 3 times from a sparse sink seed (far
+    from the fixpoint, so distances cross tile edges): identical to the
+    plain version, the changed flag that of the plain result."""
+    from phylo_hmrf_tpu_torch.ops.mincut_kernels import (bfs_sweeps,
+                                                         bfs_sweeps_plain)
+
+    _, _, caps, n, d = _random_cut(dev, shape, sum(shape), directed)
+    tag = 0
+    for _ in range(3):
+        for n_inner in range(1, 9):
+            tag += 1
+            got, flag = bfs_sweeps(d, caps, n, n_inner=n_inner, tag=tag)
+            want = bfs_sweeps_plain(d, caps, n, n_inner)
+            assert torch.equal(got, want), (n_inner, int((got != want).sum()))
+            assert (int(flag) == tag) == bool(torch.any(want != d))
+        d = want
+
+
+@pytest.mark.parametrize("directed", [False, True])
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+def test_k5_tile_edges_match_plain(dev, shape, directed):
+    """K5 3 x 4 iterations, and once at each depth 1-4, from the
+    BFS-relabelled state: bitwise equal to the plain version at tile
+    edges, the grid border and ragged H, W; the active flag that of the
+    plain result."""
+    from phylo_hmrf_tpu_torch.ops.maxflow import _bfs_fixpoint
+    from phylo_hmrf_tpu_torch.ops.mincut_kernels import (
+        EPS, pr_iterations, pr_iterations_plain)
+
+    e, cap_t, caps, n, _ = _random_cut(dev, shape, 1 + sum(shape), directed)
+    d0 = torch.where(cap_t > EPS, 1, n).to(torch.int32)
+    h = _bfs_fixpoint(d0, caps, n, True, None)
+    got = want = (e, h, cap_t, caps)
+    for tag, n_inner in enumerate([4, 4, 4, 1, 2, 3], start=1):
+        got, flag = pr_iterations(*got, n, n_inner=n_inner, tag=tag)
+        want = pr_iterations_plain(*want, n, n_inner)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), (n_inner, i)
+        active = bool(torch.any((want[0] > EPS) & (want[1] < n)))
+        assert (int(flag) == tag) == active
 
 
 @pytest.mark.parametrize("shape", CUT_SHAPES)
 def test_grid_mincut_kernel_matches_plain(dev, shape):
-    """The whole min cut on the kernels and on the plain versions: the
-    cut costs agree, rel 1e-5 (the cuts may differ where several minimum
-    cuts exist); no run hits max_sweeps."""
+    """The whole min cut on the kernels and on the plain versions: with
+    K5/K6 bitwise and the same schedule, the same cut and the same work
+    (host reads included); the cut's cost checked too; no run hits
+    max_sweeps."""
     from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, grid_mincut
     from phylo_hmrf_tpu_torch.ops.mincut_kernels import _nb
 
@@ -214,7 +304,27 @@ def test_grid_mincut_kernel_matches_plain(dev, shape):
     got = grid_mincut(excess0, cap_t0, caps0, stats=sk)
     want = grid_mincut(excess0, cap_t0, caps0, plain=True, stats=sp)
     assert sk.capped == sp.capped == 0 and sk.moves == 1
+    assert torch.equal(got, want) and sk == sp
     assert cost(got) == pytest.approx(cost(want), rel=1e-5)
+
+
+@pytest.mark.parametrize("shape", ["ragged", "ragged_x2"])
+def test_polish_kernel_matches_plain(dev, shape):
+    """One cycle of exact expansion moves from the same K1-K3 start on the
+    kernels and on the plain versions: identical labels."""
+    from phylo_hmrf_tpu_torch.ops import maxflow as mf
+
+    x = _cut_inputs(dev, shape)
+    K = x["unary_k"].shape[1]
+    start = mf._start_batch(x["unary_k"], x["w"], x["mask"], x["warm"], 1.0,
+                            60)
+    stats = [mf.CutStats(), mf.CutStats()]
+    got, want = (mf._optimize_batched(x["unary_k"], x["w"], x["mask"], start,
+                                      1.0, K, "expansion", 1, plain=plain,
+                                      stats=st)
+                 for plain, st in zip((False, True), stats))
+    assert torch.equal(got, want)
+    assert stats[0] == stats[1] and stats[0].moves > 0
 
 
 def test_polish_is_deterministic(dev):

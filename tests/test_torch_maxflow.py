@@ -87,7 +87,7 @@ def test_k5_plain_matches_pr_iterations_pallas(n_inner):
     1e-6 (same operations in the same order; the bound leaves room for XLA
     fusing the interpreted kernel's elementwise chain differently)."""
     from phylo_hmrf_tpu.ops.mincut_pallas import pr_iterations_pallas
-    from phylo_hmrf_tpu_torch.ops.mincut_kernels import pr_iterations_
+    from phylo_hmrf_tpu_torch.ops.mincut_kernels import pr_iterations
 
     e, h, cap_t, caps, n = _relabelled_state(np.random.default_rng(5))
     assert (h < n).any() and (h > 1).any()   # a real height field
@@ -95,8 +95,8 @@ def test_k5_plain_matches_pr_iterations_pallas(n_inner):
                                 jnp.asarray(cap_t), jnp.asarray(caps),
                                 jnp.int32(n), n_inner=n_inner,
                                 interpret=True)
-    got = [_t(a.copy()) for a in (e, h, cap_t, caps)]
-    pr_iterations_(*got, n, n_inner=n_inner)
+    got, _ = pr_iterations(*(_t(a) for a in (e, h, cap_t, caps)), n,
+                           n_inner=n_inner)
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     for i in (0, 2, 3):
         np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]),
@@ -111,7 +111,7 @@ def test_k6_plain_matches_bfs_sweeps_pallas(n_inner):
     """K6's plain version vs bfs_sweeps_pallas(interpret=True): identical
     distances after ``n_inner`` sweeps from the sink seed."""
     from phylo_hmrf_tpu.ops.mincut_pallas import bfs_sweeps_pallas
-    from phylo_hmrf_tpu_torch.ops.mincut_kernels import bfs_sweeps_
+    from phylo_hmrf_tpu_torch.ops.mincut_kernels import bfs_sweeps
 
     rng = np.random.default_rng(6)
     _, cap_t, caps = _potts_instance(rng, 2, 16, 128, p_terminal=0.05)
@@ -120,8 +120,7 @@ def test_k6_plain_matches_bfs_sweeps_pallas(n_inner):
     want = np.asarray(bfs_sweeps_pallas(jnp.asarray(d0), jnp.asarray(caps),
                                         jnp.int32(n), n_inner=n_inner,
                                         interpret=True))
-    d = _t(d0.copy())
-    changed = bfs_sweeps_(d, _t(caps), n, n_inner=n_inner)
+    d, changed = bfs_sweeps(_t(d0), _t(caps), n, n_inner=n_inner)
     np.testing.assert_array_equal(d.numpy(), want)
     assert int(changed) == 1 and (want < n).sum() > (d0 < n).sum()
 
@@ -362,19 +361,86 @@ def test_expansion_polish_matches_cpp_oracle():
 # ---------------------------------------------------------- boundaries --
 
 def test_cpu_wrappers_run_plain_and_count_no_launch():
-    """On CPU tensors K5/K6 run their plain versions in place and never
-    touch the kernel library: the launch counters stay where they were."""
+    """On CPU tensors K5/K6 run their plain versions into the buffers
+    given (the inputs stay as they were) and never touch the kernel
+    library: the launch counters stay where they were."""
     from phylo_hmrf_tpu_torch.ops import mincut_kernels as mk
 
-    before = (mk.pr_iterations_.launches, mk.bfs_sweeps_.launches)
+    before = (mk.pr_iterations.launches, mk.bfs_sweeps.launches)
     e, h, cap_t, caps, n = _relabelled_state(np.random.default_rng(13),
                                              R=1, H=8, W=16)
     state = [_t(a.copy()) for a in (e, h, cap_t, caps)]
-    want = mk.pr_iterations_plain(*[_t(a) for a in (e, h, cap_t, caps)],
-                                  n, 2)
-    mk.pr_iterations_(*state, n, n_inner=2)
-    for a, b in zip(state, want):
+    want = mk.pr_iterations_plain(*state, n, 2)
+    out = tuple(torch.empty_like(t) for t in state)
+    got, _ = mk.pr_iterations(*state, n, n_inner=2, out=out)
+    assert all(g is o for g, o in zip(got, out))
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
-    d = _t(h.copy())
-    assert int(mk.bfs_sweeps_(d, state[3], n, n_inner=8)) in (0, 1)
-    assert (mk.pr_iterations_.launches, mk.bfs_sweeps_.launches) == before
+    for a, b in zip(state, (e, h, cap_t, caps)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    d, changed = mk.bfs_sweeps(_t(h), got[3], n, n_inner=8)
+    assert int(changed) in (0, 1)
+    np.testing.assert_array_equal(h, _relabelled_state(
+        np.random.default_rng(13), R=1, H=8, W=16)[1])
+    assert (mk.pr_iterations.launches, mk.bfs_sweeps.launches) == before
+    with pytest.raises(ValueError):
+        mk.bfs_sweeps(d, got[3], n, n_inner=9)
+    with pytest.raises(ValueError):
+        mk.pr_iterations(*state, n, n_inner=5)
+
+
+def test_cpu_wrapper_flags_match_any_tests():
+    """The flags of the wrappers (their plain versions on the CPU) are the
+    loop tests the plain path reads with ``torch.any``: K6's word holds
+    the call's tag iff a distance changed, K5's iff a node is still active
+    (e > EPS, h < n), call after call until the fixpoint and the cut end
+    (where neither is set); an older tag never reads as set."""
+    from phylo_hmrf_tpu_torch.ops import mincut_kernels as mk
+    from phylo_hmrf_tpu_torch.ops.maxflow import _Flag
+
+    e, h, cap_t, caps, n = _relabelled_state(np.random.default_rng(14),
+                                             R=2, H=6, W=10)
+    flag = _Flag(torch.device("cpu"))
+    d = torch.where(_t(cap_t) > mk.EPS, 1, n).to(torch.int32)
+    seen = set()
+    for _ in range(n):
+        new, _ = mk.bfs_sweeps(d, _t(caps), n, n_inner=3, **flag.next())
+        want = bool(torch.any(new != d))
+        assert flag.read(None) == want
+        seen.add(want)
+        d = new
+        if not want:
+            break
+    assert seen == {True, False}
+    state = tuple(_t(a) for a in (e, h, cap_t, caps))
+    seen = set()
+    for _ in range(500):
+        state, _ = mk.pr_iterations(*state, n, n_inner=4, **flag.next())
+        want = bool(torch.any((state[0] > mk.EPS) & (state[1] < n)))
+        assert flag.read(None) == want
+        seen.add(want)
+        if not want:
+            break
+    assert seen == {True, False}
+
+
+def test_grid_mincut_wrapper_path_is_the_plain_path():
+    """grid_mincut through the wrappers (their plain versions here, with
+    the kernel path's buffers and flags) against ``plain=True`` (the
+    ``torch.any`` tests): the same side, bitwise, and the same work,
+    host reads included."""
+    from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, grid_mincut
+
+    excess, cap_t, caps = _potts_instance(np.random.default_rng(15), 2, 12,
+                                          40)
+    runs = []
+    for plain in (False, True):
+        stats = CutStats()
+        side = grid_mincut(_t(excess), _t(cap_t), _t(caps), plain=plain,
+                           stats=stats)
+        runs.append((side, stats))
+    (side_w, st_w), (side_p, st_p) = runs
+    assert torch.equal(side_w, side_p)
+    assert st_w == st_p and st_w.host_reads > 2 and st_w.capped == 0
+    assert st_w.host_reads == (1 + st_w.pr_iterations // 4
+                               + st_w.bfs_sweeps // 8)
