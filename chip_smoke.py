@@ -6,7 +6,9 @@
 Builds the eight kernels from ``phylo_hmrf_tpu_torch/csrc`` with nvcc (one
 process per source, in parallel), holds each against its plain PyTorch
 version and times both: the four E-step kernels at the chr21 shapes (R=1,
-K=10, H=672, W=768, F=4) on the E-step's operands, the two min-cut kernels
+K=10, H=672, W=768, F=4) on the E-step's operands (the tile kernels K1 and
+K2 also bitwise against their chained one-sweep / one-phase route, timed
+beside it, and again at K=30), the two min-cut kernels
 (K5 push-relabel, K6 BFS relabel) on a real expansion-move graph of the
 chr21 start labels, bitwise, and the whole min cut on both paths (the same
 cut). Then it checks one whole E-step on the kernel path against the plain
@@ -26,7 +28,9 @@ spatial fit's 24-row off-diagonal block (6 rows, the shapes the fit gives
 them) and, as a scale point, of a 10 kb-scale region (3264 x 3264 bins
 padded to 3264 x 3328, the ``bench.py --stress`` shapes); their split
 identities on the 10 kb grid (K7 on 4 shards equals one K1 sweep of the
-whole grid, K8 with the global parity one K2 phase, bitwise); the
+whole grid, K8 with the global parity one phase of the whole grid, K1's 8
+sweeps and K2's sweep pair on 8-row halos those of the whole grid,
+bitwise; K1 on a shard's slab bitwise its chained route); the
 row-sharded E-step of that region against the single-device E-step and for
 bitwise repeats (and the device busy time of both under
 ``torch.profiler``); the region-sharded E-step of a 4-region chr21 bucket
@@ -111,13 +115,18 @@ def _time_ms(fn, reps=5, queued=False):
     return statistics.median(times)
 
 
-def _timed(fn, plain_fn):
+def _timed(fn, plain_fn, chained_fn=None):
     """The timings of a kernel row: ``ms`` the device time of one unit
     (queued launches), ``call_ms`` one call with its host work in the
     window (how this script timed every kernel before), ``plain_ms`` the
-    plain version's call."""
-    return dict(ms=_time_ms(fn, queued=True), call_ms=_time_ms(fn),
-                plain_ms=_time_ms(plain_fn))
+    plain version's call; with ``chained_fn``, ``chained_ms`` the device
+    time of the same unit on the one-sweep / one-phase kernel (K1, K2's
+    route before their tile kernels), queued like ``ms``."""
+    out = dict(ms=_time_ms(fn, queued=True), call_ms=_time_ms(fn),
+               plain_ms=_time_ms(plain_fn))
+    if chained_fn is not None:
+        out["chained_ms"] = _time_ms(chained_fn, queued=True)
+    return out
 
 
 def _max_abs(a, b):
@@ -133,6 +142,18 @@ def _bound(nbytes, ops):
     and the operations over the float32 rate."""
     t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _point_line(tag, k):
+    """One kernel row as a line: error, device / call / chained / plain
+    ms, the bound and the share of it."""
+    chained = (f"chained={k['chained_ms']:.4f}ms " if "chained_ms" in k
+               else "")
+    return (f"[{tag}] max_abs_err={k['max_abs_err']:.3g} "
+            f"kernel={k['ms']:.4f}ms call={k['call_ms']:.4f}ms {chained}"
+            f"plain={k['plain_ms']:.3f}ms "
+            f"bound={k['bound_ms'] * 1e3:.1f}us ({k['bound_by']}, "
+            f"{100 * k['share_of_bound']:.1f}% of it) ({k['unit']})")
 
 
 def _with_bound(k):
@@ -156,6 +177,91 @@ def _ops_finish(K, F):
     return K * (16 + 10 + 2 * (F + F * F))
 
 
+def check_k1(x, beta=1.0):
+    """K1 (the tile kernel) on the operands ``x``: bitwise equal to the
+    chained one-sweep kernel for every n_inner 1..8, within rtol 2e-4,
+    atol 1e-6 of the plain version at 8 sweeps; the row of one
+    temperature's 8 sweeps, timed beside the chained route and the plain
+    version."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import (
+        mf_sweeps, mf_sweeps_chained, mf_sweeps_plain, mf_tile_plan)
+
+    R, K, H, W = x["q0"].shape
+    k1 = (x["q0"], x["base"], x["w"], 1.0, 0.5, beta)
+    for n_inner in range(1, 9):
+        got = mf_sweeps(*k1, n_inner=n_inner)
+        want = mf_sweeps_chained(*k1, n_inner=n_inner)
+        _check(torch.equal(got, want),
+               f"K1 at K={K}, {n_inner} sweeps: not bitwise the chained "
+               f"kernel (max abs diff {_max_abs(got, want)})")
+    want = mf_sweeps_plain(*k1, 8)
+    torch.cuda.synchronize()
+    _check(torch.allclose(got, want, rtol=2e-4, atol=1e-6),
+           f"K1 disagrees: max abs err {_max_abs(got, want)}")
+    plan = mf_tile_plan(K, 8)
+    return dict(
+        max_abs_err=_max_abs(got, want), bitwise_chained="n_inner 1..8",
+        **_timed(lambda: mf_sweeps(*k1, n_inner=8),
+                 lambda: mf_sweeps_plain(*k1, 8),
+                 lambda: mf_sweeps_chained(*k1, n_inner=8)),
+        unit="8 sweeps at one temperature",
+        launches_per_unit=plan.launches, plan=plan._asdict(),
+        tolerance="bitwise the chained kernel; rtol 2e-4, atol 1e-6 "
+                  "against plain",
+        nbytes=_nbytes(x["q0"], x["base"], x["w"], x["q0"]),
+        ops=8 * OPS_MF * K * R * H * W)
+
+
+def check_k2(x, beta=1.0):
+    """K2 (the tile kernel) on the operands ``x``: one sweep pair at row
+    parities 0 and 1, labels identical to the 8 chained phase launches and
+    to the plain version, the changed flag that of the labels; the row of
+    one pair, timed beside the chained route and the plain version."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import (
+        icm_sweep_pair, icm_sweep_pair_chained, icm_tile_plan)
+
+    R, K, H, W = x["unary_k"].shape
+    lab0 = torch.where(x["mask"], x["warm"], 0).to(torch.int32).contiguous()
+    k2 = (lab0, x["unary_k"], x["w"], x["mask_i"], beta)
+    flag = torch.zeros((), dtype=torch.int32, device=lab0.device)
+    for ro in (0, 1):
+        got = icm_sweep_pair(*k2, row_offset=ro, flag=flag, tag=ro + 1)
+        want = icm_sweep_pair_chained(*k2, row_offset=ro)
+        _check(torch.equal(got, want),
+               f"K2 at K={K}, row offset {ro}: "
+               f"{int((got != want).sum())} labels differ from the chained "
+               "phases")
+        _check((int(flag) == ro + 1) == bool(torch.any(want != lab0)),
+               "K2: the changed flag differs from the labels'")
+        ref = icm_sweep_pair(*k2, row_offset=ro, plain=True)
+        _check(torch.equal(got, ref),
+               f"K2 sweep pair: {int((got != ref).sum())} labels differ "
+               "from the plain version")
+    return dict(max_abs_err=0.0,
+                **_timed(lambda: icm_sweep_pair(*k2),
+                         lambda: icm_sweep_pair(*k2, plain=True),
+                         lambda: icm_sweep_pair_chained(*k2)),
+                unit="one sweep pair (8 phases)", launches_per_unit=1,
+                plan=icm_tile_plan(K)._asdict(),
+                tolerance="identical labels (chained phases, plain)",
+                nbytes=_nbytes(lab0, x["unary_k"], x["w"], x["mask_i"],
+                               lab0),
+                ops=2 * OPS_ICM * K * R * H * W)
+
+
+def k30_inputs(dev):
+    """The K1/K2 operands of the chr21 region at K = 30 (seed 0), the top
+    of the K users run."""
+    from phylo_hmrf_tpu_torch.synth import chr21_problem, kernel_inputs
+
+    _, region, means, covs, warm, _ = chr21_problem(0, K=30)
+    return kernel_inputs(region, means, covs, warm, dev)
+
+
 def check_kernels(x, beta=1.0):
     """Each kernel against its plain version on the same device tensors.
     Returns {kernel: {"max_abs_err", "ms", "plain_ms", "unit"}}."""
@@ -164,53 +270,26 @@ def check_kernels(x, beta=1.0):
     from phylo_hmrf_tpu_torch.config import SMALL_EPS
     from phylo_hmrf_tpu_torch.ops.finish_kernels import (
         finish_stats, finish_stats_plain, potts_energy, potts_energy_plain)
-    from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor, icm_sweep_pair
-    from phylo_hmrf_tpu_torch.ops.mf_kernels import (
-        mean_field_kmajor, mf_sweeps, mf_sweeps_plain)
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import mean_field_kmajor
 
     out = {}
     R, K, H, W = x["unary_k"].shape
     npx = R * H * W
-    # K1: one temperature's 8 sweeps; tolerance rtol 2e-4, atol 1e-6
-    k1 = (x["q0"], x["base"], x["w"], 1.0, 0.5, beta)
-    got = mf_sweeps(*k1, n_inner=8)
-    want = mf_sweeps_plain(*k1, 8)
-    torch.cuda.synchronize()
-    _check(torch.allclose(got, want, rtol=2e-4, atol=1e-6),
-           f"K1 disagrees: max abs err {_max_abs(got, want)}")
+    out["K1_mf_sweep"] = check_k1(x, beta)
     lab = mean_field_kmajor(x["unary_k"], x["w"], beta)
     lab_p = mean_field_kmajor(x["unary_k"], x["w"], beta, plain=True)
     agree = float((lab == lab_p).float().mean())
     _check(agree > 0.999, f"K1 mean-field labels agree on only {agree}")
-    out["K1_mf_sweep"] = dict(
-        max_abs_err=_max_abs(got, want), label_agreement=agree,
-        **_timed(lambda: mf_sweeps(*k1, n_inner=8),
-                 lambda: mf_sweeps_plain(*k1, 8)),
-        unit="8 sweeps at one temperature", launches_per_unit=8,
-        tolerance="rtol 2e-4, atol 1e-6",
-        nbytes=_nbytes(x["q0"], x["base"], x["w"], x["q0"]),
-        ops=8 * OPS_MF * K * npx)
+    out["K1_mf_sweep"]["label_agreement"] = agree
 
-    # K2: one sweep pair (8 phases) and the whole ICM loop; identical labels
-    lab0 = torch.where(x["mask"], x["warm"], 0).to(torch.int32).contiguous()
-    k2 = (lab0, x["unary_k"], x["w"], x["mask_i"], beta)
-    got = icm_sweep_pair(*k2)
-    want = icm_sweep_pair(*k2, plain=True)
-    _check(torch.equal(got, want),
-           f"K2 sweep pair: {int((got != want).sum())} labels differ")
+    # K2: the sweep pair and the whole ICM loop; identical labels
+    out["K2_icm_phase"] = check_k2(x, beta)
     full = icm_kmajor(x["unary_k"], x["w"], x["mask"], x["warm"], beta, 60)
     full_p = icm_kmajor(x["unary_k"], x["w"], x["mask"], x["warm"], beta, 60,
                         plain=True)
     _check(torch.equal(full, full_p),
            f"K2 ICM loop: {int((full != full_p).sum())} labels differ")
-    out["K2_icm_phase"] = dict(
-        max_abs_err=float((got != want).sum()),
-        **_timed(lambda: icm_sweep_pair(*k2),
-                 lambda: icm_sweep_pair(*k2, plain=True)),
-        unit="one sweep pair = 8 phase launches", launches_per_unit=8,
-        tolerance="identical labels",
-        nbytes=_nbytes(lab0, x["unary_k"], x["w"], x["mask_i"], lab0),
-        ops=2 * OPS_ICM * K * npx)
 
     # K3: rtol 1e-6 (both sum float32 terms in float64)
     k3 = (x["unary_k"], x["mask_i"], x["warm"], x["w"], beta)
@@ -512,7 +591,7 @@ def _counters():
     from phylo_hmrf_tpu_torch.ops import mf_kernels, mincut_kernels
 
     return {"K1_mf_sweep": mf_kernels.mf_sweeps,
-            "K2_icm_phase": icm_kernels.icm_phase_,
+            "K2_icm_phase": icm_kernels.icm_sweep_pair,
             "K3_potts_energy": finish_kernels.potts_energy,
             "K4_finish_stats": finish_kernels.finish_stats,
             "K5_pr_iterations": mincut_kernels.pr_iterations,
@@ -705,13 +784,16 @@ def check_halo_kernels(x, n_shards, beta=1.0):
 def check_split(x, mesh, beta=1.0):
     """The split identities over the mesh's shards, bitwise: K7 with 1-row
     halos equals one K1 sweep of the whole grid, K8 with the global parity
-    each K2 phase."""
+    each phase of the phase kernel, K1's 8 sweeps and K2's sweep pair on
+    8-row halos (the spatial E-step's slabs) those of the whole grid; and
+    K1 on shard 1's slab bitwise the chained kernel for every n_inner."""
     import torch
 
-    from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_phase_,
-                                                      icm_phase_halo_)
-    from phylo_hmrf_tpu_torch.ops.mf_kernels import mf_sweep_halo, mf_sweeps
-    from phylo_hmrf_tpu_torch.parallel.halo import extend_rows
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import (
+        icm_phase_, icm_phase_halo_, icm_sweep_pair)
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import (
+        mf_sweep_halo, mf_sweeps, mf_sweeps_chained)
+    from phylo_hmrf_tpu_torch.parallel.halo import HALO, _center, extend_rows
 
     Hl = x["unary_k"].shape[-2] // mesh.size
     lab0 = torch.where(x["mask"], x["warm"], 0).to(torch.int32).contiguous()
@@ -739,9 +821,33 @@ def check_split(x, mesh, beta=1.0):
             _check(torch.equal(split, full),
                    f"K8 phase ({a}, {b}) on the shards != the K2 phase")
             phases_equal += 1
+
+    mf = (1.0, 0.5, beta)
+    full = mf_sweeps(x["q0"], x["base"], x["w"], *mf, n_inner=8)
+    slabs = list(zip(*(extend_rows(shards(x[k]), HALO)
+                       for k in ("q0", "base", "w"))))
+    split = torch.cat([_center(mf_sweeps(*sl, *mf, n_inner=8), HALO)
+                       for sl in slabs], dim=-2)
+    _check(torch.equal(split, full), "K1 on 8-row halos != the whole grid")
+    for n_inner in range(1, 9):
+        _check(torch.equal(mf_sweeps(*slabs[1], *mf, n_inner=n_inner),
+                           mf_sweeps_chained(*slabs[1], *mf,
+                                             n_inner=n_inner)),
+               f"K1 on a 10 kb slab, {n_inner} sweeps: not bitwise the "
+               "chained kernel")
+    full = icm_sweep_pair(lab0, x["unary_k"], x["w"], x["mask_i"], beta)
+    split = torch.cat([
+        _center(icm_sweep_pair(*sl, beta, row_offset=i * Hl - HALO), HALO)
+        for i, sl in enumerate(zip(*(extend_rows(shards(t), HALO) for t in (
+            lab0, x["unary_k"], x["w"], x["mask_i"]))))], dim=-2)
+    _check(torch.equal(split, full), "K2 on 8-row halos != the whole grid")
     torch.cuda.synchronize()
     return dict(k7_split_equals_k1=True,
                 k8_split_equals_k2_phases=phases_equal,
+                k1_8row_halos_equal_whole=True,
+                k2_8row_halos_equal_whole=True,
+                k1_slab_bitwise_chained="n_inner 1..8",
+                slab=list(slabs[1][0].shape[-2:]),
                 grid=list(x["unary_k"].shape[-2:]))
 
 
@@ -956,6 +1062,13 @@ def main() -> int:
           f"img_f {tuple(x['img_f'].shape)} samples {region.n_samples}")
     K = means.shape[0]
     kernels = check_kernels(x)
+    # K1 and K2 at K = 30: a scale point, no path of this run reaches it
+    x30 = k30_inputs(dev)
+    for name, k in (("K1_mf_sweep", check_k1(x30)),
+                    ("K2_icm_phase", check_k2(x30))):
+        k = kernels[name]["at_k30"] = _with_bound(k)
+        print(_point_line(f"{name} at K=30", k))
+    del x30
     mincut, cut, start = check_mincut(x, K)
     kernels.update(mincut)
     print(f"[mincut] {json.dumps(cut)}")
@@ -1010,13 +1123,8 @@ def main() -> int:
     # the same kernels on an 816-row shard of the 10 kb region: a scale
     # point, no path of this run launches them at that shape
     for name, k in check_halo_kernels(x10, SHARDS).items():
-        k = _with_bound(k)
-        kernels[name]["at_10kb"] = k
-        print(f"[{name} at 10kb] max_abs_err={k['max_abs_err']:.3g} "
-              f"kernel={k['ms']:.3f}ms call={k['call_ms']:.3f}ms "
-              f"plain={k['plain_ms']:.3f}ms "
-              f"bound={k['bound_ms'] * 1e3:.1f}us "
-              f"({100 * k['share_of_bound']:.1f}% of it) ({k['unit']})")
+        k = kernels[name]["at_10kb"] = _with_bound(k)
+        print(_point_line(f"{name} at 10kb", k))
     split = check_split(x10, mesh)
     print(f"[split] {json.dumps(split)}")
     img10 = torch.as_tensor(r10.img, device=dev)
@@ -1054,18 +1162,15 @@ def main() -> int:
         # bound: the ranking of the kernels to redesign
         units = path_launches[name] / k["launches_per_unit"]
         lost = units * (k["ms"] - bound_ms)
-        print(f"[{name}] max_abs_err={k['max_abs_err']:.3g} "
-              f"kernel={k['ms']:.3f}ms call={k['call_ms']:.3f}ms "
-              f"plain={k['plain_ms']:.3f}ms "
-              f"bound={bound_ms * 1e3:.1f}us ({bound_by}, "
-              f"{100 * k['share_of_bound']:.1f}% of it) ({k['unit']}); "
-              f"{units:g} units per fit, {lost:.1f} ms lost per fit")
+        print(f"{_point_line(name, k)}; {units:g} units per fit, "
+              f"{lost:.1f} ms lost per fit")
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=path_launches[name],
                          max_abs_err=k["max_abs_err"], ms=k["ms"],
                          plain_ms=k["plain_ms"], bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None,
                          unit=k["unit"], call_ms=k["call_ms"],
+                         chained_ms=k.get("chained_ms"),
                          launches_per_unit=k["launches_per_unit"],
                          units_per_fit=units, ms_lost_per_fit=lost))
     print(f"[kernels] {json.dumps(kernels)}")

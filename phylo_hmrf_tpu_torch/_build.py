@@ -125,13 +125,21 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes (every one returns int = cudaError_t)
 _SIGNATURES = {
-    # K1 (halo 0) and K7 (halo 1): q, base, w, out, R, K, H, W, halo, T,
-    #     damp, one_minus_damp, beta, stream
+    # K7 (halo 1) and K1's chained reference (halo 0): q, base, w, out, R,
+    #     K, H, W, halo, T, damp, one_minus_damp, beta, stream
     "phmrf_mf_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                        _P],
-    # K2 (halo 0) and K8 (halo 1): labels, unary, w, mask, R, K, H, W, halo,
-    #     beta, phase_a, phase_b, stream
+    # K1: q, base, w, out, R, K, H, W, n_inner, T, damp, one_minus_damp,
+    #     beta, tile rows, tile cols, halo, threads, stream
+    "phmrf_mf_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                       _I, _I, _I, _I, _P],
+    # K8 (halo 1) and K2's chained reference (halo 0): labels, unary, w,
+    #     mask, R, K, H, W, halo, beta, phase_a, phase_b, stream
     "phmrf_icm_phase": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # K2: labels, out, unary, w, mask, R, K, H, W, beta, row_parity, tile
+    #     rows, tile cols, threads, flag (may be null), tag, stream
+    "phmrf_icm_pair": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                       _I, _P, _I, _P],
     # K3: unary, mask, labels, w, partial, out, R, K, H, W, beta, stream
     "phmrf_potts_energy": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # K4: lp, img, mask, labels, w, partial, out, R, K, F, H, W,

@@ -64,3 +64,32 @@ __device__ __forceinline__ void load_nbrs(const float* __restrict__ w_r,
 }
 
 static inline int ceil_div(long a, long b) { return (int)((a + b - 1) / b); }
+
+// Largest dynamic shared memory of one block on the H100 (227 KB).
+#define PHMRF_SMEM_MAX 232448
+
+// Distance of tile pixel (ly, lx) to the edge of its LH x LW tile.
+__device__ __forceinline__ int tile_margin(int ly, int lx, int LH, int LW) {
+  return min(min(ly, LH - 1 - ly), min(lx, LW - 1 - lx));
+}
+
+// 4-byte asynchronous copy global -> shared that writes 0.0f instead when
+// `ok` is false (src must be a valid address either way); all of a
+// thread's copies are in flight until cp_async_wait_all().
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool ok) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+#else
+  *dst = ok ? *src : 0.0f;
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}

@@ -1,11 +1,14 @@
-"""K2 and K8: checkerboard ICM on K-major fields, with the CUDA phase
-kernel.
+"""K2 and K8: checkerboard ICM on K-major fields, with the CUDA kernels.
 
-Counterpart of ``phylo_hmrf_tpu/ops/icm_pallas.py``: ``icm_phase_`` (K2)
-times eight makes the sweep pair of ``_icm_sweep_pair_padded``,
-``icm_phase_halo_`` (K8) replaces ``icm_phase_pallas(halo_extended=True)``
-(both kernels in ``csrc/icm.cu``), and ``icm_kmajor`` is the
-``icm_pallas`` loop. Layout: labels, mask (R, H, W) int32; unary_k
+Counterpart of ``phylo_hmrf_tpu/ops/icm_pallas.py``: ``icm_sweep_pair``
+(K2, the tile kernel of ``csrc/icm.cu``: the eight phases of a sweep pair
+in one launch, planned by ``icm_tile_plan``) replaces
+``_icm_sweep_pair_padded``, ``icm_phase_halo_`` (K8, the phase kernel of
+``csrc/icm.cu`` with a 1-row halo) replaces
+``icm_phase_pallas(halo_extended=True)``, and ``icm_kmajor`` is the
+``icm_pallas`` loop. ``icm_phase_`` (the phase kernel with no halo rows)
+and ``icm_sweep_pair_chained`` (eight of it) are the reference K2 is held
+to on the card. Layout: labels, mask (R, H, W) int32; unary_k
 (R, K, H, W) and wmaps (R, 4, H, W) float32.
 
 On a CPU tensor the wrappers run their plain versions; on a CUDA tensor
@@ -13,6 +16,8 @@ they launch the kernel or raise.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -22,6 +27,33 @@ from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2
 
 # two sweeps of the four colours, in the TPU kernel's order
 _PAIR_PHASES = ((0, 0), (0, 1), (1, 0), (1, 1)) * 2
+ICM_HALO = 8     # K2's border: 8 phases of radius 1
+
+
+class ICMTilePlan(NamedTuple):
+    th: int         # interior rows of a tile (even)
+    tw: int         # interior columns (even)
+    threads: int    # threads a block, each owning up to two 2 x 2 quads
+    smem: int       # dynamic shared memory bytes a block: labels, the 4
+    #                 forward weights, the label-free minimum and its state
+
+
+def icm_tile(th: int, tw: int, quads_per_thread: int = 2) -> ICMTilePlan:
+    """The plan of a th x tw interior (even) with its 8-pixel border."""
+    lh, lw = th + 2 * ICM_HALO, tw + 2 * ICM_HALO
+    threads = -(-(-(-(lh * lw // 4) // quads_per_thread)) // 32) * 32
+    return ICMTilePlan(th, tw, threads, 7 * 4 * lh * lw)
+
+
+def icm_tile_plan(K: int) -> ICMTilePlan:
+    """The tile of K2 for K states: a 56 x 64 interior (72 x 80 loaded, two
+    quads a thread, 736 threads), the fastest of the shapes
+    ``tools/estep_tiles.py`` timed on an H100 at K = 10 and K = 30. Its
+    shared memory does not depend on K: the unary is read from device
+    memory."""
+    if not 1 <= K <= 32:
+        raise ValueError(f"icm_tile_plan: K={K}")
+    return icm_tile(56, 64)
 
 
 def _best_plain(labels, unary_k, wmaps, beta, rows):
@@ -123,17 +155,57 @@ icm_phase_halo_.launches = 0
 
 
 def icm_sweep_pair(labels, unary_k, wmaps, mask_i, beta, *,
-                   plain: bool = False, row_offset: int = 0):
-    """Two checkerboard sweeps (eight phases); returns new labels. Row r
-    of the arrays has the colour parity of global row r + ``row_offset``
-    (a row shard's slab starts at its first row minus the halo depth)."""
+                   plain: bool = False, row_offset: int = 0, flag=None,
+                   tag: int = 1, plan: ICMTilePlan | None = None):
+    """Two checkerboard sweeps (eight phases); returns new labels (labels
+    is not written). Row r of the arrays has the colour parity of global
+    row r + ``row_offset`` (a row shard's slab starts at its first row
+    minus the halo depth). On CUDA: one launch of the K2 tile kernel
+    (``icm_tile_plan`` unless given). ``flag``, a 0-d int32 tensor, is set
+    to ``tag`` iff some label changed. ``plain`` runs the plain version on
+    any device."""
+    if plain or labels.device.type == "cpu":
+        new = labels.clone()
+        for a, b in _PAIR_PHASES:
+            new = icm_phase_plain(new, unary_k, wmaps, mask_i, beta,
+                                  (a + row_offset) % 2, b)
+        if flag is not None and bool(torch.any(new != labels)):
+            flag.fill_(tag)
+        return new
+    R, K, H, W = unary_k.shape
+    plane = (R, H, W)
+    specs = dict(labels=(labels, torch.int32, plane),
+                 unary_k=(unary_k, torch.float32, (R, K, H, W)),
+                 wmaps=(wmaps, torch.float32, (R, 4, H, W)),
+                 mask=(mask_i, torch.int32, plane))
+    if flag is not None:
+        specs["flag"] = (flag, torch.int32, ())
+    _build.check_tensors("icm_sweep_pair", **specs)
+    plan = icm_tile_plan(K) if plan is None else plan
+    out = torch.empty_like(labels)
+    with _build.on_device(labels):
+        _build.check(_build.load().phmrf_icm_pair(
+            labels.data_ptr(), out.data_ptr(), unary_k.data_ptr(),
+            wmaps.data_ptr(), mask_i.data_ptr(), R, K, H, W, float(beta),
+            row_offset % 2, plan.th, plan.tw, plan.threads,
+            0 if flag is None else flag.data_ptr(), int(tag),
+            _build.stream_of(labels)), "K2 icm_sweep_pair")
+    icm_sweep_pair.launches += 1
+    return out
+
+
+icm_sweep_pair.launches = 0
+
+
+def icm_sweep_pair_chained(labels, unary_k, wmaps, mask_i, beta, *,
+                           row_offset: int = 0):
+    """The sweep pair as eight launches of the phase kernel
+    (``icm_phase_``) on a copy of ``labels``: the reference the K2 tile
+    kernel is held to on the card (tests, ``chip_smoke.py``); no path of
+    the fit calls it."""
     new = labels.clone()
     for a, b in _PAIR_PHASES:
-        a = (a + row_offset) % 2
-        if plain:
-            new = icm_phase_plain(new, unary_k, wmaps, mask_i, beta, a, b)
-        else:
-            icm_phase_(new, unary_k, wmaps, mask_i, beta, a, b)
+        icm_phase_(new, unary_k, wmaps, mask_i, beta, (a + row_offset) % 2, b)
     return new
 
 
@@ -143,15 +215,17 @@ def icm_kmajor(unary_k, wmaps, mask, init_labels, beta,
 
     Runs sweep pairs while any label of the bucket changed and fewer than
     ``max_sweeps`` sweeps ran; like the JAX loop, a capped run may
-    overshoot an odd ``max_sweeps`` by one sweep. Reads the change count
-    once per pair (one host sync). Returns labels (R, H, W) int32."""
+    overshoot an odd ``max_sweeps`` by one sweep. Each pair sets a device
+    word to its own tag iff some label changed, read once per pair (one
+    host sync). Returns labels (R, H, W) int32."""
     mask_i = mask.to(torch.int32)
     labels = torch.where(mask, init_labels, 0).to(torch.int32).contiguous()
-    changed, sweep = 1, 0
-    while changed > 0 and sweep < max_sweeps:
-        new = icm_sweep_pair(labels, unary_k, wmaps, mask_i, beta,
-                             plain=plain)
-        changed = int(torch.count_nonzero(new != labels))
-        labels = new
+    flag = torch.zeros((), dtype=torch.int32, device=labels.device)
+    changed, sweep = True, 0
+    while changed and sweep < max_sweeps:
+        tag = sweep // 2 + 1
+        labels = icm_sweep_pair(labels, unary_k, wmaps, mask_i, beta,
+                                plain=plain, flag=flag, tag=tag)
+        changed = int(flag) == tag
         sweep += 2
     return labels

@@ -1,11 +1,15 @@
 """K1 and K7: annealed mean field on K-major fields, with the CUDA sweep
-kernel.
+kernels.
 
-Counterpart of ``phylo_hmrf_tpu/ops/mf_pallas.py``: ``mf_sweeps`` (K1)
-replaces ``mf_sweeps_pallas``, ``mf_sweep_halo`` (K7) replaces
-``mf_sweep_pallas(halo_extended=True)`` (both kernels in ``csrc/mf.cu``),
-and ``mean_field_kmajor`` replaces ``mean_field_pallas_kmajor``. Layout: q,
-base, unary_k (R, K, H, W); wmaps (R, 4, H, W); float32.
+Counterpart of ``phylo_hmrf_tpu/ops/mf_pallas.py``: ``mf_sweeps`` (K1, the
+tile kernel of ``csrc/mf.cu``: up to 8 sweeps a launch on shared-memory
+tiles, planned by ``mf_tile_plan``) replaces ``mf_sweeps_pallas``,
+``mf_sweep_halo`` (K7, the one-sweep kernel of ``csrc/mf.cu`` with a
+1-row halo) replaces ``mf_sweep_pallas(halo_extended=True)``, and
+``mean_field_kmajor`` replaces ``mean_field_pallas_kmajor``.
+``mf_sweeps_chained`` runs the one-sweep kernel once per sweep: the
+reference K1 is held to bitwise on the card. Layout: q, base, unary_k
+(R, K, H, W); wmaps (R, 4, H, W); float32.
 
 On a CPU tensor the wrappers run their plain versions
 (``mf_sweeps_plain``, ``mf_sweep_halo_plain``); on a CUDA tensor they
@@ -14,6 +18,9 @@ stay plain tensor code, as they stay XLA code in the JAX package.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -72,16 +79,105 @@ def mf_sweep_halo_plain(q_ext, base, w_ext, T, damp, beta):
                         _w_bwd(w_ext), T, damp, beta, center)
 
 
-def mf_sweeps(q, base, wmaps, T, damp, beta, *, n_inner: int):
+SMEM_MAX = 232_448      # dynamic shared memory of one H100 block
+MF_MAX_DEPTH = 8        # sweeps one K1 launch can run (csrc/mf.cu)
+MF_MAX_PX = 2 * 1024    # tile pixels: two a thread, 1024 threads
+# the most a tile may recompute: loaded pixels over interior pixels
+MF_MAX_HALO_RATIO = 2.5
+
+
+class MFTilePlan(NamedTuple):
+    th: int         # interior rows of a tile
+    tw: int         # interior columns
+    depth: int      # halo = sweeps one launch can run
+    threads: int    # threads a block
+    smem: int       # dynamic shared memory bytes a block
+    launches: int   # launches for n_inner sweeps
+
+
+def mf_smem_per_pixel(K: int) -> int:
+    """Shared memory a tile pixel takes in K1: q and base (K floats each)
+    and the next q (max(K, 4) floats)."""
+    return 4 * (2 * K + max(K, 4))
+
+
+@functools.lru_cache(maxsize=None)
+def mf_tile_plan(K: int, n_inner: int) -> MFTilePlan:
+    """The tile of K1 for K states and ``n_inner`` sweeps: the fewest
+    launches whose depth (ceil(n_inner / launches) <= 8) leaves a tile
+    whose loaded pixels are at most ``MF_MAX_HALO_RATIO`` times its
+    interior, and the tile of least ratio that shared memory holds at
+    that depth (ties: the wider). One launch per temperature for K <= 10;
+    two from K = 11 on."""
+    if not 1 <= K <= 32 or n_inner < 1:
+        raise ValueError(f"mf_tile_plan: K={K}, n_inner={n_inner}")
+    max_px = min(SMEM_MAX // mf_smem_per_pixel(K), MF_MAX_PX)
+    for launches in range(1, n_inner + 1):
+        depth = -(-n_inner // launches)
+        if depth > MF_MAX_DEPTH:
+            continue
+        best = None
+        for lw in range(2 * depth + 1, max_px // (2 * depth + 1) + 1):
+            lh = max_px // lw
+            th, tw = lh - 2 * depth, lw - 2 * depth
+            if th < 1:
+                continue
+            key = (lh * lw / (th * tw), -tw)
+            if best is None or key < best[0]:
+                best = (key, th, tw, lh * lw)
+        if best[0][0] <= MF_MAX_HALO_RATIO or depth == 1:
+            _, th, tw, npx = best
+            per = -(-npx // 1024)
+            threads = -(-(-(-npx // per)) // 32) * 32
+            return MFTilePlan(th, tw, depth, threads,
+                              npx * mf_smem_per_pixel(K), launches)
+    raise AssertionError("unreachable: depth 1 always plans")
+
+
+def mf_sweeps(q, base, wmaps, T, damp, beta, *, n_inner: int,
+              plan: MFTilePlan | None = None):
     """``n_inner`` damped mean-field sweeps at temperature ``T``.
 
     q, base (R, K, H, W); wmaps (R, 4, H, W). Returns the new q (a new
-    tensor; q is never written). On CUDA: one kernel launch per sweep over
-    two ping-pong buffers, since a sweep must read the old q everywhere."""
+    tensor; q is never written). On CUDA: the K1 tile kernel, one launch
+    per ``plan.depth`` sweeps (``mf_tile_plan`` unless given), over two
+    buffers when it takes several."""
     if q.device.type == "cpu":
         return mf_sweeps_plain(q, base, wmaps, T, damp, beta, n_inner)
     R, K, H, W = q.shape
     _build.check_tensors("mf_sweeps", q=(q, torch.float32, (R, K, H, W)),
+                         base=(base, torch.float32, (R, K, H, W)),
+                         wmaps=(wmaps, torch.float32, (R, 4, H, W)))
+    plan = mf_tile_plan(K, n_inner) if plan is None else plan
+    lib = _build.load()
+    stream = _build.stream_of(q)
+    n_launch = -(-n_inner // plan.depth)
+    bufs = [torch.empty_like(q), torch.empty_like(q) if n_launch > 1 else None]
+    cur, left = q, n_inner
+    with _build.on_device(q):
+        for i in range(n_launch):
+            n, dst = min(plan.depth, left), bufs[i % 2]
+            _build.check(lib.phmrf_mf_tiles(
+                cur.data_ptr(), base.data_ptr(), wmaps.data_ptr(),
+                dst.data_ptr(), R, K, H, W, n, float(T), float(damp),
+                float(1.0 - damp), float(beta), plan.th, plan.tw, plan.depth,
+                plan.threads, stream), "K1 mf_sweeps")
+            mf_sweeps.launches += 1
+            cur, left = dst, left - n
+    return cur
+
+
+mf_sweeps.launches = 0
+
+
+def mf_sweeps_chained(q, base, wmaps, T, damp, beta, *, n_inner: int):
+    """``n_inner`` sweeps as ``n_inner`` launches of the one-sweep kernel
+    (K7's code with no halo rows) over two buffers: the reference the K1
+    tile kernel is held to bitwise on the card (tests, ``chip_smoke.py``);
+    no path of the fit calls it. CUDA tensors only."""
+    R, K, H, W = q.shape
+    _build.check_tensors("mf_sweeps_chained",
+                         q=(q, torch.float32, (R, K, H, W)),
                          base=(base, torch.float32, (R, K, H, W)),
                          wmaps=(wmaps, torch.float32, (R, 4, H, W)))
     lib = _build.load()
@@ -94,13 +190,9 @@ def mf_sweeps(q, base, wmaps, T, damp, beta, *, n_inner: int):
             _build.check(lib.phmrf_mf_sweep(
                 cur.data_ptr(), base.data_ptr(), wmaps.data_ptr(),
                 dst.data_ptr(), R, K, H, W, 0, float(T), float(damp),
-                float(1.0 - damp), float(beta), stream), "K1 mf_sweep")
-            mf_sweeps.launches += 1
+                float(1.0 - damp), float(beta), stream), "mf_sweeps_chained")
             cur = dst
     return cur
-
-
-mf_sweeps.launches = 0
 
 
 def mf_sweep_halo(q_ext, base, w_ext, T, damp, beta):

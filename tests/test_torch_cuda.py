@@ -4,10 +4,10 @@ card (needs an NVIDIA GPU with sm_90a and nvcc; skipped without CUDA).
 Run on a GPU machine: ``python -m pytest tests/test_torch_cuda.py -q
 --noconftest``.
 Shapes: a small ragged grid (H and W of no tile multiple) and the chr21
-cell (R=1, K=10, H=672, W=768, F=4). K5/K6 run on the graph of a real
-expansion move (the one with the most pixels in play) of the K1-K3 start,
-and on random cut instances whose shapes put pixels on every kind of tile
-edge.
+cell (R=1, K=10, H=672, W=768, F=4), for K1/K2 also the chr21 region at
+K=30. K5/K6 run on the graph of a real expansion move (the one with the
+most pixels in play) of the K1-K3 start; K1, K2, K5 and K6 also on random
+instances whose shapes put pixels on every kind of tile edge.
 """
 
 import numpy as np
@@ -34,6 +34,8 @@ def _inputs(dev, shape):
 
     if shape == "chr21":
         _, region, means, covs, warm, _ = chr21_problem(0)
+    elif shape == "k30":
+        _, region, means, covs, warm, _ = chr21_problem(0, K=30)
     else:
         # 23 x 37 grid: no row or column tile divides it
         _, r0, means, covs, _, _ = chr21_problem(0, h0=23, K=5)
@@ -59,26 +61,58 @@ def test_k1_kernel_matches_plain(dev, shape):
     got = mf_sweeps(x["q0"], x["base"], x["w"], 1.0, 0.5, 1.0, n_inner=8)
     want = mf_sweeps_plain(x["q0"], x["base"], x["w"], 1.0, 0.5, 1.0, 8)
     torch.cuda.synchronize()
-    assert mf_sweeps.launches - n0 == 8
+    assert mf_sweeps.launches - n0 == 1     # one launch per temperature
     torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-6)
     lab = mean_field_kmajor(x["unary_k"], x["w"], 1.0)
     lab_p = mean_field_kmajor(x["unary_k"], x["w"], 1.0, plain=True)
     assert (lab == lab_p).float().mean().item() > 0.999
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + ["k30"])
+def test_k1_tile_kernel_matches_chained(dev, shape):
+    """The K1 tile kernel for every n_inner 1..8: bitwise equal to n_inner
+    launches of the one-sweep kernel, within rtol 2e-4, atol 1e-6 of the
+    plain version, in the plan's launches (1 per temperature at K <= 10,
+    2 at K = 30), q untouched."""
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import (
+        mf_sweeps, mf_sweeps_chained, mf_sweeps_plain, mf_tile_plan)
+
+    x = _inputs(dev, shape)
+    K = x["q0"].shape[1]
+    keep = x["q0"].clone()
+    args = (x["q0"], x["base"], x["w"], 0.5, 0.5, 1.0)
+    for n_inner in range(1, 9):
+        n0 = mf_sweeps.launches
+        got = mf_sweeps(*args, n_inner=n_inner)
+        assert mf_sweeps.launches - n0 == mf_tile_plan(K, n_inner).launches
+        assert torch.equal(got, mf_sweeps_chained(*args, n_inner=n_inner))
+        torch.testing.assert_close(got, mf_sweeps_plain(*args, n_inner),
+                                   rtol=2e-4, atol=1e-6)
+    assert mf_tile_plan(K, 8).launches == (1 if K <= 10 else 2)
+    assert torch.equal(x["q0"], keep)
+
+
+@pytest.mark.parametrize("shape", SHAPES + ["k30"])
 def test_k2_kernel_matches_plain(dev, shape):
-    """Sweep pair and the whole ICM loop: labels identical (the kernel
-    adds and multiplies in the plain version's order, no FMA)."""
-    from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_kmajor,
-                                                      icm_sweep_pair)
+    """The sweep pair at row parities 0 and 1 in one launch: labels
+    identical to the 8 chained phase launches and to the plain version
+    (the kernel adds and multiplies in the plain version's order, no FMA),
+    the changed flag that of the labels; the whole ICM loop identical."""
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import (
+        icm_kmajor, icm_sweep_pair, icm_sweep_pair_chained)
 
     x = _inputs(dev, shape)
     lab0 = torch.where(x["mask"], x["warm"], 0).to(torch.int32).contiguous()
-    got = icm_sweep_pair(lab0, x["unary_k"], x["w"], x["mask_i"], 1.0)
-    want = icm_sweep_pair(lab0, x["unary_k"], x["w"], x["mask_i"], 1.0,
-                          plain=True)
-    assert torch.equal(got, want)
+    args = (lab0, x["unary_k"], x["w"], x["mask_i"], 1.0)
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    for ro in (0, 1):
+        n0 = icm_sweep_pair.launches
+        got = icm_sweep_pair(*args, row_offset=ro, flag=flag, tag=ro + 1)
+        assert icm_sweep_pair.launches - n0 == 1
+        want = icm_sweep_pair(*args, row_offset=ro, plain=True)
+        assert torch.equal(got, want)
+        assert torch.equal(got, icm_sweep_pair_chained(*args, row_offset=ro))
+        assert (int(flag) == ro + 1) == bool(torch.any(want != lab0))
     got = icm_kmajor(x["unary_k"], x["w"], x["mask"], x["warm"], 1.0, 60)
     want = icm_kmajor(x["unary_k"], x["w"], x["mask"], x["warm"], 1.0, 60,
                       plain=True)
@@ -281,6 +315,74 @@ def test_k5_tile_edges_match_plain(dev, shape, directed):
             assert torch.equal(a, b), (n_inner, i)
         active = bool(torch.any((want[0] > EPS) & (want[1] < n)))
         assert (int(flag) == tag) == active
+
+
+def _random_estep(dev, shape, K, seed):
+    """Random K1/K2 operands (R, H, W) made with numpy: q a softmax, base
+    in [0, 4), weights in [0, 1) with 10% zeros, 80% of the pixels
+    valid, labels of the valid pixels in [0, K)."""
+    rng = np.random.default_rng(seed)
+    R, H, W = shape
+    z = rng.normal(size=(R, K, H, W))
+    q = np.exp(z) / np.exp(z).sum(1, keepdims=True)
+    w = rng.random((R, 4, H, W)) * (rng.random((R, 4, H, W)) >= 0.1)
+    mask = rng.random(shape) < 0.8
+    lab = np.where(mask, rng.integers(0, K, shape), 0)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+    return dict(q=f32(q), base=f32(rng.random((R, K, H, W)) * 4), w=f32(w),
+                unary=f32(rng.random((R, K, H, W)) * 2),
+                mask=torch.as_tensor(mask, dtype=torch.int32, device=dev),
+                lab=torch.as_tensor(lab, dtype=torch.int32, device=dev))
+
+
+# K1's tiles are 28 x 28 (K = 10, 8 sweeps) down to 15 x 20 (K = 30, 4
+# sweeps) interiors, K2's 56 x 64: these shapes put pixels on every kind
+# of their edges too
+@pytest.mark.parametrize("K", [1, 10, 30])
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+def test_k1_tile_edges_match_chained(dev, shape, K):
+    """K1 at every n_inner 1..8 on random operands: bitwise the chained
+    one-sweep kernel."""
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import (mf_sweeps,
+                                                     mf_sweeps_chained)
+
+    x = _random_estep(dev, shape, K, sum(shape) + K)
+    for n_inner in range(1, 9):
+        T = (1.0, 0.5, 0.25)[n_inner % 3]
+        args = (x["q"], x["base"], x["w"], T, 0.5, 1.3)
+        got = mf_sweeps(*args, n_inner=n_inner)
+        want = mf_sweeps_chained(*args, n_inner=n_inner)
+        assert torch.equal(got, want), (n_inner, _max_diff(got, want))
+
+
+def _max_diff(a, b):
+    return float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("K", [1, 10, 30])
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+def test_k2_tile_edges_match_chained(dev, shape, K):
+    """K2, three sweep pairs in a row at row parities 0 and 1 (and an odd
+    negative offset, as a slab above the first row gives) on random
+    operands: labels identical to the chained phases, the changed flag
+    that of the labels."""
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import (
+        icm_sweep_pair, icm_sweep_pair_chained)
+
+    x = _random_estep(dev, shape, K, 1 + sum(shape) + K)
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    lab, tag = x["lab"], 0
+    for _ in range(3):
+        for ro in (0, 1, -7):
+            tag += 1
+            args = (lab, x["unary"], x["w"], x["mask"], 1.0)
+            got = icm_sweep_pair(*args, row_offset=ro, flag=flag, tag=tag)
+            want = icm_sweep_pair_chained(*args, row_offset=ro)
+            assert torch.equal(got, want), (ro, int((got != want).sum()))
+            assert (int(flag) == tag) == bool(torch.any(want != lab))
+        lab = want
 
 
 @pytest.mark.parametrize("shape", CUT_SHAPES)

@@ -346,6 +346,7 @@ def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
     from phylo_hmrf_tpu_torch.ops import mf_kernels
 
     counters = (mf_kernels.mf_sweeps, icm_kernels.icm_phase_,
+                icm_kernels.icm_sweep_pair,
                 finish_kernels.potts_energy, finish_kernels.finish_stats,
                 mf_kernels.mf_sweep_halo, icm_kernels.icm_phase_halo_)
     before = [f.launches for f in counters]
@@ -354,6 +355,13 @@ def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
                          1.0, n_inner=2)
     icm_kernels.icm_phase_(_t(labels.copy()), _t(-logprob_k), _t(wm),
                            _t(mask), 1.0, 0, 1)
+    # the sweep pair's changed flag on CPU: set iff some label changed
+    flag = torch.zeros((), dtype=torch.int32)
+    lab = _t(labels.copy())
+    new = icm_kernels.icm_sweep_pair(lab, _t(-logprob_k), _t(wm), _t(mask),
+                                     1.0, row_offset=1, flag=flag, tag=4)
+    assert torch.equal(lab, _t(labels))
+    assert (int(flag) == 4) == bool(torch.any(new != lab))
     finish_kernels.potts_energy(_t(-logprob_k), _t(mask), _t(labels),
                                 _t(wm), 1.0)
     finish_kernels.finish_stats(_t(logprob_k), _t(img_f), _t(mask),
@@ -365,6 +373,56 @@ def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
     icm_kernels.icm_phase_halo_(torch.nn.functional.pad(_t(labels), pad),
                                 _t(-logprob_k), wm_ext, _t(mask), 1.0, 1, 0)
     assert [f.launches for f in counters] == before
+
+
+@pytest.mark.parametrize("n_inner", range(1, 9))
+@pytest.mark.parametrize("K", [1, 2, 10, 20, 30, 32])
+def test_mf_tile_plan(K, n_inner):
+    """K1's tile plan: its shared memory fits a block (232,448 B) and is
+    the tile's pixels at 4 (2 K + max(K, 4)) B; its depth (<= 8) covers
+    the sweeps of a launch, ceil(n_inner / depth) launches; at most two
+    pixels a thread on <= 1024 threads (what csrc/mf.cu takes); one launch
+    per temperature (8 sweeps) for K <= 10; the border at most 2.5x the
+    interior unless the depth is 1."""
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import (
+        MF_MAX_HALO_RATIO, SMEM_MAX, mf_smem_per_pixel, mf_tile_plan)
+
+    plan = mf_tile_plan(K, n_inner)
+    lh, lw = plan.th + 2 * plan.depth, plan.tw + 2 * plan.depth
+    assert plan.smem == lh * lw * mf_smem_per_pixel(K) <= SMEM_MAX
+    assert 1 <= plan.depth <= 8 and plan.th >= 1 and plan.tw >= 1
+    assert plan.launches == -(-n_inner // plan.depth)
+    assert plan.depth * plan.launches >= n_inner
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    assert -(-lh * lw // plan.threads) <= 2
+    if K <= 10:
+        assert plan.launches == 1 and plan.depth == n_inner
+    assert (lh * lw / (plan.th * plan.tw) <= MF_MAX_HALO_RATIO
+            or plan.depth == 1)
+    with pytest.raises(ValueError):
+        mf_tile_plan(K + 32, n_inner)
+
+
+@pytest.mark.parametrize("K", [1, 2, 10, 20, 30, 32])
+def test_icm_tile_plan(K):
+    """K2's tile plan: one launch runs the pair's 8 phases under its
+    8-pixel border; even interiors (the tile starts on an even row), at
+    most two 2 x 2 quads of the loaded tile a thread on <= 1024 threads
+    (what csrc/icm.cu takes), its labels, 4 forward weight planes and
+    label-free minimum (value and state) within a block's shared
+    memory."""
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import ICM_HALO, icm_tile_plan
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import SMEM_MAX
+
+    plan = icm_tile_plan(K)
+    lh, lw = plan.th + 2 * ICM_HALO, plan.tw + 2 * ICM_HALO
+    assert ICM_HALO >= 8     # the 8 phases of a pair, radius 1 each
+    assert plan.th % 2 == 0 and plan.tw % 2 == 0 and plan.th >= 2
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    assert -(-(lh * lw // 4) // plan.threads) <= 2
+    assert plan.smem == 7 * 4 * lh * lw <= SMEM_MAX
+    with pytest.raises(ValueError):
+        icm_tile_plan(K + 32)
 
 
 def test_port_imports_no_jax():
