@@ -8,7 +8,11 @@ process per source, in parallel), holds each against its plain PyTorch
 version and times both: the four E-step kernels at the chr21 shapes (R=1,
 K=10, H=672, W=768, F=4) on the E-step's operands (the tile kernels K1 and
 K2 also bitwise against their chained one-sweep / one-phase route, timed
-beside it, and again at K=30), the two min-cut kernels
+beside it, and again at K=30; the reductions K3 and K4 bitwise over three
+calls, K3's two-labeling entry bitwise its single calls, again at K=30 and
+on the single-device operands of the 10 kb region below, and one kernel
+launch a call each, counted by ``torch.profiler`` in a fresh process at
+the end of the run), the two min-cut kernels
 (K5 push-relabel, K6 BFS relabel) on a real expansion-move graph of the
 chr21 start labels, bitwise, and the whole min cut on both paths (the same
 cut). Then it checks one whole E-step on the kernel path against the plain
@@ -145,12 +149,17 @@ def _bound(nbytes, ops):
 
 
 def _point_line(tag, k):
-    """One kernel row as a line: error, device / call / chained / plain
-    ms, the bound and the share of it."""
+    """One kernel row as a line: error, device / call / chained / K3's
+    pair / plain ms, the bound and the share of it."""
     chained = (f"chained={k['chained_ms']:.4f}ms " if "chained_ms" in k
                else "")
+    pair = (f"pair={k['pair_ms']:.4f}ms (bound "
+            f"{k['pair_bound_ms'] * 1e3:.1f}us, "
+            f"{100 * k['pair_share_of_bound']:.1f}% of it) "
+            if "pair_ms" in k else "")
     return (f"[{tag}] max_abs_err={k['max_abs_err']:.3g} "
             f"kernel={k['ms']:.4f}ms call={k['call_ms']:.4f}ms {chained}"
+            f"{pair}"
             f"plain={k['plain_ms']:.3f}ms "
             f"bound={k['bound_ms'] * 1e3:.1f}us ({k['bound_by']}, "
             f"{100 * k['share_of_bound']:.1f}% of it) ({k['unit']})")
@@ -267,15 +276,10 @@ def check_kernels(x, beta=1.0):
     Returns {kernel: {"max_abs_err", "ms", "plain_ms", "unit"}}."""
     import torch
 
-    from phylo_hmrf_tpu_torch.config import SMALL_EPS
-    from phylo_hmrf_tpu_torch.ops.finish_kernels import (
-        finish_stats, finish_stats_plain, potts_energy, potts_energy_plain)
     from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
     from phylo_hmrf_tpu_torch.ops.mf_kernels import mean_field_kmajor
 
     out = {}
-    R, K, H, W = x["unary_k"].shape
-    npx = R * H * W
     out["K1_mf_sweep"] = check_k1(x, beta)
     lab = mean_field_kmajor(x["unary_k"], x["w"], beta)
     lab_p = mean_field_kmajor(x["unary_k"], x["w"], beta, plain=True)
@@ -291,37 +295,167 @@ def check_kernels(x, beta=1.0):
     _check(torch.equal(full, full_p),
            f"K2 ICM loop: {int((full != full_p).sum())} labels differ")
 
-    # K3: rtol 1e-6 (both sum float32 terms in float64)
-    k3 = (x["unary_k"], x["mask_i"], x["warm"], x["w"], beta)
-    got, want = potts_energy(*k3), potts_energy_plain(*k3)
-    _check(torch.allclose(got, want, rtol=1e-6, atol=0),
-           f"K3 disagrees: {got.tolist()} vs {want.tolist()}")
-    out["K3_potts_energy"] = dict(
-        max_abs_err=_max_abs(got, want),
-        **_timed(lambda: potts_energy(*k3), lambda: potts_energy_plain(*k3)),
-        unit="one call (tile pass + reduce pass)", launches_per_unit=1,
-        tolerance="rtol 1e-6",
-        nbytes=_nbytes(x["unary_k"], x["mask_i"], x["warm"], x["w"]),
-        ops=OPS_ENERGY * npx)
+    out["K3_potts_energy"] = check_k3(x, lab, beta)
+    out["K4_finish_stats"] = check_k4(x, beta)
+    return out
 
-    # K4: rtol 2e-5, atol 1e-6 on every output
+
+def launch_counts():
+    """K3's and K4's kernel launches in one call (one labeling, the pair,
+    K4) on the chr21, K=30 and 10 kb operands, counted by
+    ``torch.profiler`` in a fresh process (this script with
+    ``--count-launches``). In this run's process they cannot be: once a
+    process has launched many kernels outside a profiler session, a
+    session of one short kernel mostly records no device event
+    (``tools/profiler_probe.py``). {point: {entry: [launches, names]}}."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--count-launches"], capture_output=True,
+                         text=True, cwd=REPO)
+    _check(res.returncode == 0, "the launch count failed:\n"
+           f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def count_launches_main() -> int:
+    """The body of ``--count-launches``: prints `launch_counts`' JSON."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.config import SMALL_EPS
+    from phylo_hmrf_tpu_torch.ops.finish_kernels import (
+        finish_stats, potts_energy, potts_energy_pair)
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import mean_field_kmajor
+    from phylo_hmrf_tpu_torch.synth import chr21_problem, kernel_inputs
+
+    if not torch.cuda.is_available():
+        return 1
+    dev = torch.device("cuda")
+    out = {}
+    for point, kw in (("chr21", {}), ("k30", dict(K=30)),
+                      ("10kb", dict(h0=3264))):
+        _, region, means, covs, warm, _ = chr21_problem(0, **kw)
+        x = kernel_inputs(region, means, covs, warm, dev)
+        other = mean_field_kmajor(x["unary_k"], x["w"], 1.0)
+        k3 = (x["unary_k"], x["mask_i"], x["warm"], x["w"], 1.0)
+        k4 = (x["unary_k"], x["img_f"], x["mask_i"], x["warm"], x["w"], 1.0,
+              SMALL_EPS)
+        fns = {"K3": lambda: potts_energy(*k3),
+               "K3_pair": lambda: potts_energy_pair(
+                   x["unary_k"], x["mask_i"], x["warm"], other, x["w"],
+                   1.0),
+               "K4": lambda: finish_stats(*k4, negate=True)}
+        for fn in fns.values():     # the tickets and the allocator warm
+            fn()
+        out[point] = {name: list(_kernel_launches(fn))
+                      for name, fn in fns.items()}
+        del x, other
+    print(json.dumps(out))
+    return 0
+
+
+def _kernel_launches(fn):
+    """Kernel launches of one run of ``fn`` as ``torch.profiler`` sees
+    them (device events that are not memory copies or sets), and their
+    names."""
+    _, _, by_name = _device_busy_s(fn)
+    kernels = {k: v[1] for k, v in by_name.items()
+               if not k.startswith(("Memcpy", "Memset"))}
+    return sum(kernels.values()), sorted(kernels)
+
+
+def _k3_nbytes(x, *labelings):
+    """The bytes K3 must move on ``x`` for the given labelings: the mask
+    and the weights once, each labeling once, one unary value a valid
+    pixel and labeling (at its state: the kernel reads no other), the
+    energies."""
+    R, K = x["unary_k"].shape[:2]
+    valid = x["mask_i"] != 0
+    unary = sum(int((valid & (lab >= 0) & (lab < K)).sum())
+                for lab in labelings)
+    return (_nbytes(x["mask_i"], x["w"], *labelings)
+            + x["unary_k"].element_size() * unary + 4 * R * len(labelings))
+
+
+def check_k3(x, other, beta=1.0):
+    """K3 on the operands ``x``: the warm labels and ``other`` (the K1
+    start labels), within rtol 1e-6 of the plain version (both sum float32
+    terms in float64); three calls bitwise equal; the pair entry's rows
+    bitwise the single calls. The row of one call, with the pair's times
+    and bound beside it; its launches a call are counted by
+    `launch_counts`."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops.finish_kernels import (
+        potts_energy, potts_energy_pair, potts_energy_pair_plain,
+        potts_energy_plain)
+
+    R, K, H, W = x["unary_k"].shape
+    k3 = (x["unary_k"], x["mask_i"], x["warm"], x["w"], beta)
+    pair = (x["unary_k"], x["mask_i"], x["warm"], other, x["w"], beta)
+    got = [potts_energy(*k3) for _ in range(3)]
+    want = potts_energy_plain(*k3)
+    _check(torch.allclose(got[0], want, rtol=1e-6, atol=0),
+           f"K3 disagrees: {got[0].tolist()} vs {want.tolist()}")
+    _check(all(torch.equal(g, got[0]) for g in got),
+           "K3: repeated calls differ")
+    two = potts_energy_pair(*pair)
+    _check(torch.allclose(two, potts_energy_pair_plain(*pair), rtol=1e-6,
+                          atol=0), "K3 pair disagrees with its plain version")
+    _check(torch.equal(two[0], got[0]) and torch.equal(
+        two[1], potts_energy(x["unary_k"], x["mask_i"], other, x["w"], beta)),
+        "K3: the pair's energies are not bitwise the single calls'")
+    t_pair = _timed(lambda: potts_energy_pair(*pair),
+                    lambda: potts_energy_pair_plain(*pair))
+    pair_bound, _ = _bound(_k3_nbytes(x, x["warm"], other),
+                           2 * OPS_ENERGY * R * H * W)
+    return dict(
+        max_abs_err=_max_abs(got[0], want),
+        **_timed(lambda: potts_energy(*k3), lambda: potts_energy_plain(*k3)),
+        pair_ms=t_pair["ms"], pair_call_ms=t_pair["call_ms"],
+        pair_plain_ms=t_pair["plain_ms"], pair_bound_ms=pair_bound,
+        pair_share_of_bound=pair_bound / t_pair["ms"],
+        unit="one call", bitwise_repeat=3,
+        tolerance="rtol 1e-6; the pair bitwise the single calls",
+        nbytes=_k3_nbytes(x, x["warm"]), ops=OPS_ENERGY * R * H * W)
+
+
+def check_k4(x, beta=1.0):
+    """K4 on the operands ``x`` (the unary in, ``negate``): within rtol
+    2e-5, atol 1e-6 of the plain version on every output; three calls
+    bitwise equal; the float64 sums round to the float32 outputs bitwise.
+    The row of one call (its launches a call are counted by
+    `launch_counts`); its bound counts what the valid pixels need (the
+    kernel skips 32-pixel batches with none): the mask, then a valid
+    pixel's K fields, F features, label and 4 weights, and the outputs."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.config import SMALL_EPS
+    from phylo_hmrf_tpu_torch.ops.finish_kernels import (finish_stats,
+                                                         finish_stats_plain)
+
+    R, K, H, W = x["unary_k"].shape
     k4 = (x["unary_k"], x["img_f"], x["mask_i"], x["warm"], x["w"], beta,
           SMALL_EPS)
-    got = finish_stats(*k4, negate=True)
+    got = [finish_stats(*k4, negate=True) for _ in range(3)]
     want = finish_stats_plain(*k4, negate=True)
-    for a, b in zip(got, want):
+    for a, b in zip(got[0], want):
         _check(torch.allclose(a, b, rtol=2e-5, atol=1e-6),
                f"K4 disagrees: max abs err {_max_abs(a, b)}")
-    out["K4_finish_stats"] = dict(
-        max_abs_err=max(_max_abs(a, b) for a, b in zip(got, want)),
+    _check(all(torch.equal(a, b) for g in got[1:] for a, b in zip(g, got[0])),
+           "K4: repeated calls differ")
+    got64 = finish_stats(*k4, negate=True, float64=True)
+    _check(all(torch.equal(a.float(), b) for a, b in zip(got64, got[0])),
+           "K4: the float64 sums do not round to the float32 outputs")
+    F = x["img_f"].shape[1]
+    valid = int((x["mask_i"] != 0).sum())
+    return dict(
+        max_abs_err=max(_max_abs(a, b) for a, b in zip(got[0], want)),
         **_timed(lambda: finish_stats(*k4, negate=True),
                  lambda: finish_stats_plain(*k4, negate=True)),
-        unit="one call (tile pass + reduce pass)", launches_per_unit=1,
-        tolerance="rtol 2e-5, atol 1e-6",
-        nbytes=_nbytes(x["unary_k"], x["img_f"], x["mask_i"], x["warm"],
-                       x["w"], *got),
-        ops=_ops_finish(K, x["img_f"].shape[1]) * npx)
-    return out
+        unit="one call", bitwise_repeat=3,
+        tolerance="rtol 2e-5, atol 1e-6", valid_pixels=valid,
+        nbytes=(_nbytes(x["mask_i"], *got[0])
+                + 4 * valid * (K + F + 1 + 4)),
+        ops=_ops_finish(K, F) * valid)
 
 
 def _cut_cost(side, excess, cap_t, caps):
@@ -493,7 +627,7 @@ def profile_polish(x, start, n_states, max_cycles, beta=1.0):
     k6 = [v for k, v in by_name.items() if "bfs_tile_kernel" in k]
     return dict(
         wall_s=wall, device_busy_s=busy, kernels=n,
-        idle_share=None if busy is None else max(0.0, 1.0 - busy / wall),
+        idle_share=max(0.0, 1.0 - busy / wall),
         k5_device_ms=sum(v[0] for v in k5) * 1e-3,
         k5_launches=sum(v[1] for v in k5),
         k6_device_ms=sum(v[0] for v in k6) * 1e-3,
@@ -854,8 +988,9 @@ def check_split(x, mesh, beta=1.0):
 def _device_busy_s(fn):
     """Seconds of device kernel time in one run of ``fn`` under
     ``torch.profiler`` (the kernels of one stream do not overlap), the
-    kernel count, and {kernel name: [device us, count]}; (None, 0, {})
-    when the profiler sees no device time."""
+    kernel count, and {kernel name: [device us, count]}. Fails when the
+    profiler records no device event, so no profiled number goes missing
+    silently (``launch_counts`` says when it does)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -872,7 +1007,8 @@ def _device_busy_s(fn):
             v = by_name.setdefault(e.name, [0.0, 0])
             v[0] += e.self_device_time_total
             v[1] += 1
-    return (busy_us * 1e-6 if busy_us > 0 else None), n, by_name
+    _check(n > 0 and busy_us > 0, "torch.profiler recorded no device event")
+    return busy_us * 1e-6, n, by_name
 
 
 def check_spatial_estep(x, img, dmaps, means, covs, mesh):
@@ -920,8 +1056,7 @@ def check_spatial_estep(x, img, dmaps, means, covs, mesh):
         busy, n, _ = _device_busy_s(f)
         rec[f"{name}_device_busy_s"] = busy
         rec[f"{name}_device_kernels"] = n
-        rec[f"{name}_idle_share"] = (None if busy is None
-                                     else max(0.0, 1.0 - busy / wall))
+        rec[f"{name}_idle_share"] = max(0.0, 1.0 - busy / wall)
     return rec
 
 
@@ -1031,6 +1166,7 @@ def main() -> int:
         return 1
     from phylo_hmrf_tpu_torch import PhyloHMRFConfig, _build
     from phylo_hmrf_tpu_torch.parallel.mesh import make_mesh
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import mean_field_kmajor
     from phylo_hmrf_tpu_torch.synth import chr21_problem, kernel_inputs
 
     smi = subprocess.run(
@@ -1062,13 +1198,16 @@ def main() -> int:
           f"img_f {tuple(x['img_f'].shape)} samples {region.n_samples}")
     K = means.shape[0]
     kernels = check_kernels(x)
-    # K1 and K2 at K = 30: a scale point, no path of this run reaches it
+    # K1-K4 at K = 30: a scale point, no path of this run reaches it
     x30 = k30_inputs(dev)
+    lab30 = mean_field_kmajor(x30["unary_k"], x30["w"], 1.0)
     for name, k in (("K1_mf_sweep", check_k1(x30)),
-                    ("K2_icm_phase", check_k2(x30))):
+                    ("K2_icm_phase", check_k2(x30)),
+                    ("K3_potts_energy", check_k3(x30, lab30)),
+                    ("K4_finish_stats", check_k4(x30))):
         k = kernels[name]["at_k30"] = _with_bound(k)
         print(_point_line(f"{name} at K=30", k))
-    del x30
+    del x30, lab30
     mincut, cut, start = check_mincut(x, K)
     kernels.update(mincut)
     print(f"[mincut] {json.dumps(cut)}")
@@ -1125,6 +1264,14 @@ def main() -> int:
     for name, k in check_halo_kernels(x10, SHARDS).items():
         k = kernels[name]["at_10kb"] = _with_bound(k)
         print(_point_line(f"{name} at 10kb", k))
+    # K3 and K4 on the single-device 10 kb E-step's operands: a scale
+    # point (the spatial E-step runs them on 818-row slabs)
+    lab10 = mean_field_kmajor(x10["unary_k"], x10["w"], 1.0)
+    for name, k in (("K3_potts_energy", check_k3(x10, lab10)),
+                    ("K4_finish_stats", check_k4(x10))):
+        k = kernels[name]["at_10kb"] = _with_bound(k)
+        print(_point_line(f"{name} at 10kb", k))
+    del lab10
     split = check_split(x10, mesh)
     print(f"[split] {json.dumps(split)}")
     img10 = torch.as_tensor(r10.img, device=dev)
@@ -1134,6 +1281,9 @@ def main() -> int:
     sp = check_spatial_estep(x10, img10, dmaps10, m10t, c10t, mesh)
     print(f"[spatial_estep] {json.dumps(sp)}")
     del x10, img10, dmaps10
+    # the plain versions at 10 kb leave tens of GB in the allocator's
+    # cache; give it back before the fits that follow
+    torch.cuda.empty_cache()
     reg = check_region_estep(mesh, dev)
     print(f"[region_estep] {json.dumps(reg)}")
 
@@ -1152,6 +1302,22 @@ def main() -> int:
                 best_match_accuracy=sacc, cost_vec=sres.cost_vec.tolist())
     print(f"[spatial_fit] {json.dumps(sfit)}")
 
+    # one kernel launch a call for K3 (both entries) and K4, by the
+    # profiler in a fresh process
+    counts = launch_counts()
+    for point, key in (("chr21", None), ("k30", "at_k30"),
+                       ("10kb", "at_10kb")):
+        for name, entries in (("K3_potts_energy", ("K3", "K3_pair")),
+                              ("K4_finish_stats", ("K4",))):
+            rec = kernels[name] if key is None else kernels[name][key]
+            for entry, field in zip(entries, ("launches_per_unit",
+                                              "pair_launches_per_call")):
+                n, names = counts[point][entry]
+                _check(n == 1, f"{entry} at {point}: {n} kernel launches a "
+                               f"call ({names})")
+                rec[field] = n
+                rec.setdefault("kernel_names", names)
+    print(f"[launch_counts] {json.dumps(counts)}")
     rows = []
     for name, (src, replaces) in KERNELS.items():
         k = kernels[name] = _with_bound(kernels[name])
@@ -1183,4 +1349,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(count_launches_main() if "--count-launches" in sys.argv[1:]
+             else main())

@@ -140,21 +140,23 @@ _SIGNATURES = {
     #     rows, tile cols, threads, flag (may be null), tag, stream
     "phmrf_icm_pair": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
                        _I, _P, _I, _P],
-    # K3: unary, mask, labels, w, partial, out, R, K, H, W, beta, stream
-    "phmrf_potts_energy": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # K4: lp, img, mask, labels, w, partial, out, R, K, F, H, W,
+    # K3: unary, mask, labels_a, labels_b (null: one labeling), w, partial,
+    #     tickets, out, R, K, H, W, beta, stream
+    "phmrf_potts_energy": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _F, _P],
+    # K4: lp, img, mask, labels, w, partial, tickets, out, R, K, F, H, W,
     #     beta, small_eps, negate, out_f64, stream
-    "phmrf_finish_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _F, _F, _I, _I, _P],
+    "phmrf_finish_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _F, _F, _I, _I, _P],
     # K5: e, h, cap_t, caps, e_out, h_out, cap_t_out, caps_out, R, H, W, n,
     #     n_inner, flag, tag, stream
     "phmrf_pr_iterations": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P, _I, _P],
     # K6: d, d_out, caps, R, H, W, n, n_inner, flag, tag, stream
     "phmrf_bfs_sweeps": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
-    # tile counts the wrappers size the partial-sum buffers with
-    "phmrf_energy_tiles": [_I],
-    "phmrf_finish_tiles": [_I],
+    # doubles of K3's / K4's partial-sum buffer: (R, H, W), (R, K, F, H, W)
+    "phmrf_energy_slots": [_I, _I, _I],
+    "phmrf_finish_slots": [_I, _I, _I, _I, _I],
 }
 
 

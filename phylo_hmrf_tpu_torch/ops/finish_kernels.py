@@ -6,10 +6,13 @@ replaces ``potts_energy_pallas`` and ``finish_stats`` replaces
 unary_k / logprob_k (R, K, H, W), img_f (R, F, H, W), wmaps (R, 4, H, W)
 float32; mask, labels (R, H, W) int32.
 
-Both reduce in a fixed order (per-tile partial sums, then the tiles of a
-region in order, in float64), so repeated calls are bitwise equal. The
-plain versions accumulate in float64 as well. On a CPU tensor the wrappers
-run the plain version; on a CUDA tensor they launch the kernel or raise.
+Each call is one launch. Both reduce in a fixed order (float64 partial
+sums per block, then the blocks of a region in block order, inside the
+launch), so repeated calls are bitwise equal. ``potts_energy_pair`` takes
+two labelings of the same operands in one launch; each of its energies is
+bitwise what ``potts_energy`` gives for that labeling. The plain versions
+accumulate in float64 as well. On a CPU tensor the wrappers run the plain
+version; on a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -42,32 +45,74 @@ def potts_energy_plain(unary_k, mask_i, labels, wmaps, beta):
     return (e_u + _f32(beta) * e_p).to(torch.float32)
 
 
-def potts_energy(unary_k, mask_i, labels, wmaps, beta):
-    """Per-region MRF energy sum_p(valid) unary[p, s_p]
-    + beta * sum_d sum_p w_d[p] [s_p != s_{p+d}] (forward edges). (R,)."""
-    if unary_k.device.type == "cpu":
-        return potts_energy_plain(unary_k, mask_i, labels, wmaps, beta)
+def potts_energy_pair_plain(unary_k, mask_i, labels_a, labels_b, wmaps,
+                           beta):
+    """Plain version of the K3 pair: the single version on each labeling,
+    (2, R) float32."""
+    return torch.stack([
+        potts_energy_plain(unary_k, mask_i, lab, wmaps, beta)
+        for lab in (labels_a, labels_b)])
+
+
+_tickets = {}
+
+
+def _tickets_for(t, R: int):
+    """K3's and K4's per-region tickets on ``t``'s device and stream, all
+    0: the last block of a region resets its ticket before the launch
+    ends, so a buffer made once serves every later launch there."""
+    key = (t.device, _build.stream_of(t))
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < R:
+        buf = _tickets[key] = torch.zeros(max(R, 64), dtype=torch.int32,
+                                          device=t.device)
+    return buf
+
+
+def _energy_launch(unary_k, mask_i, labelings, wmaps, beta):
+    """One K3 launch over one or two labelings: (len(labelings), R)."""
     R, K, H, W = unary_k.shape
     _build.check_tensors(
         "potts_energy", unary_k=(unary_k, torch.float32, (R, K, H, W)),
         mask=(mask_i, torch.int32, (R, H, W)),
-        labels=(labels, torch.int32, (R, H, W)),
-        wmaps=(wmaps, torch.float32, (R, 4, H, W)))
+        wmaps=(wmaps, torch.float32, (R, 4, H, W)),
+        **{f"labels_{i}": (lab, torch.int32, (R, H, W))
+           for i, lab in enumerate(labelings)})
     lib = _build.load()
-    n_tiles = lib.phmrf_energy_tiles(H)
-    partial = torch.empty(R * n_tiles * 2, dtype=torch.float64,
-                          device=unary_k.device)
-    out = torch.empty(R, dtype=torch.float32, device=unary_k.device)
+    dev = unary_k.device
+    partial = torch.empty(lib.phmrf_energy_slots(R, H, W),
+                          dtype=torch.float64, device=dev)
+    out = torch.empty(len(labelings), R, dtype=torch.float32, device=dev)
+    second = labelings[1].data_ptr() if len(labelings) == 2 else None
     with _build.on_device(out):
         _build.check(lib.phmrf_potts_energy(
-            unary_k.data_ptr(), mask_i.data_ptr(), labels.data_ptr(),
-            wmaps.data_ptr(), partial.data_ptr(), out.data_ptr(), R, K, H, W,
+            unary_k.data_ptr(), mask_i.data_ptr(), labelings[0].data_ptr(),
+            second, wmaps.data_ptr(), partial.data_ptr(),
+            _tickets_for(out, R).data_ptr(), out.data_ptr(), R, K, H, W,
             float(beta), _build.stream_of(out)), "K3 potts_energy")
     potts_energy.launches += 1
     return out
 
 
-potts_energy.launches = 0
+def potts_energy(unary_k, mask_i, labels, wmaps, beta):
+    """Per-region MRF energy sum_p(valid) unary[p, s_p]
+    + beta * sum_d sum_p w_d[p] [s_p != s_{p+d}] (forward edges). (R,)."""
+    if unary_k.device.type == "cpu":
+        return potts_energy_plain(unary_k, mask_i, labels, wmaps, beta)
+    return _energy_launch(unary_k, mask_i, (labels,), wmaps, beta)[0]
+
+
+potts_energy.launches = 0   # K3 launches, the pair's included
+
+
+def potts_energy_pair(unary_k, mask_i, labels_a, labels_b, wmaps, beta):
+    """The energies of two labelings of the same operands, (2, R): row i
+    bitwise ``potts_energy`` of labeling i, from one launch that reads the
+    mask and the weights once."""
+    if unary_k.device.type == "cpu":
+        return potts_energy_pair_plain(unary_k, mask_i, labels_a, labels_b,
+                                       wmaps, beta)
+    return _energy_launch(unary_k, mask_i, (labels_a, labels_b), wmaps, beta)
 
 
 def finish_stats_plain(lp_k, img_f, mask_i, labels, wpp, beta, small_eps,
@@ -158,25 +203,24 @@ def finish_stats(lp_k, img_f, mask_i, labels, wpp, beta, small_eps, *,
         wpp=(wpp, torch.float32, (R, 4, H, W)))
     lib = _build.load()
     nstat = K * (1 + Fd + Fd * Fd)
-    nout = nstat + 4
-    n_tiles = lib.phmrf_finish_tiles(H)
     dev = lp_k.device
-    partial = torch.empty(R * n_tiles * nout, dtype=torch.float64, device=dev)
+    partial = torch.empty(lib.phmrf_finish_slots(R, K, Fd, H, W),
+                          dtype=torch.float64, device=dev)
     dtype = torch.float64 if float64 else torch.float32
-    out = torch.empty(R, nout, dtype=dtype, device=dev)
+    # the kernel writes every column, the sums' 4 zeros included
+    out = torch.empty(R, nstat + 8, dtype=dtype, device=dev)
     with _build.on_device(out):
         _build.check(lib.phmrf_finish_stats(
             lp_k.data_ptr(), img_f.data_ptr(), mask_i.data_ptr(),
             labels.data_ptr(), wpp.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), R, K, Fd, H, W, float(beta), float(small_eps),
-            int(bool(negate)), int(bool(float64)), _build.stream_of(out)),
-            "K4 finish_stats")
+            _tickets_for(out, R).data_ptr(), out.data_ptr(), R, K, Fd, H, W,
+            float(beta), float(small_eps), int(bool(negate)),
+            int(bool(float64)), _build.stream_of(out)), "K4 finish_stats")
     finish_stats.launches += 1
     post = out[:, :K]
     obs = out[:, K:K + K * Fd].reshape(R, K, Fd)
     obs2 = out[:, K + K * Fd:nstat].reshape(R, K, Fd, Fd)
-    sums = torch.cat([out[:, nstat:], out.new_zeros(R, 4)], dim=1)
-    return post, obs, obs2, sums
+    return post, obs, obs2, out[:, nstat:]
 
 
 finish_stats.launches = 0

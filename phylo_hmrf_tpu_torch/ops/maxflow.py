@@ -28,7 +28,7 @@ import torch
 
 from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch.ops.finish_kernels import (
-    _f32, potts_energy, potts_energy_plain)
+    _f32, potts_energy_pair, potts_energy_pair_plain)
 from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
 from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2, mean_field_kmajor
 from phylo_hmrf_tpu_torch.ops.mincut_kernels import (
@@ -415,10 +415,9 @@ def _start_batch(unary_k, wmaps, mask, warm, beta: float,
                         plain=plain)
     cand_b = icm_kmajor(unary_k, wmaps, mask, warm, beta, icm_max_sweeps,
                         plain=plain)
-    energy = potts_energy_plain if plain else potts_energy
-    mask_i = mask.to(torch.int32)
-    e_a = energy(unary_k, mask_i, cand_a, wmaps, beta)
-    e_b = energy(unary_k, mask_i, cand_b, wmaps, beta)
+    energy = potts_energy_pair_plain if plain else potts_energy_pair
+    e_a, e_b = energy(unary_k, mask.to(torch.int32), cand_a, cand_b, wmaps,
+                      beta)
     return torch.where((e_a <= e_b)[:, None, None], cand_a, cand_b)
 
 

@@ -30,8 +30,9 @@ region: q, unary_k (1, K, Hl, W); weights (1, 4, Hl, W); labels, mask
 
 The JAX package takes its kernel branch only for TPU tile shapes (Hl % 8 ==
 0, W % 128 == 0); the CUDA kernels take any shape, so this port takes it
-for every shard. The energy (K3) and the finishing statistics (K4) run on
-each shard's 1-row halo-extended slab with the halo rows masked out.
+for every shard. The energies of both ICM candidates (K3's pair entry, one
+launch) and the finishing statistics (K4) run on each shard's 1-row
+halo-extended slab with the halo rows masked out.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from phylo_hmrf_tpu_torch.config import SMALL_EPS
 from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
 from phylo_hmrf_tpu_torch.ops.finish_kernels import (
-    cost_vec_from_sums, finish_stats, potts_energy)
+    cost_vec_from_sums, finish_stats, potts_energy_pair)
 from phylo_hmrf_tpu_torch.ops.icm import MF_TEMPS
 from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_phase_halo_,
                                                   icm_sweep_pair)
@@ -179,15 +180,18 @@ def _icm_halo_kernels(unary_k, w_ext, mask, init_labels, beta,
     return labels
 
 
-def _energy_halo(labels, unary_z, w_z, mask_z, beta):
-    """The region's MRF energy: K3 on each shard's slab of exchanged labels
-    with one halo row on each side, where unary, mask and weights are zero
-    (``*_z``). So each shard counts its own pixels and the forward edges
-    whose weights it stores, into the next shard's first row. Summed over
-    the shards in shard order, float64."""
-    return psum([potts_energy(u, m, le, w, beta).double()
-                 for le, u, w, m in zip(extend_rows(labels, 1), unary_z, w_z,
-                                        mask_z)])
+def _energy_halo_pair(labels_a, labels_b, unary_z, w_z, mask_z, beta):
+    """The region's MRF energies of two labelings, (2, 1): K3's pair entry
+    (one launch a shard, each row bitwise the single K3 of its labeling)
+    on each shard's slabs of exchanged labels with one halo row on each
+    side, where unary, mask and weights are zero (``*_z``). So each shard
+    counts its own pixels and the forward edges whose weights it stores,
+    into the next shard's first row. Summed over the shards in shard
+    order, float64."""
+    return psum([potts_energy_pair(u, m, la, lb, w, beta).double()
+                 for la, lb, u, w, m in zip(extend_rows(labels_a, 1),
+                                            extend_rows(labels_b, 1),
+                                            unary_z, w_z, mask_z)])
 
 
 def estep_region_rowsharded(img, mask, dmaps, warm, means, covars, beta,
@@ -223,9 +227,8 @@ def estep_region_rowsharded(img, mask, dmaps, warm, means, covars, beta,
     unary_z = [_zero_rows(u) for u in unary_k]
     mask_z = [_zero_rows(m.to(torch.int32)) for m in mask_b]
     w_z = [_zero_rows(w) for w in w_cut]
-    e_a = _energy_halo(cand_a, unary_z, w_z, mask_z, beta)
-    e_b = _energy_halo(cand_b, unary_z, w_z, mask_z, beta)
-    labels = cand_a if bool(e_a <= e_b) else cand_b
+    e = _energy_halo_pair(cand_a, cand_b, unary_z, w_z, mask_z, beta)
+    labels = cand_a if bool(e[0] <= e[1]) else cand_b
 
     # K4's pairwise potential at a center pixel reads the labels and the
     # backward-edge weights of the exchanged rows

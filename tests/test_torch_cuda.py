@@ -4,10 +4,12 @@ card (needs an NVIDIA GPU with sm_90a and nvcc; skipped without CUDA).
 Run on a GPU machine: ``python -m pytest tests/test_torch_cuda.py -q
 --noconftest``.
 Shapes: a small ragged grid (H and W of no tile multiple) and the chr21
-cell (R=1, K=10, H=672, W=768, F=4), for K1/K2 also the chr21 region at
-K=30. K5/K6 run on the graph of a real expansion move (the one with the
-most pixels in play) of the K1-K3 start; K1, K2, K5 and K6 also on random
-instances whose shapes put pixels on every kind of tile edge.
+cell (R=1, K=10, H=672, W=768, F=4), for K1-K4 also the chr21 region at
+K=30, for K3/K4 also two ragged regions (R=2) and random edge shapes (F=1,
+F=8, K=32, an empty region). K5/K6 run on the graph of a real expansion
+move (the one with the most pixels in play) of the K1-K3 start; K1, K2,
+K5 and K6 also on random instances whose shapes put pixels on every kind
+of tile edge.
 """
 
 import numpy as np
@@ -119,37 +121,117 @@ def test_k2_kernel_matches_plain(dev, shape):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+# "ragged_x2": two ragged regions (R = 2), see `_cut_inputs`
+FINISH_SHAPES = SHAPES + ["k30", "ragged_x2"]
+
+
+@pytest.mark.parametrize("shape", FINISH_SHAPES)
 def test_k3_kernel_matches_plain(dev, shape):
-    """Energy: both sum float32 terms in float64, rtol 1e-6."""
-    from phylo_hmrf_tpu_torch.ops.finish_kernels import (potts_energy,
-                                                         potts_energy_plain)
+    """Energy: both sum float32 terms in float64, rtol 1e-6; one launch a
+    call, three calls bitwise equal; the pair entry in one launch, each
+    row bitwise the single call on its labeling."""
+    from phylo_hmrf_tpu_torch.ops.finish_kernels import (
+        potts_energy, potts_energy_pair, potts_energy_plain)
 
-    x = _inputs(dev, shape)
+    x = _cut_inputs(dev, shape)
+    K = x["unary_k"].shape[1]
+    other = ((x["warm"] + 3) % K).to(torch.int32)
     args = (x["unary_k"], x["mask_i"], x["warm"], x["w"], 1.3)
-    torch.testing.assert_close(potts_energy(*args),
-                               potts_energy_plain(*args), rtol=1e-6, atol=0)
+    n0 = potts_energy.launches
+    got = [potts_energy(*args) for _ in range(3)]
+    assert potts_energy.launches - n0 == 3
+    torch.testing.assert_close(got[0], potts_energy_plain(*args), rtol=1e-6,
+                               atol=0)
+    assert all(torch.equal(g, got[0]) for g in got)
+    n0 = potts_energy.launches
+    pair = potts_energy_pair(x["unary_k"], x["mask_i"], x["warm"], other,
+                             x["w"], 1.3)
+    assert potts_energy.launches - n0 == 1
+    assert pair.shape == (2, x["unary_k"].shape[0])
+    assert torch.equal(pair[0], got[0])
+    assert torch.equal(pair[1], potts_energy(x["unary_k"], x["mask_i"], other,
+                                             x["w"], 1.3))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_k4_kernel_matches_plain(dev, shape):
-    """Stats and cost sums: rtol 2e-5 (tests/test_finish_pallas.py)."""
+def _k4_check(args):
+    """K4 on ``args`` (negate=True: the unary goes in) against its plain
+    version, rtol 2e-5, atol 1e-6 on every output; one launch a call, three
+    calls bitwise equal; the float64 sums round to the float32 outputs
+    bitwise, for both values of ``negate`` (the logprob goes in with
+    negate=False, bitwise the same outputs)."""
     from phylo_hmrf_tpu_torch.ops.finish_kernels import (finish_stats,
                                                          finish_stats_plain)
 
-    x = _inputs(dev, shape)
+    n0 = finish_stats.launches
+    got = [finish_stats(*args, negate=True) for _ in range(3)]
+    assert finish_stats.launches - n0 == 3
+    want = finish_stats_plain(*args, negate=True)
+    for a, b in zip(got[0], want):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+    for g in got[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(g, got[0]))
+    flipped = (-args[0],) + tuple(args[1:])
+    for negate, a in ((True, args), (False, flipped)):
+        out32 = finish_stats(*a, negate=negate)
+        out64 = finish_stats(*a, negate=negate, float64=True)
+        for s, t, u in zip(out64, out32, got[0]):
+            assert s.dtype == torch.float64
+            assert torch.equal(s.float(), t) and torch.equal(t, u)
+    assert not got[0][3][:, 4:].any()     # the sums' 4 zero columns
+
+
+@pytest.mark.parametrize("shape", FINISH_SHAPES)
+def test_k4_kernel_matches_plain(dev, shape):
+    """Stats and cost sums: rtol 2e-5 (tests/test_finish_pallas.py), on the
+    weight maps and on the 0/1 valid maps; see `_k4_check`."""
+    x = _cut_inputs(dev, shape)
     for w in (x["w"], torch.isfinite(x["w"]).float()):
-        args = (x["unary_k"], x["img_f"], x["mask_i"], x["warm"], w, 1.0,
-                SMALL_EPS)
-        got = finish_stats(*args, negate=True)
-        want = finish_stats_plain(*args, negate=True)
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
-        # the float64 sums round to the float32 outputs, bitwise
-        got64 = finish_stats(*args, negate=True, float64=True)
-        for a, b in zip(got64, got):
-            assert a.dtype == torch.float64
-            assert torch.equal(a.float(), b)
+        _k4_check((x["unary_k"], x["img_f"], x["mask_i"], x["warm"], w, 1.0,
+                   SMALL_EPS))
+
+
+# (R, K, F, H, W, region with mask all 0): F = 1 and F = PHMRF_FMAX = 8,
+# K = PHMRF_KMAX = 32, pixel counts that are not a multiple of a warp's 32
+# or of a block's batch, two regions with one empty
+K4_EDGE_SHAPES = [(1, 10, 1, 23, 37, None), (2, 7, 8, 19, 53, None),
+                  (1, 32, 8, 17, 29, None), (2, 10, 4, 29, 31, 1),
+                  (3, 5, 3, 5, 7, 0)]
+
+
+@pytest.mark.parametrize("spec", K4_EDGE_SHAPES)
+def test_k3_k4_edge_shapes_match_plain(dev, spec):
+    """K3 and K4 on random operands at the edges of their range (positive
+    features, as contact values are; labels of invalid pixels anywhere in
+    [-1, K]): the gates of `test_k3_kernel_matches_plain` and
+    `_k4_check`."""
+    from phylo_hmrf_tpu_torch.ops.finish_kernels import (
+        potts_energy, potts_energy_pair, potts_energy_plain)
+
+    R, K, F, H, W, empty = spec
+    rng = np.random.default_rng(sum(spec[:5]))
+    mask = rng.random((R, H, W)) < 0.7
+    if empty is not None:
+        mask[empty] = False
+    w = rng.random((R, 4, H, W)) * (rng.random((R, 4, H, W)) >= 0.1)
+    w[:, 0, :, -1] = w[:, 1, -1] = w[:, 2, -1] = w[:, 2, :, -1] = 0
+    w[:, 3, -1] = w[:, 3, :, 0] = 0
+    lab = np.where(mask, rng.integers(0, K, (R, H, W)),
+                   rng.integers(-1, K + 1, (R, H, W)))
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
+    unary = t(rng.random((R, K, H, W)) * 4)
+    img = t(rng.random((R, F, H, W)) + 0.1)
+    mask_i, labels, w = t(mask, torch.int32), t(lab, torch.int32), t(w)
+    got = potts_energy(unary, mask_i, labels, w, 0.9)
+    torch.testing.assert_close(got, potts_energy_plain(unary, mask_i, labels,
+                                                       w, 0.9),
+                               rtol=1e-6, atol=0)
+    other = torch.flip(labels, dims=(-1,)).contiguous()
+    pair = potts_energy_pair(unary, mask_i, labels, other, w, 0.9)
+    assert torch.equal(pair[0], got)
+    assert torch.equal(pair[1], potts_energy(unary, mask_i, other, w, 0.9))
+    _k4_check((unary, img, mask_i, labels, w, 0.8, SMALL_EPS))
 
 
 def _cut_inputs(dev, shape):
@@ -577,7 +659,8 @@ def test_rowsharded_estep_on_the_card(dev):
     """The spatial E-step over 4 shards on the card against the
     single-device E-step on the chr21 inputs: labels agree >= 0.999 of the
     valid pixels, stats and costs within 1e-3 relative, a repeat bitwise;
-    its energy and statistics launch K3 and K4."""
+    its energies launch K3's pair entry and its statistics K4, once a
+    shard."""
     from phylo_hmrf_tpu_torch.models.hmrf import _estep_bucket
     from phylo_hmrf_tpu_torch.ops.finish_kernels import (finish_stats,
                                                          potts_energy)
@@ -597,7 +680,7 @@ def test_rowsharded_estep_on_the_card(dev):
     args = (x["img"][0], x["mask"][0], dmaps, x["warm"][0], m, c, 1.0, 0.5)
     n3, n4 = potts_energy.launches, finish_stats.launches
     l2, s2, c2, _ = fn(*args)
-    assert potts_energy.launches - n3 == 2 * 4     # two candidates
+    assert potts_energy.launches - n3 == 4     # one pair per shard
     assert finish_stats.launches - n4 == 4
     assert (l2 == l1[0])[x["mask"][0]].float().mean().item() >= 0.999
     for a, b in zip(s2, s1):

@@ -279,27 +279,32 @@ def test_rowsharded_estep_matches_single_device(case):
 
 @pytest.mark.parametrize("case", ["deep_offdiag", "k7_k8_hl4"])
 def test_halo_energy_matches_whole_grid(rng, case):
-    """`_energy_halo` (K3 on each shard's slab, halo rows zero-weighted and
-    masked) on 8 CPU shards equals K3 on the whole grid for random labels:
-    each edge crossing a shard boundary is counted once. rtol 1e-6 (float64
-    sums in another order)."""
+    """`_energy_halo_pair` (K3's pair entry on each shard's slab, halo rows
+    zero-weighted and masked; what the spatial E-step runs) on 8 CPU
+    shards: each row equals the plain K3 of its labeling on the whole grid
+    for random labels: each edge crossing a shard boundary is counted once.
+    rtol 1e-6 (float64 sums in another order)."""
     from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
-    from phylo_hmrf_tpu_torch.ops.finish_kernels import potts_energy
+    from phylo_hmrf_tpu_torch.ops.finish_kernels import potts_energy_plain
     from phylo_hmrf_tpu_torch.ops.potts import weight_maps
 
     H0, is_diag, _ = SPATIAL_CASES[case]
     region, means, covs, _ = _problem(rng, H0=H0, is_diag=is_diag)
-    labels = _t(rng.integers(0, 4, region.shape).astype(np.int32))[None]
+    labs = [_t(rng.integers(0, 4, region.shape).astype(np.int32))[None]
+            for _ in range(2)]
     unary = -gaussian_logpdf_kmajor(_t(region.img[None]), _t(means),
                                     _t(covs))
     w = weight_maps(_t(region.dmaps[None]), 0.5)
     mask = _t(region.mask[None]).to(torch.int32)
-    want = float(potts_energy(unary, mask, labels, w, 0.9)[0])
-    got = float(halo._energy_halo(
-        _shards(labels, 8), [halo._zero_rows(u) for u in _shards(unary, 8)],
+    pair = halo._energy_halo_pair(
+        *(_shards(lab, 8) for lab in labs),
+        [halo._zero_rows(u) for u in _shards(unary, 8)],
         [halo._zero_rows(x) for x in _shards(w, 8)],
-        [halo._zero_rows(m) for m in _shards(mask, 8)], 0.9))
-    assert abs(got - want) <= 1e-6 * abs(want)
+        [halo._zero_rows(m) for m in _shards(mask, 8)], 0.9)
+    assert pair.shape == (2, 1) and pair.dtype == torch.float64
+    for row, lab in zip(pair, labs):
+        want = float(potts_energy_plain(unary, mask, lab, w, 0.9)[0])
+        assert abs(float(row[0]) - want) <= 1e-6 * abs(want)
 
 
 def test_halo_energy_parity():

@@ -220,6 +220,52 @@ def test_k3_plain_matches_potts_energy_pallas(rng):
     np.testing.assert_allclose(e_t.numpy(), np.asarray(e_j), rtol=2e-6)
 
 
+def test_k3_pair_plain_matches_potts_energy_pallas(rng):
+    """The K3 pair entry on CPU (its plain version: the single one on each
+    labeling) vs potts_energy_pallas(interpret=True) once per labeling:
+    rtol 2e-6 (tests/test_finish_pallas.py); each row bitwise
+    `potts_energy` of its labeling."""
+    from phylo_hmrf_tpu.ops.finish_pallas import potts_energy_pallas
+    from phylo_hmrf_tpu_torch.ops.finish_kernels import (potts_energy,
+                                                         potts_energy_pair)
+
+    wm, mask, _, logprob_k, labels = _finish_problem(rng)
+    unary_k = -logprob_k
+    other = rng.integers(0, unary_k.shape[1], labels.shape).astype(np.int32)
+    e_t = potts_energy_pair(_t(unary_k), _t(mask), _t(labels), _t(other),
+                            _t(wm), 1.3)
+    assert e_t.dtype == torch.float32 and e_t.shape == (2, 2)
+    for row, lab in zip(e_t, (labels, other)):
+        e_j = potts_energy_pallas(jnp.asarray(unary_k), jnp.asarray(mask),
+                                  jnp.asarray(lab), jnp.asarray(wm), 1.3,
+                                  interpret=True)
+        np.testing.assert_allclose(row.numpy(), np.asarray(e_j), rtol=2e-6)
+        assert torch.equal(row, potts_energy(_t(unary_k), _t(mask), _t(lab),
+                                             _t(wm), 1.3))
+
+
+def test_start_batch_keeps_its_pick(rng):
+    """`_start_batch` takes both ICM candidates' energies from K3's pair
+    entry: on CPU its labels are those of the former route, two single
+    energies and the pick e_a <= e_b per region."""
+    from phylo_hmrf_tpu_torch.ops.finish_kernels import potts_energy_plain
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
+    from phylo_hmrf_tpu_torch.ops.maxflow import _start_batch
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import mean_field_kmajor
+
+    wm, mask, _, logprob_k, labels = _finish_problem(rng, R=3)
+    unary_k, w, m, warm = _t(-logprob_k), _t(wm), _t(mask != 0), _t(labels)
+    got = _start_batch(unary_k, w, m, warm, 1.0, 60, plain=True)
+    mf = mean_field_kmajor(unary_k, w, 1.0, plain=True)
+    cand_a = icm_kmajor(unary_k, w, m, mf, 1.0, 60, plain=True)
+    cand_b = icm_kmajor(unary_k, w, m, warm, 1.0, 60, plain=True)
+    e_a, e_b = (potts_energy_plain(unary_k, _t(mask), c, w, 1.0)
+                for c in (cand_a, cand_b))
+    want = torch.where((e_a <= e_b)[:, None, None], cand_a, cand_b)
+    assert torch.equal(got, want)
+    assert not torch.equal(cand_a, cand_b)
+
+
 @pytest.mark.parametrize("negate", [False, True])
 def test_k4_plain_matches_finish_stats_pallas(rng, negate):
     """K4's plain version vs finish_stats_pallas(interpret=True): stats
