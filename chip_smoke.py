@@ -26,14 +26,18 @@ default config (``final_polish=True``, ``polish_method="expansion"``)
 through ``PhyloHMRF.fit`` and checks the result.
 
 The multi-device paths run over a mesh of 4 shards (all on the one card
-when it is the only one): the halo kernels K7 (mean-field sweep) and K8
-(ICM phase) against their plain versions on an interior row shard of the
-spatial fit's 24-row off-diagonal block (6 rows, the shapes the fit gives
-them) and, as a scale point, of a 10 kb-scale region (3264 x 3264 bins
-padded to 3264 x 3328, the ``bench.py --stress`` shapes); their split
-identities on the 10 kb grid (K7 on 4 shards equals one K1 sweep of the
-whole grid, K8 with the global parity one phase of the whole grid, K1's 8
-sweeps and K2's sweep pair on 8-row halos those of the whole grid,
+when it is the only one): the row-shard kernels K7 (mean-field sweeps)
+and K8 (ICM phases), one launch over the 4 shards of the card, bitwise
+against the per-shard route they replaced (timed beside them), with every
+neighbour row marked remote bitwise against the same-device route, and
+against their plain versions: a temperature's 8 sweeps and a sweep's 4
+phases on the 4 6-row shards of the spatial fit's 24-row off-diagonal
+block (the shapes the fit gives them) and, as a scale point, one sweep
+and one phase on the 4 816-row shards of a 10 kb-scale region (3264 x
+3264 bins padded to 3264 x 3328, the ``bench.py --stress`` shapes); their
+split identities on the 10 kb grid (K7 on 4 shards equals one K1 sweep of
+the whole grid, K8 with the global parity each phase of the whole grid,
+K1's 8 sweeps and K2's sweep pair on 8-row halos those of the whole grid,
 bitwise; K1 on a shard's slab bitwise its chained route); the
 row-sharded E-step of that region against the single-device E-step and for
 bitwise repeats (and the device busy time of both under
@@ -41,8 +45,11 @@ bitwise repeats (and the device busy time of both under
 against the single-device bucket; and a default-config spatial fit of the
 chr21 region with a 20 x 653 off-diagonal block (its 24 rows give 6-row
 shards, the K7/K8 branch), whose first E-step is held against the
-single-device one region by region. Every phase that fails raises; the
-script exits 0 only if all passed.
+single-device one region by region. The fresh process that counts
+launches with ``torch.profiler`` (K3/K4 a call, K7/K8 a unit) first
+profiles that block's spatial E-step alone (``[thin_estep]``: walls,
+device busy, idle share, kernel launches and host ops per E-step). Every
+phase that fails raises; the script exits 0 only if all passed.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel (launches on the path that runs it, max abs error against the plain
@@ -56,6 +63,7 @@ that.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -78,9 +86,9 @@ KERNELS = {
                          "phylo_hmrf_tpu/ops/mincut_pallas.py:89"),
     "K6_bfs_sweeps": ("phylo_hmrf_tpu_torch/csrc/mincut.cu",
                       "phylo_hmrf_tpu/ops/mincut_pallas.py:46"),
-    "K7_mf_sweep_halo": ("phylo_hmrf_tpu_torch/csrc/mf.cu",
+    "K7_mf_sweeps_halo": ("phylo_hmrf_tpu_torch/csrc/mf.cu",
                          "phylo_hmrf_tpu/ops/mf_pallas.py:67"),
-    "K8_icm_phase_halo": ("phylo_hmrf_tpu_torch/csrc/icm.cu",
+    "K8_icm_sweep_halo": ("phylo_hmrf_tpu_torch/csrc/icm.cu",
                           "phylo_hmrf_tpu/ops/icm_pallas.py:26"),
 }
 
@@ -302,7 +310,9 @@ def check_kernels(x, beta=1.0):
 
 def launch_counts():
     """K3's and K4's kernel launches in one call (one labeling, the pair,
-    K4) on the chr21, K=30 and 10 kb operands, counted by
+    K4) on the chr21, K=30 and 10 kb operands, and K7's and K8's in one
+    unit on the spatial fit's off-diagonal block (8 sweeps, a sweep) and
+    the 10 kb shards (a sweep, a phase), counted by
     ``torch.profiler`` in a fresh process (this script with
     ``--count-launches``). In this run's process they cannot be: once a
     process has launched many kernels outside a profiler session, a
@@ -328,8 +338,11 @@ def count_launches_main() -> int:
 
     if not torch.cuda.is_available():
         return 1
+    from phylo_hmrf_tpu_torch.parallel.mesh import make_mesh
+
     dev = torch.device("cuda")
-    out = {}
+    # first, while the process is young (the profiler's short sessions)
+    out = {"thin_estep": thin_estep(make_mesh((SHARDS,)), dev)}
     for point, kw in (("chr21", {}), ("k30", dict(K=30)),
                       ("10kb", dict(h0=3264))):
         _, region, means, covs, warm, _ = chr21_problem(0, **kw)
@@ -343,13 +356,42 @@ def count_launches_main() -> int:
                    x["unary_k"], x["mask_i"], x["warm"], other, x["w"],
                    1.0),
                "K4": lambda: finish_stats(*k4, negate=True)}
+        if point == "10kb":
+            fns.update(_halo_units(x, n_sweeps=1, n_phases=1))
         for fn in fns.values():     # the tickets and the allocator warm
             fn()
         out[point] = {name: list(_kernel_launches(fn))
                       for name, fn in fns.items()}
         del x, other
+    _, off, mo, co, wo, _ = offdiag_block()
+    fns = _halo_units(kernel_inputs(off, mo, co, wo, dev), n_sweeps=8,
+                      n_phases=4)
+    for fn in fns.values():
+        fn()
+    out["offdiag"] = {name: list(_kernel_launches(fn))
+                      for name, fn in fns.items()}
     print(json.dumps(out))
     return 0
+
+
+def _halo_units(x, n_sweeps, n_phases, n_shards=4):
+    """One unit of K7 and of K8 over ``n_shards`` shards of ``x`` on one
+    device, as calls: {"K7": fn, "K8": fn}."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_sweep_halo_
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import mf_sweeps_halo
+
+    sh = _halo_shards(x, n_shards)
+    dev = x["q0"].device
+    lab = [t.clone() for t in sh["lab0"]]
+    changed = {dev: torch.zeros((), dtype=torch.int32, device=dev)}
+    return {"K7": lambda: mf_sweeps_halo(
+                sh["q0"], sh["base"], sh["w_ext"], 1.0, 0.5, 1.0,
+                n_sweeps=n_sweeps, sources=sh["local"]),
+            "K8": lambda: icm_sweep_halo_(
+                lab, sh["unary_k"], sh["w_ext"], sh["mask_i"], 1.0, changed,
+                row0=sh["row0"], sources=sh["local"], n_phases=n_phases)}
 
 
 def _kernel_launches(fn):
@@ -730,8 +772,8 @@ def _counters():
             "K4_finish_stats": finish_kernels.finish_stats,
             "K5_pr_iterations": mincut_kernels.pr_iterations,
             "K6_bfs_sweeps": mincut_kernels.bfs_sweeps,
-            "K7_mf_sweep_halo": mf_kernels.mf_sweep_halo,
-            "K8_icm_phase_halo": icm_kernels.icm_phase_halo_}
+            "K7_mf_sweeps_halo": mf_kernels.mf_sweeps_halo,
+            "K8_icm_sweep_halo": icm_kernels.icm_sweep_halo_}
 
 
 def fit_model(tree, regions, cfg, device=None, mesh=None, state=None):
@@ -852,81 +894,173 @@ def _compare_estep(got, want, masks, what):
     return {"regions": per}
 
 
-def _shard_slab(x, lo, hi, halo):
-    """Rows [lo - halo, hi + halo) of the last-but-one axis, contiguous."""
-    return x[..., lo - halo:hi + halo, :].contiguous()
-
-
-def check_halo_kernels(x, n_shards, beta=1.0):
-    """K7 and K8 against their plain versions on shard 1 of ``n_shards``
-    row shards of one region's operands (both neighbours real). Returns
-    {kernel: row}."""
+def _halo_shards(x, n_shards):
+    """One device's row shards of ``x`` (rows split evenly, contiguous):
+    the K7/K8 operands with the weights extended by one exchanged row a
+    side, the start labels, the shards' first global rows and the row
+    sources of one device."""
     import torch
 
-    from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_phase_halo_,
-                                                      icm_phase_halo_plain)
-    from phylo_hmrf_tpu_torch.ops.mf_kernels import (mf_sweep_halo,
-                                                     mf_sweep_halo_plain)
+    from phylo_hmrf_tpu_torch.ops.halo_rows import row_sources
+    from phylo_hmrf_tpu_torch.parallel.halo import extend_rows
 
-    R, K, H, W = x["unary_k"].shape
-    Hl = H // n_shards
-    lo, hi = Hl, 2 * Hl
-    out = {}
-    # K7: one sweep at T=1 on shard 1; K1's gate, rtol 2e-4, atol 1e-6
-    k7 = (_shard_slab(x["q0"], lo, hi, 1), _shard_slab(x["base"], lo, hi, 0),
-          _shard_slab(x["w"], lo, hi, 1), 1.0, 0.5, beta)
-    got, want = mf_sweep_halo(*k7), mf_sweep_halo_plain(*k7)
-    torch.cuda.synchronize()
-    _check(torch.allclose(got, want, rtol=2e-4, atol=1e-6),
-           f"K7 disagrees: max abs err {_max_abs(got, want)}")
-    out["K7_mf_sweep_halo"] = dict(
-        max_abs_err=_max_abs(got, want),
-        **_timed(lambda: mf_sweep_halo(*k7), lambda: mf_sweep_halo_plain(*k7)),
-        unit=f"one sweep of a {Hl}-row shard (+2 halo rows)",
-        launches_per_unit=1,
-        tolerance="rtol 2e-4, atol 1e-6",
-        nbytes=_nbytes(k7[0], k7[1], k7[2], got),
-        ops=OPS_MF * K * Hl * W, shard=[Hl, W])
-
-    # K8: the phase (a, b) = (0, 1) on shard 1, global parity; identical
+    def cut(t):
+        return [c.contiguous() for c in torch.chunk(t, n_shards, dim=-2)]
     lab0 = torch.where(x["mask"], x["warm"], 0).to(torch.int32).contiguous()
-    a_eff = (0 + lo) % 2
-    k8 = (_shard_slab(lab0, lo, hi, 1), _shard_slab(x["unary_k"], lo, hi, 0),
-          _shard_slab(x["w"], lo, hi, 1), _shard_slab(x["mask_i"], lo, hi, 0),
-          beta, a_eff, 1)
-    want = icm_phase_halo_plain(*k8)
-    got = icm_phase_halo_(k8[0].clone(), *k8[1:])
-    _check(torch.equal(got, want),
-           f"K8: {int((got != want).sum())} labels differ")
-    work = k8[0].clone()
-    active = Hl * W // 4     # the phase's pixels
-    out["K8_icm_phase_halo"] = dict(
-        max_abs_err=float((got != want).sum()),
-        **_timed(lambda: icm_phase_halo_(work, *k8[1:]),
-                 lambda: icm_phase_halo_plain(*k8)),
-        unit=f"one phase of a {Hl}-row shard (+2 halo rows)",
-        launches_per_unit=1,
-        tolerance="identical labels",
-        # what one phase must move: every label and weight of the slab
-        # (each pixel is a neighbour), the unary and mask of the phase's
-        # pixels, their labels written
-        nbytes=(_nbytes(k8[0], k8[2]) + active * (4 * K + 4 + 4)),
-        ops=OPS_ICM * K * active, shard=[Hl, W])
-    return out
+    sh = {k: cut(v) for k, v in (("q0", x["q0"]), ("base", x["base"]),
+                                 ("w", x["w"]), ("unary_k", x["unary_k"]),
+                                 ("mask_i", x["mask_i"]), ("lab0", lab0))}
+    heights = [t.shape[-2] for t in sh["q0"]]
+    sh["w_ext"] = extend_rows(sh["w"])
+    sh["row0"] = [sum(heights[:i]) for i in range(n_shards)]
+    sh["local"] = row_sources([x["q0"].device] * n_shards, heights)
+    # every neighbour marked remote: the route between devices, on one card
+    sh["remote"] = row_sources(["a", "b"] * (n_shards // 2)
+                               + ["a"] * (n_shards % 2), heights)
+    return sh
 
 
-def check_split(x, mesh, beta=1.0):
-    """The split identities over the mesh's shards, bitwise: K7 with 1-row
-    halos equals one K1 sweep of the whole grid, K8 with the global parity
-    each phase of the phase kernel, K1's 8 sweeps and K2's sweep pair on
-    8-row halos (the spatial E-step's slabs) those of the whole grid; and
-    K1 on shard 1's slab bitwise the chained kernel for every n_inner."""
+def check_halo_kernels(x, n_shards, n_sweeps, n_phases, beta=1.0):
+    """K7 and K8 over ``n_shards`` row shards of one region's operands on
+    one device (the unit: ``n_sweeps`` sweeps at one temperature; a sweep
+    (``n_phases`` = 4) or one phase). Bitwise the per-shard route they
+    replaced (``*_chained``, timed beside as ``chained_ms``), and the
+    route with every neighbour remote bitwise the same-device route; K7
+    within K1's gate of its plain version (rtol 2e-4, atol 1e-6), K8
+    identical labels and changed count. Returns {kernel: row}."""
     import torch
 
     from phylo_hmrf_tpu_torch.ops.icm_kernels import (
-        icm_phase_, icm_phase_halo_, icm_sweep_pair)
+        icm_sweep_halo_, icm_sweep_halo_chained, icm_sweep_halo_plain)
     from phylo_hmrf_tpu_torch.ops.mf_kernels import (
-        mf_sweep_halo, mf_sweeps, mf_sweeps_chained)
+        mf_halo_rows, mf_sweeps_halo, mf_sweeps_halo_chained,
+        mf_sweeps_halo_plain)
+    from phylo_hmrf_tpu_torch import _build
+
+    sh = _halo_shards(x, n_shards)
+    K = x["q0"].shape[1]
+    W = x["q0"].shape[-1]
+    heights = [t.shape[-2] for t in sh["q0"]]
+    px = sum(heights) * W
+    out = {}
+    k7 = (sh["q0"], sh["base"], sh["w_ext"], 1.0, 0.5, beta)
+    got = mf_sweeps_halo(*k7, n_sweeps=n_sweeps, sources=sh["local"])
+    want = mf_sweeps_halo_chained(*k7, n_sweeps=n_sweeps)
+    _check(all(torch.equal(a, b) for a, b in zip(got, want)),
+           f"K7 ({n_sweeps} sweeps, {heights} rows): not bitwise the "
+           "per-shard route")
+    rem = mf_sweeps_halo(*k7, n_sweeps=n_sweeps, sources=sh["remote"])
+    _check(all(torch.equal(a, b) for a, b in zip(rem, got)),
+           "K7: the remote route differs from the same-device route")
+    plain = mf_sweeps_halo_plain(*k7, n_sweeps)
+    torch.cuda.synchronize()
+    err = max(_max_abs(a, b) for a, b in zip(got, plain))
+    _check(all(torch.allclose(a, b, rtol=2e-4, atol=1e-6)
+               for a, b in zip(got, plain)), f"K7 disagrees: {err}")
+    th = mf_halo_rows(heights)
+    with _build.on_device(x["q0"]):
+        grid7 = _build.load().phmrf_mf_halo_grid(K, th)
+        grid8 = _build.load().phmrf_icm_halo_grid()
+    sweeps = "one temperature's sweeps" if n_sweeps > 1 else "one sweep"
+    out["K7_mf_sweeps_halo"] = dict(
+        max_abs_err=err, bitwise_chained=True, bitwise_remote=True,
+        **_timed(lambda: mf_sweeps_halo(*k7, n_sweeps=n_sweeps,
+                                        sources=sh["local"]),
+                 lambda: mf_sweeps_halo_plain(*k7, n_sweeps),
+                 lambda: mf_sweeps_halo_chained(*k7, n_sweeps=n_sweeps)),
+        unit=f"{n_sweeps} sweep(s) ({sweeps}) of {n_shards} shards of "
+             f"{heights[0]} x {W}, one launch",
+        launches_per_unit=1, tile_rows=th, cooperative_grid=grid7,
+        tolerance="bitwise the per-shard route and the remote route; rtol "
+                  "2e-4, atol 1e-6 against plain",
+        # the bytes once (a launch could keep them on chip across its
+        # sweeps, as K1 does): q and base read, q written, the weights
+        # read, one row a side of q per shard
+        nbytes=(3 * _nbytes(*sh["q0"]) + _nbytes(*sh["w_ext"])
+                + 2 * n_shards * 4 * K * W),
+        ops=n_sweeps * OPS_MF * K * px, shards=[n_shards, heights[0], W])
+
+    # K8: the phases from the start labels, global parity; identical
+    k8 = (sh["unary_k"], sh["w_ext"], sh["mask_i"], beta)
+    kw = dict(row0=sh["row0"], phase0=0, n_phases=n_phases)
+    want, count = icm_sweep_halo_chained(sh["lab0"], *k8, **kw)
+    dev = x["q0"].device
+    runs = {}
+    for tag, src in (("local", sh["local"]), ("remote", sh["remote"])):
+        lab = [t.clone() for t in sh["lab0"]]
+        changed = {dev: torch.zeros((), dtype=torch.int32, device=dev)}
+        icm_sweep_halo_(lab, *k8, changed, sources=src, **kw)
+        runs[tag] = (lab, int(changed[dev]))
+    got, n_changed = runs["local"]
+    _check(all(torch.equal(a, b) for a, b in zip(got, want))
+           and n_changed == int(count),
+           f"K8 ({n_phases} phases): labels or count ({n_changed} vs "
+           f"{int(count)}) differ from the per-shard route")
+    _check(all(torch.equal(a, b) for a, b in zip(runs["remote"][0], got))
+           and runs["remote"][1] == n_changed,
+           "K8: the remote route differs from the same-device route")
+    plain = [t.clone() for t in sh["lab0"]]
+    pc = {dev: torch.zeros((), dtype=torch.int32, device=dev)}
+    icm_sweep_halo_plain(plain, *k8, pc, **kw)
+    _check(all(torch.equal(a, b) for a, b in zip(got, plain))
+           and int(pc[dev]) == n_changed,
+           "K8: labels or count differ from the plain version")
+    work = [t.clone() for t in sh["lab0"]]
+    scratch = {dev: torch.zeros((), dtype=torch.int32, device=dev)}
+    nbytes, active, valid = _k8_nbytes(sh, n_phases, K)
+    out["K8_icm_sweep_halo"] = dict(
+        max_abs_err=0.0, bitwise_chained=True, bitwise_remote=True,
+        changed=n_changed,
+        **_timed(lambda: icm_sweep_halo_(work, *k8, scratch,
+                                         sources=sh["local"], **kw),
+                 lambda: icm_sweep_halo_plain(
+                     [t.clone() for t in sh["lab0"]], *k8, scratch, **kw),
+                 lambda: icm_sweep_halo_chained(sh["lab0"], *k8, **kw)),
+        unit=f"{n_phases} phase(s) of {n_shards} shards of {heights[0]} x "
+             f"{W}, one launch",
+        launches_per_unit=1, cooperative_grid=grid8,
+        tolerance="identical labels and changed count (per-shard route, "
+                  "remote route, plain)",
+        active_pixels=active, valid_active_pixels=valid, nbytes=nbytes,
+        ops=OPS_ICM * K * valid, shards=[n_shards, heights[0], W])
+    return out
+
+
+def _k8_nbytes(sh, n_phases, K):
+    """(bytes, pixels, valid pixels) of K8's unit from phase 0 on the
+    shards ``sh``: what the run's data needs. Every label of the slabs is
+    read once, the mask of the pixels the phases update; each valid one
+    reads its K unary values and its 8 edge weights (an edge weight is read
+    by one pixel of a phase: its own or its neighbour's, never both) and
+    writes its label."""
+    import torch
+
+    px = active = valid = 0
+    for lab, m, r0 in zip(sh["lab0"], sh["mask_i"], sh["row0"]):
+        H, W = lab.shape[-2:]
+        rows = (torch.arange(H, device=lab.device) + r0) % 2
+        cols = torch.arange(W, device=lab.device) % 2
+        sel = (2 * rows[:, None] + cols[None, :]) < n_phases
+        px += H * W
+        active += int(sel.sum())
+        valid += int(((m[0] != 0) & sel).sum())
+    return 4 * px + 4 * active + valid * (4 * K + 32 + 4), active, valid
+
+
+def check_split(x, mesh, beta=1.0):
+    """The split identities over the mesh's shards, bitwise: K7 over the
+    shards equals one K1 sweep of the whole grid, K8 with the global
+    parity each phase of the phase kernel (its changed count that of the
+    labels), K1's 8 sweeps and K2's sweep pair on 8-row halos (the spatial
+    E-step's slabs) those of the whole grid; and K1 on shard 1's slab
+    bitwise the chained kernel for every n_inner."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops.halo_rows import row_sources
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import (
+        icm_phase_, icm_sweep_halo_, icm_sweep_pair)
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import (
+        mf_sweeps, mf_sweeps_chained, mf_sweeps_halo)
     from phylo_hmrf_tpu_torch.parallel.halo import HALO, _center, extend_rows
 
     Hl = x["unary_k"].shape[-2] // mesh.size
@@ -934,27 +1068,28 @@ def check_split(x, mesh, beta=1.0):
 
     def shards(t):
         return [c.contiguous() for c in torch.chunk(t, mesh.size, dim=-2)]
+    src = row_sources(list(mesh.devices), [Hl] * mesh.size)
+    row0 = [i * Hl for i in range(mesh.size)]
+    w_ext = extend_rows(shards(x["w"]))
     full = mf_sweeps(x["q0"], x["base"], x["w"], 1.0, 0.5, beta, n_inner=1)
-    split = torch.cat([mf_sweep_halo(qe, b, we, 1.0, 0.5, beta)
-                       for qe, b, we in zip(extend_rows(shards(x["q0"])),
-                                            shards(x["base"]),
-                                            extend_rows(shards(x["w"])))],
-                      dim=-2)
+    split = torch.cat(mf_sweeps_halo(shards(x["q0"]), shards(x["base"]),
+                                     w_ext, 1.0, 0.5, beta, n_sweeps=1,
+                                     sources=src), dim=-2)
     _check(torch.equal(split, full), "K7 on the shards != one K1 sweep")
     phases_equal = 0
-    for a in (0, 1):
-        for b in (0, 1):
-            full = icm_phase_(lab0.clone(), x["unary_k"], x["w"], x["mask_i"],
-                              beta, a, b)
-            lab_ext = extend_rows(shards(lab0))
-            for i, (le, u, we, m) in enumerate(zip(
-                    lab_ext, shards(x["unary_k"]), extend_rows(shards(x["w"])),
-                    shards(x["mask_i"]))):
-                icm_phase_halo_(le, u, we, m, beta, (a + i * Hl) % 2, b)
-            split = torch.cat([le[:, 1:-1] for le in lab_ext], dim=1)
-            _check(torch.equal(split, full),
-                   f"K8 phase ({a}, {b}) on the shards != the K2 phase")
-            phases_equal += 1
+    dev = lab0.device
+    for phase, (a, b) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        full = icm_phase_(lab0.clone(), x["unary_k"], x["w"], x["mask_i"],
+                          beta, a, b)
+        lab = [t.clone() for t in shards(lab0)]
+        changed = {dev: torch.zeros((), dtype=torch.int32, device=dev)}
+        icm_sweep_halo_(lab, shards(x["unary_k"]), w_ext,
+                        shards(x["mask_i"]), beta, changed, row0=row0,
+                        sources=src, phase0=phase, n_phases=1)
+        _check(torch.equal(torch.cat(lab, dim=1), full)
+               and int(changed[dev]) == int((full != lab0).sum()),
+               f"K8 phase ({a}, {b}) on the shards != the K2 phase")
+        phases_equal += 1
 
     mf = (1.0, 0.5, beta)
     full = mf_sweeps(x["q0"], x["base"], x["w"], *mf, n_inner=8)
@@ -1009,6 +1144,67 @@ def _device_busy_s(fn):
             v[1] += 1
     _check(n > 0 and busy_us > 0, "torch.profiler recorded no device event")
     return busy_us * 1e-6, n, by_name
+
+
+def thin_estep(mesh, device, reps=5, keep=None):
+    """The spatial E-step of the spatial fit's off-diagonal block alone
+    (its 24 rows over the mesh: the K7/K8 branch), from the block's warm
+    labels: the wall of each of ``reps`` E-steps (host clock, ending in a
+    sync), then ``reps`` E-steps in one ``torch.profiler`` session: device
+    busy seconds, kernel launches and host operations (the top-level CPU
+    ops and the CUDA runtime's launch calls) per E-step; the idle share
+    against the median unprofiled wall. Uses only what every tree of the
+    port has, so ``tools/halo_ab.py`` runs it on other commits (and
+    gets the E-step's outputs in the dict ``keep``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from phylo_hmrf_tpu_torch.parallel.halo import make_rowsharded_estep
+
+    _, off, means, covs, warm, _ = offdiag_block()
+    fn = make_rowsharded_estep(mesh, weighted_pp=False, max_sweeps=60)
+
+    def dev(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    args = (dev(off.img), dev(off.mask), dev(off.dmaps),
+            dev(off.labels_to_grid(warm), torch.int32),
+            dev(means, torch.float32), dev(covs, torch.float32), 1.0, 0.5)
+    out = fn(*args)   # warm: the kernels, the allocator, the barrier words
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = fn(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    _check(torch.equal(again[0], out[0]), "thin E-step: labels not repeatable")
+    if keep is not None:
+        keep.update(labels=out[0], post=out[1][0], obs=out[1][1],
+                    obs2=out[1][2], cost_vec=out[2])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    busy_us, kernels, host_ops, launch_calls = 0.0, 0, 0, 0
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            busy_us += e.self_device_time_total
+            kernels += not e.name.startswith(("Memcpy", "Memset"))
+        elif e.name.startswith("cudaLaunch"):
+            launch_calls += 1
+        elif e.name.startswith("aten::") and e.cpu_parent is None:
+            host_ops += 1
+    _check(kernels > 0 and busy_us > 0,
+           "torch.profiler recorded no device event")
+    wall = statistics.median(walls)
+    busy = busy_us * 1e-6 / reps
+    return dict(walls_s=walls, wall_s=wall, device_busy_s=busy,
+                idle_share=max(0.0, 1.0 - busy / wall),
+                kernels_per_estep=kernels / reps,
+                launch_calls_per_estep=launch_calls / reps,
+                host_ops_per_estep=host_ops / reps, shape=list(off.shape),
+                shards=mesh.size)
 
 
 def check_spatial_estep(x, img, dmaps, means, covs, mesh):
@@ -1188,9 +1384,10 @@ def main() -> int:
     entry = None
     for line in _build.build_log.splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "Used" in line and entry:
-            print(f"[ptxas] {entry}: {line.split(':', 1)[1].strip()}")
+            m = re.search(r"entry function\W+(\w+)", line)
+            entry = m.group(1) if m else line.strip()
+        elif ("Used" in line or "spill" in line) and entry:
+            print(f"[ptxas] {entry}: {line.split(':', 1)[-1].strip()}")
 
     tree, region, means, covs, warm, true = chr21_problem(0)
     x = kernel_inputs(region, means, covs, warm, dev)
@@ -1249,19 +1446,22 @@ def main() -> int:
     # the multi-device paths, over SHARDS shards of the visible cards
     mesh = make_mesh((SHARDS,))
     print(f"[mesh] shards -> devices: {mesh.describe()}")
-    # K7/K8 at the shapes the spatial fit gives them: an interior 6-row
-    # shard of its off-diagonal block
+    # K7/K8 at the shapes the spatial fit gives them: the 4 6-row shards
+    # of its off-diagonal block on the card, a temperature's 8 sweeps and
+    # a sweep's 4 phases
     _, off, mo, co, wo, _ = offdiag_block()
     kernels.update(check_halo_kernels(kernel_inputs(off, mo, co, wo, dev),
-                                      SHARDS))
+                                      SHARDS, n_sweeps=8, n_phases=4))
     t0 = time.perf_counter()
     _, r10, m10, c10, w10, _ = chr21_problem(0, h0=3264)
     x10 = kernel_inputs(r10, m10, c10, w10, dev)
     print(f"[10kb] region {r10.shape} samples {r10.n_samples} "
           f"made in {time.perf_counter() - t0:.1f}s")
-    # the same kernels on an 816-row shard of the 10 kb region: a scale
-    # point, no path of this run launches them at that shape
-    for name, k in check_halo_kernels(x10, SHARDS).items():
+    # the same kernels on the 4 816-row shards of the 10 kb region, one
+    # sweep and one phase (the route between devices launches that unit):
+    # a scale point, no path of this run launches them at that shape
+    for name, k in check_halo_kernels(x10, SHARDS, n_sweeps=1,
+                                      n_phases=1).items():
         k = kernels[name]["at_10kb"] = _with_bound(k)
         print(_point_line(f"{name} at 10kb", k))
     # K3 and K4 on the single-device 10 kb E-step's operands: a scale
@@ -1305,19 +1505,30 @@ def main() -> int:
     # one kernel launch a call for K3 (both entries) and K4, by the
     # profiler in a fresh process
     counts = launch_counts()
-    for point, key in (("chr21", None), ("k30", "at_k30"),
-                       ("10kb", "at_10kb")):
+    for point, key, names in (
+            ("chr21", None, ("K3_potts_energy", "K4_finish_stats")),
+            ("k30", "at_k30", ("K3_potts_energy", "K4_finish_stats")),
+            ("10kb", "at_10kb", ("K3_potts_energy", "K4_finish_stats",
+                                 "K7_mf_sweeps_halo", "K8_icm_sweep_halo")),
+            ("offdiag", None, ("K7_mf_sweeps_halo", "K8_icm_sweep_halo"))):
         for name, entries in (("K3_potts_energy", ("K3", "K3_pair")),
-                              ("K4_finish_stats", ("K4",))):
+                              ("K4_finish_stats", ("K4",)),
+                              ("K7_mf_sweeps_halo", ("K7",)),
+                              ("K8_icm_sweep_halo", ("K8",))):
+            if name not in names:
+                continue
             rec = kernels[name] if key is None else kernels[name][key]
             for entry, field in zip(entries, ("launches_per_unit",
                                               "pair_launches_per_call")):
-                n, names = counts[point][entry]
+                n, kernel_names = counts[point][entry]
                 _check(n == 1, f"{entry} at {point}: {n} kernel launches a "
-                               f"call ({names})")
+                               f"call ({kernel_names})")
                 rec[field] = n
-                rec.setdefault("kernel_names", names)
+                rec.setdefault("kernel_names", kernel_names)
+    thin = counts.pop("thin_estep")
+    thin["spatial_fit_estep_s"] = sfit["estep_s"]
     print(f"[launch_counts] {json.dumps(counts)}")
+    print(f"[thin_estep] {json.dumps(thin)}")
     rows = []
     for name, (src, replaces) in KERNELS.items():
         k = kernels[name] = _with_bound(kernels[name])

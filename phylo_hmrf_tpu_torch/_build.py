@@ -125,17 +125,25 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes (every one returns int = cudaError_t)
 _SIGNATURES = {
-    # K7 (halo 1) and K1's chained reference (halo 0): q, base, w, out, R,
-    #     K, H, W, halo, T, damp, one_minus_damp, beta, stream
-    "phmrf_mf_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
-                       _P],
+    # the chained reference of K1 and K7 (one sweep): q, base, w, out, R,
+    #     K, H, W, T, damp, one_minus_damp, beta, stream
+    "phmrf_mf_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
     # K1: q, base, w, out, R, K, H, W, n_inner, T, damp, one_minus_damp,
     #     beta, tile rows, tile cols, halo, threads, stream
     "phmrf_mf_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                        _I, _I, _I, _I, _P],
-    # K8 (halo 1) and K2's chained reference (halo 0): labels, unary, w,
-    #     mask, R, K, H, W, halo, beta, phase_a, phase_b, stream
-    "phmrf_icm_phase": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # the chained reference of K2 and K8 (one phase): labels, unary, w,
+    #     mask, R, K, H, W, beta, phase_a, phase_b, stream
+    "phmrf_icm_phase": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    # K7: shard table (int64 rows), shards, K, W, tile rows, sweeps, T,
+    #     damp, one_minus_damp, beta, barrier word, stream
+    "phmrf_mf_halo": [_P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P],
+    # K8: shard table (int64 rows), shards, K, W, first phase, phases,
+    #     beta, changed counter, barrier word, stream
+    "phmrf_icm_halo": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    # the largest co-resident grids of K7 (K, tile rows) and K8
+    "phmrf_mf_halo_grid": [_I, _I],
+    "phmrf_icm_halo_grid": [],
     # K2: labels, out, unary, w, mask, R, K, H, W, beta, row_parity, tile
     #     rows, tile cols, threads, flag (may be null), tag, stream
     "phmrf_icm_pair": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,

@@ -93,3 +93,59 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 #endif
 }
+
+// Close the group of this thread's copies issued since the last commit;
+// cp_async_wait_prior<1>() waits for all but the newest group.
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_prior() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// ---------------------------------------------------------------------
+// Row shards (K7, K8): the per-device table and the grid barrier.
+//
+// A launch of the row-shard kernels covers every shard its device holds,
+// listed in a by-value table. Each shard names a source for its row above
+// and its row below: the neighbour shard's own array when the neighbour
+// is in the same table (read in place), a one-row buffer copied from
+// another device before the launch, or nothing at the ends of the mesh,
+// which reads as zeros (label 0, q 0; the weights of those edges are 0).
+#define PHMRF_HALO_MAX_SHARDS 16
+
+// Grid-wide barrier of a cooperative launch, the scheme of
+// cooperative_groups' grid.sync(): block 0 adds 2^31 - (blocks - 1), every
+// other block 1, so the top bit of *bar flips once all blocks arrived and
+// the low bits return to 0 (a zeroed word serves every later launch on its
+// stream). The release fence before the add and the acquire load and
+// fence after it make every block's writes before the barrier visible to
+// every block's reads after it (L1 included).
+__device__ __forceinline__ void grid_barrier(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned add =
+        blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned old = atomicAdd(bar, add);
+    unsigned now;
+    do {
+#ifdef __CUDA_ARCH__
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(now)
+                   : "l"(bar)
+                   : "memory");
+#else
+      now = *(volatile unsigned*)bar;
+#endif
+    } while (((old ^ now) & 0x80000000u) == 0);
+    __threadfence();
+  }
+  __syncthreads();
+}

@@ -4,15 +4,15 @@
 // launch, on shared-memory tiles); it replaces phylo_hmrf_tpu/ops/
 // icm_pallas.py::_icm_sweeppair_kernel (entry _icm_sweep_pair_padded,
 // driven by icm_pallas), which runs the phases (a, b) in (0,0), (0,1),
-// (1,0), (1,1) twice on a VMEM slab. icm_phase_kernel, one phase a launch
-// with the labels updated in place, is K8 with halo = 1: it replaces
-// _icm_phase_kernel (entry icm_phase_pallas, halo_extended=True), the
-// phase of a row shard between two one-row label exchanges; with halo = 0
-// eight launches of it are the chained reference K2 is held to
-// (ops/icm_kernels.py::icm_sweep_pair_chained). Pixels of colour
-// (row % 2, col % 2) == (a, b) are never 8-neighbours of each other, so a
-// phase may write its pixels in place: no thread reads a pixel another
-// thread of the phase writes.
+// (1,0), (1,1) twice on a VMEM slab. K8 is icm_halo_kernel at the end of
+// this file (the phases of a sweep over all the row shards a device holds
+// in one launch); it replaces _icm_phase_kernel (entry icm_phase_pallas,
+// halo_extended=True). icm_phase_kernel, one phase of a whole grid a
+// launch with the labels updated in place, is the chained reference: eight
+// launches of it are what K2 is held to (ops/icm_kernels.py::
+// icm_sweep_pair_chained). Pixels of colour (row % 2, col % 2) == (a, b)
+// are never 8-neighbours of each other, so a phase may write its pixels in
+// place: no thread reads a pixel another thread of the phase writes.
 //
 // At every valid pixel of the active colour:
 //   agree_k = sum_d w_d(p) [s(p+d) == k] + w_d(p-d) [s(p-d) == k]
@@ -24,24 +24,13 @@
 //
 // icm_phase_kernel touches a quarter of the pixels, reads K unary values
 // each, one pixel per thread with the K scores in registers.
-//
-// Halo rows: with halo = 1, labels and w are (R, ., H + 2, W) arrays whose
-// first and last rows hold the neighbouring shards' boundary rows (zeros
-// at the ends of the mesh), while unary and mask hold only the H center
-// rows. The threads cover the center colour; labels and w are read, and
-// labels written, at row h + halo of the extended array, whose height
-// bounds the neighbour guard; the halo rows are never written. The colour
-// row parity pa is that of the center row h: a shard passes its global
-// parity, (a + first global row) % 2. K8 moves what one phase of the whole
-// grid moves, plus two rows of labels and w per shard.
 #include "common.cuh"
 
 __global__ void icm_phase_kernel(int* __restrict__ labels,
                                  const float* __restrict__ unary,
                                  const float* __restrict__ w,
                                  const int* __restrict__ mask, int R, int K,
-                                 int H, int W, int halo, float beta, int pa,
-                                 int pb) {
+                                 int H, int W, float beta, int pa, int pb) {
   const int Hc = (H - pa + 1) / 2;   // rows of colour pa
   const int Wc = (W - pb + 1) / 2;   // cols of colour pb
   const long per_r = (long)Hc * Wc;
@@ -54,12 +43,10 @@ __global__ void icm_phase_kernel(int* __restrict__ labels,
   const long HW = (long)H * W;
   const long p = (long)h * W + x;
   if (mask[(long)r * HW + p] == 0) return;
-  const int He = H + 2 * halo;          // rows of labels and w
-  const long HWe = (long)He * W;
 
   Nbrs n;
-  load_nbrs(w + (long)r * 4 * HWe, He, W, h + halo, x, n);
-  int* lab_r = labels + (long)r * HWe;
+  load_nbrs(w + (long)r * 4 * HW, H, W, h, x, n);
+  int* lab_r = labels + (long)r * HW;
   int nb[8];
 #pragma unroll
   for (int s = 0; s < 8; ++s) nb[s] = n.ok[s] ? lab_r[n.off[s]] : -1;
@@ -81,20 +68,20 @@ __global__ void icm_phase_kernel(int* __restrict__ labels,
       }
     }
   }
-  lab_r[p + (long)halo * W] = best;
+  lab_r[p] = best;
 }
 
 extern "C" int phmrf_icm_phase(int* labels, const float* unary,
                                const float* w, const int* mask, int R, int K,
-                               int H, int W, int halo, float beta, int pa,
-                               int pb, void* stream) {
-  if (K < 1 || K > PHMRF_KMAX || (pa & ~1) || (pb & ~1) || (halo & ~1))
+                               int H, int W, float beta, int pa, int pb,
+                               void* stream) {
+  if (K < 1 || K > PHMRF_KMAX || (pa & ~1) || (pb & ~1))
     return (int)cudaErrorInvalidValue;
   const long n = (long)R * ((H - pa + 1) / 2) * ((W - pb + 1) / 2);
   if (n <= 0) return 0;
   const int threads = 256;
   icm_phase_kernel<<<ceil_div(n, threads), threads, 0, (cudaStream_t)stream>>>(
-      labels, unary, w, mask, R, K, H, W, halo, beta, pa, pb);
+      labels, unary, w, mask, R, K, H, W, beta, pa, pb);
   return (int)cudaGetLastError();
 }
 
@@ -370,5 +357,216 @@ extern "C" int phmrf_icm_pair(const int* labels, int* out, const float* unary,
   icm_pair_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       labels, out, unary, w, mask, K, H, W, th, tw, beta, row_parity, flag,
       tag);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// K8: the phases of a checkerboard sweep over every row shard of one
+// device in one launch.
+//
+// Replaces phylo_hmrf_tpu/ops/icm_pallas.py::_icm_phase_kernel (entry
+// icm_phase_pallas, halo_extended=True), which the JAX package runs once
+// per phase and shard between two one-row label exchanges. On the thin
+// shards that reach it a phase is a few thousand pixels: one launch a
+// shard and phase is almost all launch. Here one cooperative launch runs
+// `n_phases` phases from `phase0` (all 4 of a sweep, in the order (0,0),
+// (0,1), (1,0), (1,1)) over the shards of the device's table
+// (IcmHaloTable, by value), with a grid barrier between phases, and the
+// labels updated in place. The rows above and below a shard are read
+// where they lie: in the neighbour's own labels when the neighbour is in
+// the table, in a one-row buffer copied from another device before the
+// launch (then the launch runs one phase), or as label 0 at the ends of
+// the mesh (whose edges carry weight 0). A phase never writes the rows it
+// reads across a shard boundary: they are of the other row colour. The
+// weights are the shard's 1-row-extended (4, H + 2, W) array. A shard's
+// colour row parity is that of its global rows: (a + row0) % 2.
+//
+// One thread per pixel of the active colour, as icm_phase_kernel, with its
+// arithmetic op for op (first index on ties): each phase is bitwise one
+// phase of that kernel on the shard's rows with the exchanged rows around
+// them. Each launch adds the number of labels it changed to `*changed`:
+// per warp a ballot count, one integer atomicAdd a warp at the end (the
+// same sum in any order). Bound: the launch, the barriers and the latency
+// of a phase on thin shards; the bytes of one phase are those of the
+// phase kernel's, plus two rows of labels a shard.
+// ---------------------------------------------------------------------
+
+#define ICM_HALO_THREADS 256
+#define ICM_HALO_COLS 10   // int64 columns of a shard row of the host table
+
+struct IcmHaloShard {
+  int* lab;            // (H, W), updated in place
+  const float* unary;  // (K, H, W)
+  const int* mask;     // (H, W)
+  const float* w;      // (4, H + 2, W)
+  const int* row[2];   // rows above / below from another device, (W,)
+  int nb[2];           // table index of the neighbour above / below, or -1
+  int H;               // rows
+  int row0;            // parity of the shard's first global row
+};
+
+struct IcmHaloTable {
+  IcmHaloShard s[PHMRF_HALO_MAX_SHARDS];
+  int n;
+};
+
+// the label at shard row hh in [-1, H] and column x of shard i
+__device__ __forceinline__ int icm_halo_label(const IcmHaloTable& tab, int i,
+                                              int hh, int x, int W) {
+  const int H = tab.s[i].H;
+  if (hh >= 0 && hh < H) return tab.s[i].lab[(long)hh * W + x];
+  const int side = hh < 0 ? 0 : 1;
+  const int j = tab.s[i].nb[side];
+  if (j >= 0)
+    return tab.s[j].lab[side == 0 ? (long)(tab.s[j].H - 1) * W + x : x];
+  const int* row = tab.s[i].row[side];
+  return row != nullptr ? row[x] : 0;
+}
+
+// update of the idx-th active pixel of phase (a, b) over the table's
+// shards in order; true when its label changed
+__device__ __forceinline__ bool icm_halo_update(const IcmHaloTable& tab,
+                                                long idx, int K, int W,
+                                                int a, int b, int Wc,
+                                                float beta) {
+  int i = 0, pa = 0;
+  long c = idx;
+  for (; i < tab.n; ++i) {
+    pa = (a + tab.s[i].row0) & 1;
+    const long n_i = (long)((tab.s[i].H - pa + 1) / 2) * Wc;
+    if (c < n_i) break;
+    c -= n_i;
+  }
+  const int H = tab.s[i].H;
+  const int h = 2 * (int)(c / Wc) + pa;
+  const int x = 2 * (int)(c % Wc) + b;
+  const long HW = (long)H * W, HWe = (long)(H + 2) * W;
+  const long p = (long)h * W + x;
+  if (__ldg(tab.s[i].mask + p) == 0) return false;
+  const float* w = tab.s[i].w + (long)(h + 1) * W + x;   // extended row
+  int nb[8];
+  float wt[8];
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const int dr = dir_dr(d), dc = dir_dc(d);
+    const bool fok = x + dc >= 0 && x + dc < W;
+    const bool bok = x - dc >= 0 && x - dc < W;
+    wt[2 * d] = __ldg(w + d * HWe);
+    nb[2 * d] = fok ? icm_halo_label(tab, i, h + dr, x + dc, W) : -1;
+    wt[2 * d + 1] = bok ? __ldg(w + d * HWe - (long)dr * W - dc) : 0.0f;
+    nb[2 * d + 1] = bok ? icm_halo_label(tab, i, h - dr, x - dc, W) : -1;
+  }
+  const float* u = tab.s[i].unary + p;
+  int best = 0;
+  float best_score = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    float agree = 0.0f;
+#pragma unroll
+    for (int s = 0; s < 8; ++s)
+      agree = __fadd_rn(agree, nb[s] == k ? wt[s] : 0.0f);
+    const float score = __fsub_rn(__ldg(u + k * HW), __fmul_rn(beta, agree));
+    if (k == 0 || score < best_score) {
+      best = k;
+      best_score = score;
+    }
+  }
+  int* lab = tab.s[i].lab + p;
+  if (*lab == best) return false;
+  *lab = best;
+  return true;
+}
+
+// the active pixels of phase (a, b) over the table's shards
+__device__ __forceinline__ long icm_halo_active(const IcmHaloTable& tab,
+                                                int a, int Wc) {
+  long total = 0;
+  for (int i = 0; i < tab.n; ++i)
+    total += (long)((tab.s[i].H - ((a + tab.s[i].row0) & 1) + 1) / 2) * Wc;
+  return total;
+}
+
+__global__ void __launch_bounds__(ICM_HALO_THREADS)
+icm_halo_kernel(const IcmHaloTable tab, int K, int W, int phase0,
+                int n_phases, float beta, int* changed, unsigned* bar) {
+  unsigned count = 0;   // labels this warp changed, in every lane
+  for (int ph = 0; ph < n_phases; ++ph) {
+    if (ph > 0) grid_barrier(bar);   // phase ph reads what ph - 1 wrote
+    const int a = (phase0 + ph) >> 1, b = (phase0 + ph) & 1;
+    const int Wc = (W - b + 1) / 2;
+    const long total = icm_halo_active(tab, a, Wc);
+    // warp-aligned starts: every lane of a warp runs the same iterations
+    for (long base = (long)blockIdx.x * blockDim.x; base < total;
+         base += (long)gridDim.x * blockDim.x) {
+      const long idx = base + threadIdx.x;
+      const bool ch =
+          idx < total && icm_halo_update(tab, idx, K, W, a, b, Wc, beta);
+      count += __popc(__ballot_sync(0xffffffffu, ch));
+    }
+  }
+  if ((threadIdx.x & 31) == 0 && count != 0) atomicAdd(changed, (int)count);
+}
+
+// Blocks of the largest co-resident grid of K8 on the current device
+// (blocks an SM x SMs); a negative CUDA error on failure.
+extern "C" int phmrf_icm_halo_grid() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, icm_halo_kernel, ICM_HALO_THREADS, 0);
+  if (e != cudaSuccess) return -(int)e;
+  return per_sm * sms;
+}
+
+// Phases phase0 .. phase0 + n_phases - 1 (of (0,0), (0,1), (1,0), (1,1))
+// of the n shards of `shards` (ICM_HALO_COLS int64 a shard: labels, unary,
+// mask, w, row above, row below, neighbour above, neighbour below, H, first
+// global row; all on the current device) in one cooperative launch; adds
+// the labels changed to *changed; `bar` a zeroed word of this stream. An
+// error when the table or the grid cannot be taken.
+extern "C" int phmrf_icm_halo(const long long* shards, int n, int K, int W,
+                              int phase0, int n_phases, float beta,
+                              int* changed, unsigned* bar, void* stream) {
+  if (n < 1 || n > PHMRF_HALO_MAX_SHARDS || K < 1 || K > PHMRF_KMAX ||
+      W < 1 || phase0 < 0 || n_phases < 1 || phase0 + n_phases > 4)
+    return (int)cudaErrorInvalidValue;
+  IcmHaloTable tab;
+  tab.n = n;
+  long most = 0;   // active pixels of the largest phase
+  for (int i = 0; i < n; ++i) {
+    const long long* r = shards + (long)i * ICM_HALO_COLS;
+    IcmHaloShard& sh = tab.s[i];
+    sh.lab = (int*)r[0];
+    sh.unary = (const float*)r[1];
+    sh.mask = (const int*)r[2];
+    sh.w = (const float*)r[3];
+    sh.row[0] = (const int*)r[4];
+    sh.row[1] = (const int*)r[5];
+    sh.nb[0] = (int)r[6];
+    sh.nb[1] = (int)r[7];
+    sh.H = (int)r[8];
+    sh.row0 = (int)(r[9] & 1);
+    if (sh.H < 1 || sh.nb[0] >= n || sh.nb[1] >= n)
+      return (int)cudaErrorInvalidValue;
+  }
+  for (int ph = phase0; ph < phase0 + n_phases; ++ph) {
+    long total = 0;
+    for (int i = 0; i < n; ++i)
+      total += (long)((tab.s[i].H - (((ph >> 1) + tab.s[i].row0) & 1) + 1) /
+                      2) * ((W - (ph & 1) + 1) / 2);
+    most = total > most ? total : most;
+  }
+  const int grid_max = phmrf_icm_halo_grid();
+  if (grid_max < 0) return -grid_max;
+  if (grid_max == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const long want = (most + ICM_HALO_THREADS - 1) / ICM_HALO_THREADS;
+  const int grid = (int)(want < grid_max ? (want > 0 ? want : 1) : grid_max);
+  void* args[] = {&tab, &K, &W, &phase0, &n_phases, &beta, &changed, &bar};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)icm_halo_kernel, dim3(grid), dim3(ICM_HALO_THREADS), args,
+      0, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -2,41 +2,30 @@
 //
 // K1 is mf_tile_kernel below (up to 8 sweeps a launch on shared-memory
 // tiles); it replaces phylo_hmrf_tpu/ops/mf_pallas.py::
-// _mf_multisweep_kernel (entry mf_sweeps_pallas). mf_sweep_kernel, one
-// sweep a launch, is K7 with halo = 1: it replaces _mf_sweep_kernel (entry
-// mf_sweep_pallas, halo_extended=True), the sweep of a row shard between
-// two one-row halo exchanges; with halo = 0 it is the chained reference K1
-// is held to bitwise (ops/mf_kernels.py::mf_sweeps_chained). Per pixel p
-// and state k:
+// _mf_multisweep_kernel (entry mf_sweeps_pallas). K7 is mf_halo_kernel at
+// the end of this file (the sweeps of all the row shards a device holds in
+// one launch); it replaces _mf_sweep_kernel (entry mf_sweep_pallas,
+// halo_extended=True). mf_sweep_kernel, one sweep of a whole grid a
+// launch, is the chained reference both are held to bitwise
+// (ops/mf_kernels.py::mf_sweeps_chained). Per pixel p and state k:
 //   agree_k = sum_d w_d(p) q_k(p+d) + w_d(p-d) q_k(p-d)   (DIRS order,
 //             forward then backward term of each direction)
 //   field_k = base_k - beta * agree_k     (base = unary + beta * wsum)
 //   q'_k    = damp * q_k + (1 - damp) * softmax_k(-field / T)
 // with the softmax taken after subtracting the max (T goes down to 0.25).
 //
-// mf_sweep_kernel is bound by memory: each sweep reads q and base (K
-// floats each) and the four weights, and writes K floats, ~12 bytes per
-// state and pixel against a few dozen flops; the eight-neighbour re-reads
-// of q are left to L1/L2 (neighbouring threads read neighbouring
-// addresses). It reads `q` and writes `out`, never in place. One thread per
-// pixel keeps the K field values in registers (K <= PHMRF_KMAX, unrolled
-// and predicated on the runtime K).
-//
-// Halo rows: with halo = 1, q and w are (R, ., H + 2, W) arrays whose first
-// and last rows hold the neighbouring shards' boundary rows (zeros at the
-// ends of the mesh), while base and out hold only the H center rows. The
-// threads cover the center; q and w are read at row h + halo of the
-// extended array, whose height bounds the neighbour guard. K7 moves the
-// same bytes per pixel as one sweep of the whole grid, plus two rows of q
-// and w per shard.
+// mf_sweep_kernel reads `q` and writes `out`, never in place, one thread
+// per pixel with the K field values in registers (K <= PHMRF_KMAX,
+// unrolled and predicated on the runtime K); the eight-neighbour re-reads
+// of q are left to L1/L2.
 #include "common.cuh"
 
 __global__ void mf_sweep_kernel(const float* __restrict__ q,
                                 const float* __restrict__ base,
                                 const float* __restrict__ w,
                                 float* __restrict__ out, int R, int K, int H,
-                                int W, int halo, float T, float damp,
-                                float omd, float beta) {
+                                int W, float T, float damp, float omd,
+                                float beta) {
   const long HW = (long)H * W;
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long)R * HW) return;
@@ -44,13 +33,10 @@ __global__ void mf_sweep_kernel(const float* __restrict__ q,
   const long p = idx - (long)r * HW;
   const int h = (int)(p / W);
   const int x = (int)(p - (long)h * W);
-  const int He = H + 2 * halo;          // rows of q and w
-  const long HWe = (long)He * W;
-  const long pe = p + (long)halo * W;   // p in the extended plane
 
   Nbrs n;
-  load_nbrs(w + (long)r * 4 * HWe, He, W, h + halo, x, n);
-  const float* q_r = q + (long)r * K * HWe;
+  load_nbrs(w + (long)r * 4 * HW, H, W, h, x, n);
+  const float* q_r = q + (long)r * K * HW;
   const float* b_r = base + (long)r * K * HW;
   float* o_r = out + (long)r * K * HW;
 
@@ -59,7 +45,7 @@ __global__ void mf_sweep_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int k = 0; k < PHMRF_KMAX; ++k) {
     if (k < K) {
-      const float* qk = q_r + (long)k * HWe;
+      const float* qk = q_r + (long)k * HW;
       float agree = 0.0f;
 #pragma unroll
       for (int s = 0; s < 8; ++s)
@@ -81,7 +67,7 @@ __global__ void mf_sweep_kernel(const float* __restrict__ q,
   for (int k = 0; k < PHMRF_KMAX; ++k) {
     if (k < K) {
       o_r[(long)k * HW + p] = __fadd_rn(
-          __fmul_rn(damp, q_r[(long)k * HWe + pe]),
+          __fmul_rn(damp, q_r[(long)k * HW + p]),
           __fmul_rn(omd, __fdiv_rn(z[k], sum)));
     }
   }
@@ -89,14 +75,14 @@ __global__ void mf_sweep_kernel(const float* __restrict__ q,
 
 extern "C" int phmrf_mf_sweep(const float* q, const float* base,
                               const float* w, float* out, int R, int K, int H,
-                              int W, int halo, float T, float damp, float omd,
+                              int W, float T, float damp, float omd,
                               float beta, void* stream) {
-  if (K < 1 || K > PHMRF_KMAX || (halo & ~1)) return (int)cudaErrorInvalidValue;
+  if (K < 1 || K > PHMRF_KMAX) return (int)cudaErrorInvalidValue;
   const long n = (long)R * H * W;
   if (n == 0) return 0;
   const int threads = 256;
   mf_sweep_kernel<<<ceil_div(n, threads), threads, 0, (cudaStream_t)stream>>>(
-      q, base, w, out, R, K, H, W, halo, T, damp, omd, beta);
+      q, base, w, out, R, K, H, W, T, damp, omd, beta);
   return (int)cudaGetLastError();
 }
 
@@ -306,4 +292,279 @@ extern "C" int phmrf_mf_tiles(const float* q, const float* base,
                              th, tw, halo, n_inner, T, damp, omd, beta);
   return mf_tile_launch<2>(grid, threads, smem, st, q, base, w, out, K, H, W,
                            th, tw, halo, n_inner, T, damp, omd, beta);
+}
+
+// ---------------------------------------------------------------------
+// K7: the sweeps of every row shard of one device in one launch.
+//
+// Replaces phylo_hmrf_tpu/ops/mf_pallas.py::_mf_sweep_kernel (entry
+// mf_sweep_pallas, halo_extended=True), which the JAX package runs once per
+// sweep and shard between two one-row halo exchanges. A shard's rows are
+// thin (the spatial fit's off-diagonal blocks give 6-row shards), so one
+// launch a shard and sweep is almost all launch; here one cooperative
+// launch runs `n_sweeps` sweeps over all the shards of the device's table
+// (MfHaloTable, by value), with a grid barrier between sweeps. The rows
+// above and below a shard are read where they lie: in the neighbour's own
+// array when the neighbour is in the table (its q of the same sweep), in a
+// one-row buffer copied from another device before the launch (then the
+// launch runs one sweep), or as zeros at the ends of the mesh. q ping-pongs
+// between two buffers a shard: sweep s writes buf[s & 1] and reads the
+// input (s = 0) or buf[(s - 1) & 1]; the input is never written. The
+// weights are the shard's 1-row-extended (4, H + 2, W) array, fixed for
+// the E-step.
+//
+// Bound: memory once a shard is thick (each sweep reads q and base, K
+// floats each, and the 4 weights, and writes K floats); on thin shards the
+// barrier and the latency of a sweep. A block takes 30-column tiles of TH
+// <= 8 rows of one shard, one pixel a thread, one warp a tile row: the q
+// rows h - 1 .. h + TH of all K planes, 32 columns (one a lane, with the
+// column on each side), go to shared memory by zero-filling cp.async
+// copies (a row source is resolved once a warp and row), double-buffered
+// so the next tile's rows load while this one computes; the eight
+// neighbours then come from shared memory, and base and the weights from
+// device memory once a pixel. Each thread's K field values (then their
+// exponentials) pass through its own column of shared memory, so the
+// loops over the states run K times (held in registers, they need loops
+// unrolled to PHMRF_KMAX and predicated on K; PERF.md). The arithmetic
+// is mf_sweep_kernel's, op for op (the same round-to-nearest intrinsics
+// in DIRS order, forward term then backward term, __fdiv_rn by T, expf
+// after the max): each sweep is bitwise one sweep of that kernel
+// on the shard's rows with the exchanged rows around them. A neighbour
+// outside the columns is skipped as there; the zero rows at the mesh ends
+// add w * 0 as the zero-filled halo rows of the per-shard route did.
+// ---------------------------------------------------------------------
+
+#define MF_HALO_TW 30     // interior columns of a tile
+#define MF_HALO_LW 32     // loaded columns: one a lane
+#define MF_HALO_MAX_TH 8  // rows of a tile: one warp each
+#define MF_HALO_COLS 10   // int64 columns of a shard row of the host table
+
+struct MfHaloShard {
+  const float* src;     // q of the first sweep, (K, H, W), never written
+  float* buf[2];        // sweep s writes buf[s & 1]
+  const float* base;    // (K, H, W)
+  const float* w;       // (4, H + 2, W)
+  const float* row[2];  // rows above / below from another device, (K, 1, W)
+  int nb[2];            // table index of the neighbour above / below, or -1
+  int H;                // rows
+  int tile0;            // first tile of the shard in the launch's order
+};
+
+struct MfHaloTable {
+  MfHaloShard s[PHMRF_HALO_MAX_SHARDS];
+  int n, tiles, tiles_x;
+};
+
+__device__ __forceinline__ const float* mf_halo_read(const MfHaloTable& tab,
+                                                     int i, int s) {
+  return s == 0 ? tab.s[i].src : tab.s[i].buf[(s - 1) & 1];
+}
+
+// the shard and its first row and column of tile t
+__device__ __forceinline__ int mf_halo_tile(const MfHaloTable& tab, int t,
+                                            int TH, int& y0, int& x0) {
+  int i = 0;
+  while (i + 1 < tab.n && t >= tab.s[i + 1].tile0) ++i;
+  const int local = t - tab.s[i].tile0;
+  y0 = (local / tab.tiles_x) * TH;
+  x0 = (local % tab.tiles_x) * MF_HALO_TW;
+  return i;
+}
+
+// cp.async copies of tile t's rows y0 - 1 .. y0 + TH, columns x0 - 1 ..
+// x0 + 30, all K planes, into dst (K planes of (TH + 2) x 32)
+__device__ __forceinline__ void mf_halo_load(const MfHaloTable& tab, int s,
+                                             int t, int K, int W, int TH,
+                                             float* dst) {
+  int y0, x0;
+  const int i = mf_halo_tile(tab, t, TH, y0, x0);
+  const int H = tab.s[i].H;
+  const int lane = threadIdx.x & 31;
+  const int NPX = (TH + 2) * MF_HALO_LW;
+  const int x = x0 + lane - 1;
+  const bool xin = x >= 0 && x < W;
+  for (int ly = threadIdx.x >> 5; ly < TH + 2; ly += blockDim.x >> 5) {
+    const int h = y0 + ly - 1;
+    const float* row = nullptr;
+    long stride = 0;
+    if (h >= 0 && h < H) {
+      row = mf_halo_read(tab, i, s) + (long)h * W;
+      stride = (long)H * W;
+    } else if (h == -1 || h == H) {
+      const int side = h < 0 ? 0 : 1;
+      const int j = tab.s[i].nb[side];
+      if (j >= 0) {
+        const int Hj = tab.s[j].H;
+        row = mf_halo_read(tab, j, s) + (side == 0 ? (long)(Hj - 1) * W : 0);
+        stride = (long)Hj * W;
+      } else if (tab.s[i].row[side] != nullptr) {
+        row = tab.s[i].row[side];
+        stride = W;
+      }
+    }
+    const bool ok = row != nullptr && xin;
+    const float* src = ok ? row + x : tab.s[i].base;   // valid either way
+    float* d = dst + ly * MF_HALO_LW + lane;
+    for (int k = 0; k < K; ++k)
+      cp_async_f32(d + k * NPX, src + (ok ? k * stride : 0), ok);
+  }
+}
+
+// one sweep of tile t's pixel of this thread (tile row threadIdx.x / 32,
+// column lane) from the staged q planes; its K field values pass through
+// its own column of zbuf (K floats, stride blockDim.x)
+__device__ __forceinline__ void mf_halo_update(const MfHaloTable& tab, int s,
+                                               int t, int K, int W, int TH,
+                                               const float* stage,
+                                               float* zbuf, float T,
+                                               float damp, float omd,
+                                               float beta) {
+  int y0, x0;
+  const int i = mf_halo_tile(tab, t, TH, y0, x0);
+  const int H = tab.s[i].H;
+  const int lane = threadIdx.x & 31, ly = threadIdx.x >> 5;
+  const int h = y0 + ly, x = x0 + lane;
+  if (lane >= MF_HALO_TW || h >= H || x >= W) return;
+  const int NPX = (TH + 2) * MF_HALO_LW, NT = blockDim.x;
+  const int c = (ly + 1) * MF_HALO_LW + lane + 1;   // the pixel in a plane
+  const long HW = (long)H * W, HWe = (long)(H + 2) * W;
+  const long p = (long)h * W + x;
+  const float* w = tab.s[i].w + (long)(h + 1) * W + x;   // extended row
+  float wt[8];
+  int off[8];
+  bool ok[8];
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const int dr = dir_dr(d), dc = dir_dc(d);
+    ok[2 * d] = x + dc >= 0 && x + dc < W;
+    off[2 * d] = dr * MF_HALO_LW + dc;
+    wt[2 * d] = __ldg(w + d * HWe);
+    ok[2 * d + 1] = x - dc >= 0 && x - dc < W;
+    off[2 * d + 1] = -(dr * MF_HALO_LW + dc);
+    wt[2 * d + 1] =
+        ok[2 * d + 1] ? __ldg(w + d * HWe - (long)dr * W - dc) : 0.0f;
+  }
+  const float* b = tab.s[i].base + p;
+  float* o = tab.s[i].buf[s & 1] + p;
+  float* z = zbuf + threadIdx.x;
+
+  float zmax = -INFINITY;
+  for (int k = 0; k < K; ++k) {
+    const float* sk = stage + k * NPX + c;
+    float agree = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (ok[j]) agree = __fadd_rn(agree, __fmul_rn(wt[j], sk[off[j]]));
+    const float field = __fsub_rn(__ldg(b + k * HW), __fmul_rn(beta, agree));
+    const float zk = __fdiv_rn(-field, T);
+    z[k * NT] = zk;
+    zmax = fmaxf(zmax, zk);
+  }
+  float sum = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    const float e = expf(__fsub_rn(z[k * NT], zmax));
+    z[k * NT] = e;
+    sum = __fadd_rn(sum, e);
+  }
+  for (int k = 0; k < K; ++k)
+    o[k * HW] = __fadd_rn(__fmul_rn(damp, stage[k * NPX + c]),
+                          __fmul_rn(omd, __fdiv_rn(z[k * NT], sum)));
+}
+
+// 5 blocks an SM (<= 48 registers): 6.6% faster than 4 at 10 kb (PERF.md)
+__global__ void __launch_bounds__(MF_HALO_LW * MF_HALO_MAX_TH, 5)
+mf_halo_kernel(const MfHaloTable tab, int K, int W, int TH, int n_sweeps,
+               float T, float damp, float omd, float beta, unsigned* bar) {
+  extern __shared__ float smem[];
+  const int plane_set = K * (TH + 2) * MF_HALO_LW;   // one stage
+  float* zbuf = smem + 2 * plane_set;
+  for (int s = 0; s < n_sweeps; ++s) {
+    if (s > 0) grid_barrier(bar);   // sweep s reads what s - 1 wrote
+    int t = blockIdx.x, cur = 0;
+    if (t < tab.tiles) mf_halo_load(tab, s, t, K, W, TH, smem);
+    cp_async_commit();
+    for (; t < tab.tiles; t += gridDim.x) {
+      const int next = t + gridDim.x;
+      if (next < tab.tiles)
+        mf_halo_load(tab, s, next, K, W, TH, smem + (cur ^ 1) * plane_set);
+      cp_async_commit();
+      cp_async_wait_prior<1>();   // tile t's copies landed
+      __syncthreads();
+      mf_halo_update(tab, s, t, K, W, TH, smem + cur * plane_set, zbuf, T,
+                     damp, omd, beta);
+      __syncthreads();   // the stage is free for the tile after next
+      cur ^= 1;
+    }
+  }
+}
+
+// two stages of K planes of (TH + 2) x 32, and K field values a thread
+static size_t mf_halo_smem(int K, int TH) {
+  return sizeof(float) * (size_t)K * MF_HALO_LW * (2 * (TH + 2) + TH);
+}
+
+// Blocks of the largest co-resident grid of K7 at (K, TH) on the current
+// device (blocks an SM x SMs); a negative CUDA error on failure.
+extern "C" int phmrf_mf_halo_grid(int K, int TH) {
+  if (K < 1 || K > PHMRF_KMAX || TH < 1 || TH > MF_HALO_MAX_TH)
+    return -(int)cudaErrorInvalidValue;
+  const size_t smem = mf_halo_smem(K, TH);
+  cudaError_t e = cudaFuncSetAttribute(
+      mf_halo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mf_halo_kernel, MF_HALO_LW * TH, smem);
+  if (e != cudaSuccess) return -(int)e;
+  return per_sm * sms;
+}
+
+// n_sweeps sweeps of the n shards of `shards` (MF_HALO_COLS int64 a shard:
+// src, buf0, buf1, base, w, row above, row below, neighbour above,
+// neighbour below, H; all on the current device) in one cooperative launch
+// of TH-row tiles; `bar` a zeroed word of this stream. An error when the
+// table or the grid cannot be taken.
+extern "C" int phmrf_mf_halo(const long long* shards, int n, int K, int W,
+                             int TH, int n_sweeps, float T, float damp,
+                             float omd, float beta, unsigned* bar,
+                             void* stream) {
+  if (n < 1 || n > PHMRF_HALO_MAX_SHARDS || K < 1 || K > PHMRF_KMAX ||
+      W < 1 || TH < 1 || TH > MF_HALO_MAX_TH || n_sweeps < 1)
+    return (int)cudaErrorInvalidValue;
+  MfHaloTable tab;
+  tab.n = n;
+  tab.tiles_x = ceil_div(W, MF_HALO_TW);
+  tab.tiles = 0;
+  for (int i = 0; i < n; ++i) {
+    const long long* r = shards + (long)i * MF_HALO_COLS;
+    MfHaloShard& sh = tab.s[i];
+    sh.src = (const float*)r[0];
+    sh.buf[0] = (float*)r[1];
+    sh.buf[1] = (float*)r[2];
+    sh.base = (const float*)r[3];
+    sh.w = (const float*)r[4];
+    sh.row[0] = (const float*)r[5];
+    sh.row[1] = (const float*)r[6];
+    sh.nb[0] = (int)r[7];
+    sh.nb[1] = (int)r[8];
+    sh.H = (int)r[9];
+    if (sh.H < 1 || sh.nb[0] >= n || sh.nb[1] >= n)
+      return (int)cudaErrorInvalidValue;
+    sh.tile0 = tab.tiles;
+    tab.tiles += ceil_div(sh.H, TH) * tab.tiles_x;
+  }
+  const int grid_max = phmrf_mf_halo_grid(K, TH);
+  if (grid_max < 0) return -grid_max;
+  if (grid_max == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int grid = grid_max < tab.tiles ? grid_max : tab.tiles;
+  void* args[] = {&tab, &K, &W, &TH, &n_sweeps, &T, &damp, &omd, &beta,
+                  &bar};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)mf_halo_kernel, dim3(grid), dim3(MF_HALO_LW * TH), args,
+      mf_halo_smem(K, TH), (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }

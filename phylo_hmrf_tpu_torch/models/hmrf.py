@@ -14,7 +14,7 @@ iteration:
   ``shard_mode="region"`` (the default) deals each bucket's regions over
   the shards (``parallel/sharding.py``) and ``shard_mode="spatial"`` splits
   each region's rows over them with halo exchange (``parallel/halo.py``,
-  kernels K1/K2 on deep halos, K7/K8 per sweep or phase).
+  kernels K1/K2 on deep halos, K7/K8 over all the shards of a device).
 * M-step (`mstep`): one batched boxed L-BFGS solve of the OU parameters of
   all K states on the device, the validity check and the OU moments, with
   the reference's retry ladder and the fallback to the init params.

@@ -3,12 +3,13 @@
 Counterpart of ``phylo_hmrf_tpu/ops/icm_pallas.py``: ``icm_sweep_pair``
 (K2, the tile kernel of ``csrc/icm.cu``: the eight phases of a sweep pair
 in one launch, planned by ``icm_tile_plan``) replaces
-``_icm_sweep_pair_padded``, ``icm_phase_halo_`` (K8, the phase kernel of
-``csrc/icm.cu`` with a 1-row halo) replaces
-``icm_phase_pallas(halo_extended=True)``, and ``icm_kmajor`` is the
-``icm_pallas`` loop. ``icm_phase_`` (the phase kernel with no halo rows)
-and ``icm_sweep_pair_chained`` (eight of it) are the reference K2 is held
-to on the card. Layout: labels, mask (R, H, W) int32; unary_k
+``_icm_sweep_pair_padded``, ``icm_sweep_halo_`` (K8: the phases of a sweep
+over all the row shards of a device in one launch, ``ops/halo_rows.py``)
+replaces ``icm_phase_pallas(halo_extended=True)``, and ``icm_kmajor`` is
+the ``icm_pallas`` loop. ``icm_phase_`` (the phase kernel) and
+``icm_sweep_pair_chained`` (eight of it) are the reference K2 is held to
+on the card, ``icm_sweep_halo_chained`` (it per phase and shard on the
+exchanged slabs) that of K8. Layout: labels, mask (R, H, W) int32; unary_k
 (R, K, H, W) and wmaps (R, 4, H, W) float32.
 
 On a CPU tensor the wrappers run their plain versions; on a CUDA tensor
@@ -20,13 +21,18 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch import _build
+from phylo_hmrf_tpu_torch.ops.halo_rows import (
+    barrier_for, device_groups, extend_rows, fill_remote_rows, is_chained,
+    neighbour_columns, remote_row_buffers, table)
 from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2
 
-# two sweeps of the four colours, in the TPU kernel's order
-_PAIR_PHASES = ((0, 0), (0, 1), (1, 0), (1, 1)) * 2
+# the four colours of a sweep; two sweeps, in the TPU kernel's order
+_SWEEP_PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))
+_PAIR_PHASES = _SWEEP_PHASES * 2
 ICM_HALO = 8     # K2's border: 8 phases of radius 1
 
 
@@ -88,8 +94,9 @@ def icm_phase_plain(labels, unary_k, wmaps, mask_i, beta, a: int, b: int):
 
 def icm_phase_halo_plain(lab_ext, unary_k, w_ext, mask_i, beta, a: int,
                          b: int):
-    """Plain version of K8: lab_ext (R, H+2, W) after one phase of its
-    center rows (a new tensor; the halo rows are copied unchanged)."""
+    """One phase of a row shard (the step of K8's plain version): lab_ext
+    (R, H+2, W) after one phase of its center rows (a new tensor; the
+    halo rows are copied unchanged)."""
     R, K, H, W = unary_k.shape
     center = slice(1, H + 1)
     best = _best_plain(lab_ext, unary_k, w_ext, beta, center)
@@ -116,7 +123,7 @@ def icm_phase_(labels, unary_k, wmaps, mask_i, beta, a: int, b: int):
     with _build.on_device(labels):
         _build.check(lib.phmrf_icm_phase(
             labels.data_ptr(), unary_k.data_ptr(), wmaps.data_ptr(),
-            mask_i.data_ptr(), R, K, H, W, 0, float(beta), int(a), int(b),
+            mask_i.data_ptr(), R, K, H, W, float(beta), int(a), int(b),
             _build.stream_of(labels)), "K2 icm_phase")
     icm_phase_.launches += 1
     return labels
@@ -125,33 +132,118 @@ def icm_phase_(labels, unary_k, wmaps, mask_i, beta, a: int, b: int):
 icm_phase_.launches = 0
 
 
-def icm_phase_halo_(lab_ext, unary_k, w_ext, mask_i, beta, a: int, b: int):
-    """One checkerboard phase of a row shard (K8), updating the center
-    rows of ``lab_ext`` (R, H+2, W) in place; its first and last rows and
-    those of w_ext (R, 4, H+2, W) hold the neighbouring shards' boundary
-    rows (zeros at the mesh ends). unary_k (R, K, H, W) and mask_i
-    (R, H, W) cover the center; ``a`` is the colour's row parity in the
-    shard's local rows. Returns ``lab_ext``."""
-    if lab_ext.device.type == "cpu":
-        return lab_ext.copy_(icm_phase_halo_plain(lab_ext, unary_k, w_ext,
-                                                  mask_i, beta, a, b))
-    R, K, H, W = unary_k.shape
-    _build.check_tensors(
-        "icm_phase_halo_", lab_ext=(lab_ext, torch.int32, (R, H + 2, W)),
-        unary_k=(unary_k, torch.float32, (R, K, H, W)),
-        w_ext=(w_ext, torch.float32, (R, 4, H + 2, W)),
-        mask=(mask_i, torch.int32, (R, H, W)))
+def icm_sweep_halo_plain(labels, unary_k, w_ext, mask_i, beta, changed, *,
+                         row0, phase0: int = 0, n_phases: int = 4):
+    """Plain version of K8: for each phase, an exchange of one label row a
+    side (``extend_rows``), then ``icm_phase_halo_plain`` on every shard
+    with the colour parity of its global rows; labels updated in place,
+    the changed labels counted into ``changed[device]``."""
+    for a, b in _SWEEP_PHASES[phase0:phase0 + n_phases]:
+        lab_ext = extend_rows(labels, 1)
+        for i, (le, u, w, m) in enumerate(zip(lab_ext, unary_k, w_ext,
+                                              mask_i)):
+            new = icm_phase_halo_plain(le, u, w, m, beta, (a + row0[i]) % 2,
+                                       b)[:, 1:-1]
+            count = changed[labels[i].device]
+            count.add_(torch.count_nonzero(new != labels[i]).to(count.dtype))
+            labels[i].copy_(new)
+    return labels
+
+
+def icm_sweep_halo_(labels, unary_k, w_ext, mask_i, beta, changed, *, row0,
+                    sources, phase0: int = 0, n_phases: int = 4):
+    """Checkerboard phases ``phase0 .. phase0 + n_phases - 1`` (of (0,0),
+    (0,1), (1,0), (1,1); default one whole sweep) of row shards (K8),
+    updating ``labels`` in place.
+
+    Lists per shard: labels, mask_i (1, Hl, W) int32; unary_k (1, K, Hl, W);
+    w_ext (1, 4, Hl+2, W), the weights with one exchanged row a side;
+    ``row0`` each shard's first global row (its colour parity);
+    ``sources`` the (above, below) ``RowSource`` of each shard. The number
+    of labels changed on each device's shards is added to
+    ``changed[device]`` (one int32). Returns ``labels``. On CUDA: with no
+    remote source, one launch a device runs the phases behind a grid
+    barrier; otherwise each phase copies the remote rows, then launches
+    once a device."""
+    if labels[0].device.type == "cpu":
+        return icm_sweep_halo_plain(labels, unary_k, w_ext, mask_i, beta,
+                                    changed, row0=row0, phase0=phase0,
+                                    n_phases=n_phases)
+    if not (0 <= phase0 and n_phases >= 1 and phase0 + n_phases <= 4):
+        raise ValueError(f"icm_sweep_halo_: phases {phase0} + {n_phases}")
+    K, W = unary_k[0].shape[1], unary_k[0].shape[-1]
+    for i, (lab, u, w, m) in enumerate(zip(labels, unary_k, w_ext, mask_i)):
+        Hl = lab.shape[-2]
+        _build.check_tensors(
+            f"icm_sweep_halo_ shard {i}", labels=(lab, torch.int32, (1, Hl, W)),
+            unary_k=(u, torch.float32, (1, K, Hl, W)),
+            w_ext=(w, torch.float32, (1, 4, Hl + 2, W)),
+            mask=(m, torch.int32, (1, Hl, W)))
+    groups = device_groups(labels, sources)
+    for dev in groups:
+        c = changed.get(dev)
+        if c is None or c.device != dev or c.dtype != torch.int32 \
+                or c.numel() != 1:
+            raise ValueError(f"icm_sweep_halo_: changed needs one int32 on "
+                             f"{dev}")
     lib = _build.load()
-    with _build.on_device(lab_ext):
-        _build.check(lib.phmrf_icm_phase(
-            lab_ext.data_ptr(), unary_k.data_ptr(), w_ext.data_ptr(),
-            mask_i.data_ptr(), R, K, H, W, 1, float(beta), int(a), int(b),
-            _build.stream_of(lab_ext)), "K8 icm_phase_halo")
-    icm_phase_halo_.launches += 1
-    return lab_ext
+    rows = None if is_chained(sources) else remote_row_buffers(labels,
+                                                               sources)
+
+    def launch(p0, n):
+        for dev, idx in groups.items():
+            local = {i: j for j, i in enumerate(idx)}
+            tab = table([
+                [labels[i].data_ptr(), unary_k[i].data_ptr(),
+                 mask_i[i].data_ptr(), w_ext[i].data_ptr(),
+                 *neighbour_columns(i, sources[i],
+                                    rows[i] if rows else (None, None),
+                                    local), labels[i].shape[-2],
+                 row0[i] % 2] for i in idx])
+            first = labels[idx[0]]
+            with _build.on_device(first):
+                _build.check(lib.phmrf_icm_halo(
+                    tab.ctypes.data, len(idx), K, W, p0, n, float(beta),
+                    changed[dev].data_ptr(), barrier_for(first).data_ptr(),
+                    _build.stream_of(first)), "K8 icm_sweep_halo_")
+            icm_sweep_halo_.launches += 1
+
+    if rows is None:
+        launch(phase0, n_phases)
+    else:
+        for p in range(phase0, phase0 + n_phases):
+            fill_remote_rows(rows, labels, sources)
+            launch(p, 1)
+    return labels
 
 
-icm_phase_halo_.launches = 0
+icm_sweep_halo_.launches = 0
+
+
+def icm_sweep_halo_chained(labels, unary_k, w_ext, mask_i, beta, *, row0,
+                           phase0: int = 0, n_phases: int = 4):
+    """K8's work on the per-shard route it replaced: each phase exchanges
+    one label row a side (``extend_rows``), then runs the phase kernel
+    (``icm_phase_``) on every shard's (Hl + 2)-row slab, whose padded rows
+    have mask 0 (never updated), with the slab rows' colour parity, and
+    counts the changed labels. Returns (new labels per shard, the count,
+    a 0-d tensor on the first shard's device); ``labels`` is not written.
+    The reference K8 is held to on the card (tests, ``chip_smoke.py``); no
+    path of the fit calls it. CUDA tensors only."""
+    unary_ext = [F.pad(u, (0, 0, 1, 1)) for u in unary_k]
+    mask_ext = [F.pad(m, (0, 0, 1, 1)) for m in mask_i]
+    labels = [lab.clone() for lab in labels]
+    changed = torch.zeros((), dtype=torch.int64, device=labels[0].device)
+    for a, b in _SWEEP_PHASES[phase0:phase0 + n_phases]:
+        lab_ext = extend_rows(labels, 1)
+        for i, (le, u, w, m) in enumerate(zip(lab_ext, unary_ext, w_ext,
+                                              mask_ext)):
+            icm_phase_(le, u, w, m, beta, (a + row0[i] + 1) % 2, b)
+            new = le[:, 1:-1].contiguous()
+            changed += torch.count_nonzero(new != labels[i]).to(
+                changed.device)
+            labels[i] = new
+    return labels, changed
 
 
 def icm_sweep_pair(labels, unary_k, wmaps, mask_i, beta, *,

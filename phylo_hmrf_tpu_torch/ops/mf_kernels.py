@@ -4,15 +4,17 @@ kernels.
 Counterpart of ``phylo_hmrf_tpu/ops/mf_pallas.py``: ``mf_sweeps`` (K1, the
 tile kernel of ``csrc/mf.cu``: up to 8 sweeps a launch on shared-memory
 tiles, planned by ``mf_tile_plan``) replaces ``mf_sweeps_pallas``,
-``mf_sweep_halo`` (K7, the one-sweep kernel of ``csrc/mf.cu`` with a
-1-row halo) replaces ``mf_sweep_pallas(halo_extended=True)``, and
-``mean_field_kmajor`` replaces ``mean_field_pallas_kmajor``.
-``mf_sweeps_chained`` runs the one-sweep kernel once per sweep: the
-reference K1 is held to bitwise on the card. Layout: q, base, unary_k
+``mf_sweeps_halo`` (K7: the sweeps of all the row shards of a device in
+one launch, ``ops/halo_rows.py``) replaces
+``mf_sweep_pallas(halo_extended=True)``, and ``mean_field_kmajor``
+replaces ``mean_field_pallas_kmajor``. ``mf_sweeps_chained`` runs the
+one-sweep kernel once per sweep: the reference K1 is held to bitwise on the
+card; ``mf_sweeps_halo_chained`` runs it per sweep and shard on the
+exchanged slabs, the reference of K7. Layout: q, base, unary_k
 (R, K, H, W); wmaps (R, 4, H, W); float32.
 
 On a CPU tensor the wrappers run their plain versions
-(``mf_sweeps_plain``, ``mf_sweep_halo_plain``); on a CUDA tensor they
+(``mf_sweeps_plain``, ``mf_sweeps_halo_plain``); on a CUDA tensor they
 launch the kernel or raise. The per-E-step ``base`` and the final argmin
 stay plain tensor code, as they stay XLA code in the JAX package.
 """
@@ -27,6 +29,9 @@ import torch.nn.functional as F
 
 from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch import _build
+from phylo_hmrf_tpu_torch.ops.halo_rows import (
+    barrier_for, device_groups, extend_rows, fill_remote_rows, is_chained,
+    neighbour_columns, remote_row_buffers, table)
 from phylo_hmrf_tpu_torch.ops.icm import MF_TEMPS
 
 
@@ -71,8 +76,8 @@ def mf_sweeps_plain(q, base, wmaps, T, damp, beta, n_inner: int):
 
 
 def mf_sweep_halo_plain(q_ext, base, w_ext, T, damp, beta):
-    """Plain version of K7: one sweep of the center rows of a row shard.
-    q_ext (R, K, H+2, W) and w_ext (R, 4, H+2, W) carry one exchanged row
+    """One sweep of the center rows of a row shard (the step of K7's plain
+    version). q_ext (R, K, H+2, W) and w_ext (R, 4, H+2, W) carry one exchanged row
     on each side; base (R, K, H, W). Returns the new center q."""
     center = slice(1, q_ext.shape[-2] - 1)
     return _sweep_plain(q_ext, q_ext[..., center, :], base, w_ext,
@@ -172,9 +177,9 @@ mf_sweeps.launches = 0
 
 def mf_sweeps_chained(q, base, wmaps, T, damp, beta, *, n_inner: int):
     """``n_inner`` sweeps as ``n_inner`` launches of the one-sweep kernel
-    (K7's code with no halo rows) over two buffers: the reference the K1
-    tile kernel is held to bitwise on the card (tests, ``chip_smoke.py``);
-    no path of the fit calls it. CUDA tensors only."""
+    over two buffers: the reference the K1 tile kernel is held to bitwise
+    on the card (tests, ``chip_smoke.py``); no path of the fit calls it.
+    CUDA tensors only."""
     R, K, H, W = q.shape
     _build.check_tensors("mf_sweeps_chained",
                          q=(q, torch.float32, (R, K, H, W)),
@@ -189,37 +194,114 @@ def mf_sweeps_chained(q, base, wmaps, T, damp, beta, *, n_inner: int):
             dst = bufs[i % 2]
             _build.check(lib.phmrf_mf_sweep(
                 cur.data_ptr(), base.data_ptr(), wmaps.data_ptr(),
-                dst.data_ptr(), R, K, H, W, 0, float(T), float(damp),
+                dst.data_ptr(), R, K, H, W, float(T), float(damp),
                 float(1.0 - damp), float(beta), stream), "mf_sweeps_chained")
             cur = dst
     return cur
 
 
-def mf_sweep_halo(q_ext, base, w_ext, T, damp, beta):
-    """One damped mean-field sweep of a row shard (K7): q_ext
-    (R, K, H+2, W) and w_ext (R, 4, H+2, W) carry the neighbouring shards'
-    boundary rows (zeros at the mesh ends), base (R, K, H, W) the center
-    only. Returns the new center q (R, K, H, W), a new tensor."""
-    if q_ext.device.type == "cpu":
-        return mf_sweep_halo_plain(q_ext, base, w_ext, T, damp, beta)
-    R, K, H, W = base.shape
-    _build.check_tensors(
-        "mf_sweep_halo", q_ext=(q_ext, torch.float32, (R, K, H + 2, W)),
-        base=(base, torch.float32, (R, K, H, W)),
-        w_ext=(w_ext, torch.float32, (R, 4, H + 2, W)))
+MF_HALO_MAX_ROWS = 8    # rows of a K7 tile, a warp each (csrc/mf.cu)
+
+
+def mf_halo_rows(heights) -> int:
+    """Rows of K7's tiles for shards of ``heights`` rows: the tallest
+    shard's, at most ``MF_HALO_MAX_ROWS``."""
+    return max(1, min(MF_HALO_MAX_ROWS, max(heights)))
+
+
+def mf_sweeps_halo_plain(q, base, w_ext, T, damp, beta, n_sweeps: int):
+    """Plain version of K7: ``n_sweeps`` sweeps of the row shards, each an
+    exchange of one row a side (``extend_rows``) and ``mf_sweep_halo_plain``
+    on every shard. Returns the new q per shard."""
+    q = list(q)
+    for _ in range(n_sweeps):
+        q = [mf_sweep_halo_plain(qe, b, w, T, damp, beta) for qe, b, w in
+             zip(extend_rows(q, 1), base, w_ext)]
+    return q
+
+
+def mf_sweeps_halo(q, base, w_ext, T, damp, beta, *, n_sweeps: int,
+                   sources):
+    """``n_sweeps`` damped mean-field sweeps of row shards (K7).
+
+    Lists per shard: q, base (1, K, Hl, W); w_ext (1, 4, Hl+2, W), the
+    weights with one exchanged row a side (zeros at the mesh ends);
+    ``sources`` the (above, below) ``RowSource`` of each shard
+    (``row_sources``). Returns the new q per shard (new tensors; q is never
+    written). On CUDA: with no remote source, one launch a device runs
+    all the sweeps behind a grid barrier; otherwise each sweep copies the
+    remote rows, then launches once a device."""
+    if n_sweeps < 1:
+        return list(q)
+    if q[0].device.type == "cpu":
+        return mf_sweeps_halo_plain(q, base, w_ext, T, damp, beta, n_sweeps)
+    K, W = q[0].shape[1], q[0].shape[-1]
+    heights = [x.shape[-2] for x in q]
+    for i, (x, b, w) in enumerate(zip(q, base, w_ext)):
+        Hl = heights[i]
+        _build.check_tensors(
+            f"mf_sweeps_halo shard {i}", q=(x, torch.float32, (1, K, Hl, W)),
+            base=(b, torch.float32, (1, K, Hl, W)),
+            w_ext=(w, torch.float32, (1, 4, Hl + 2, W)))
+    groups = device_groups(q, sources)
+    chained = is_chained(sources)
+    th = mf_halo_rows(heights)
     lib = _build.load()
-    out = torch.empty_like(base)
-    with _build.on_device(out):
-        _build.check(lib.phmrf_mf_sweep(
-            q_ext.data_ptr(), base.data_ptr(), w_ext.data_ptr(),
-            out.data_ptr(), R, K, H, W, 1, float(T), float(damp),
-            float(1.0 - damp), float(beta), _build.stream_of(out)),
-            "K7 mf_sweep_halo")
-    mf_sweep_halo.launches += 1
-    return out
+    bufs = [(torch.empty_like(x),
+             torch.empty_like(x) if n_sweeps > 1 else None) for x in q]
+    rows = None if chained else remote_row_buffers(q, sources)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    def launch(src, n, write):
+        for dev, idx in groups.items():
+            local = {i: j for j, i in enumerate(idx)}
+            tab = table([
+                [src[i].data_ptr(), ptr(bufs[i][write]),
+                 ptr(bufs[i][1 - write]), base[i].data_ptr(),
+                 w_ext[i].data_ptr(),
+                 *neighbour_columns(i, sources[i],
+                                    rows[i] if rows else (None, None),
+                                    local), heights[i]] for i in idx])
+            first = q[idx[0]]
+            with _build.on_device(first):
+                _build.check(lib.phmrf_mf_halo(
+                    tab.ctypes.data, len(idx), K, W, th, n, float(T),
+                    float(damp), float(1.0 - damp), float(beta),
+                    barrier_for(first).data_ptr(), _build.stream_of(first)),
+                    "K7 mf_sweeps_halo")
+            mf_sweeps_halo.launches += 1
+
+    if chained:
+        launch(q, n_sweeps, 0)
+        return [b[(n_sweeps - 1) & 1] for b in bufs]
+    cur = list(q)
+    for s in range(n_sweeps):
+        fill_remote_rows(rows, cur, sources)
+        launch(cur, 1, s & 1)
+        cur = [b[s & 1] for b in bufs]
+    return cur
 
 
-mf_sweep_halo.launches = 0
+mf_sweeps_halo.launches = 0
+
+
+def mf_sweeps_halo_chained(q, base, w_ext, T, damp, beta, *, n_sweeps: int):
+    """K7's work on the per-shard route it replaced: each sweep exchanges
+    one row a side (``extend_rows``), then runs the one-sweep kernel
+    on every shard's (Hl + 2)-row slab (base padded with zero rows) and
+    keeps its center rows, which it computes op for op as the per-shard
+    kernel with a one-row halo did. The reference K7 is held to bitwise on
+    the card (tests, ``chip_smoke.py``); no path of the fit calls it. CUDA
+    tensors only."""
+    base_ext = [F.pad(b, (0, 0, 1, 1)) for b in base]
+    q = list(q)
+    for _ in range(n_sweeps):
+        q = [mf_sweeps_chained(qe, be, w, T, damp, beta, n_inner=1)
+             [..., 1:-1, :].contiguous() for qe, be, w in
+             zip(extend_rows(q, 1), base_ext, w_ext)]
+    return q
 
 
 def expected_field_sums(qk, wmaps):

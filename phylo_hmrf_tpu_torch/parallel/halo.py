@@ -22,11 +22,20 @@ region: q, unary_k (1, K, Hl, W); weights (1, 4, Hl, W); labels, mask
 * mean field: with 1 <= ``iters_per_temp`` <= 8 and Hl >= 8, one 8-row
   exchange per temperature and K1 (``mf_sweeps``) on the extended slabs
   (the exchanged rows evolve in the kernel exactly as the neighbour
-  computes them for the first 8 sweeps); otherwise one 1-row exchange per
-  sweep and K7 (``mf_sweep_halo``);
+  computes them for the first 8 sweeps); otherwise K7
+  (``mf_sweeps_halo``), all of a temperature's sweeps in one call;
 * ICM: with Hl >= 8, one 8-row exchange per sweep pair and K2 on the
-  extended slabs with the global colour parity; otherwise one 1-row
-  exchange per phase and K8 (``icm_phase_halo_``).
+  extended slabs with the global colour parity; otherwise K8
+  (``icm_sweep_halo_``), one call per sweep, which counts the labels it
+  changed on the device (one int read per sweep and device).
+
+K7 and K8 take every shard of a device in one launch and read the rows
+beyond a shard's edges where they lie (``ops/halo_rows.py``, the table of
+``row_sources``): on one device (the one-card mesh), one launch runs a
+temperature's sweeps or a sweep's four phases behind a grid barrier;
+across devices, each sweep or phase first copies the one row a side that
+lies on another device (the counterpart of ``ppermute``), then launches
+once a device.
 
 The JAX package takes its kernel branch only for TPU tile shapes (Hl % 8 ==
 0, W % 128 == 0); the CUDA kernels take any shape, so this port takes it
@@ -46,30 +55,14 @@ from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
 from phylo_hmrf_tpu_torch.ops.finish_kernels import (
     cost_vec_from_sums, finish_stats, potts_energy_pair)
 from phylo_hmrf_tpu_torch.ops.icm import MF_TEMPS
-from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_phase_halo_,
+from phylo_hmrf_tpu_torch.ops.halo_rows import extend_rows, row_sources
+from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_sweep_halo_,
                                                   icm_sweep_pair)
 from phylo_hmrf_tpu_torch.ops.mf_kernels import (
-    _shift2, expected_field_sums, mf_sweep_halo, mf_sweeps)
+    _shift2, expected_field_sums, mf_sweeps, mf_sweeps_halo)
 from phylo_hmrf_tpu_torch.ops.potts import valid_maps, weight_maps
 
 HALO = 8   # deep-halo depth: K1 sweeps / K2 phases per exchange
-
-
-def extend_rows(xs, depth: int = 1):
-    """Add ``depth`` rows on each side of axis -2 of every shard's tensor:
-    the last rows of the shard above and the first rows of the shard below,
-    zeros at the ends of the mesh. Each shard needs ``depth`` <= its row
-    count."""
-    out = []
-    for i, x in enumerate(xs):
-        shape = list(x.shape)
-        shape[-2] = depth
-        above = (xs[i - 1][..., -depth:, :].to(x.device) if i > 0
-                 else x.new_zeros(shape))
-        below = (xs[i + 1][..., :depth, :].to(x.device) if i + 1 < len(xs)
-                 else x.new_zeros(shape))
-        out.append(torch.cat([above, x, below], dim=-2))
-    return out
 
 
 def psum(xs):
@@ -78,6 +71,11 @@ def psum(xs):
     for x in xs[1:]:
         acc = acc + x.to(acc.device)
     return acc
+
+
+def _row_sources(xs):
+    """The row sources of the shards' tensors ``xs`` (rows on axis -2)."""
+    return row_sources([x.device for x in xs], [x.shape[-2] for x in xs])
 
 
 def _center(x, depth: int):
@@ -104,8 +102,8 @@ def _mf_base(unary_k, w_ext, beta):
 def _mean_field_halo_kernels(unary_k, w_ext, beta, temps, iters_per_temp,
                              damping):
     """Annealed mean field on the row shards; returns labels per shard
-    (1, Hl, W) int32. K1 on 8-row-extended slabs, or K7 per sweep (module
-    docstring)."""
+    (1, Hl, W) int32. K1 on 8-row-extended slabs, or K7 per temperature
+    (module docstring)."""
     base = [_mf_base(u, w, beta) for u, w in zip(unary_k, w_ext)]
     q = [F.softmax(-u, dim=1) for u in unary_k]
     if 1 <= iters_per_temp <= HALO and q[0].shape[-2] >= HALO:
@@ -118,11 +116,10 @@ def _mean_field_halo_kernels(unary_k, w_ext, beta, temps, iters_per_temp,
                                    n_inner=iters_per_temp), HALO)
                  for qe, be, we in zip(q_ext, base_ext, w_ext8)]
     else:
+        sources = _row_sources(q)
         for T in temps:
-            for _ in range(iters_per_temp):
-                q_ext = extend_rows(q, 1)
-                q = [mf_sweep_halo(qe, b, w, T, damping, beta)
-                     for qe, b, w in zip(q_ext, base, w_ext)]
+            q = mf_sweeps_halo(q, base, w_ext, T, damping, beta,
+                               n_sweeps=iters_per_temp, sources=sources)
     # final hard assignment at T -> 0, as `mean_field_kmajor` does
     labels = []
     for qe, w, u in zip(extend_rows(q, 1), w_ext, unary_k):
@@ -138,8 +135,8 @@ def _icm_halo_kernels(unary_k, w_ext, mask, init_labels, beta,
     labels per shard (1, Hl, W) int32. The colour parity is that of the
     global row (a shard starts at row shard * Hl). Runs while any label of
     the region changed (summed over the shards, read once per sweep pair
-    on the K2 branch, once per sweep on the K8 branch) and fewer than
-    ``max_sweeps`` sweeps ran."""
+    on the K2 branch, once per sweep and device on the K8 branch) and
+    fewer than ``max_sweeps`` sweeps ran."""
     Hl = unary_k[0].shape[-2]
     row0 = [i * Hl for i in range(len(unary_k))]
     mask_i = [m.to(torch.int32) for m in mask]
@@ -162,20 +159,15 @@ def _icm_halo_kernels(unary_k, w_ext, mask, init_labels, beta,
             sweep += 2
         return labels
 
+    sources = _row_sources(labels)
+    # one int32 a device and sweep, zeroed once: K8 adds its changes there
+    counts = {d: torch.zeros(max(max_sweeps, 1), dtype=torch.int32, device=d)
+              for d in dict.fromkeys(lab.device for lab in labels)}
     while changed > 0 and sweep < max_sweeps:
-        counts = [torch.zeros((), dtype=torch.int64, device=lab.device)
-                  for lab in labels]
-        for a in (0, 1):
-            for b in (0, 1):
-                lab_ext = extend_rows(labels, 1)
-                for i, r0 in enumerate(row0):
-                    out = icm_phase_halo_(lab_ext[i], unary_k[i], w_ext[i],
-                                          mask_i[i], beta, (a + r0) % 2, b)
-                    new = _center(out, 1)
-                    counts[i] = counts[i] + torch.count_nonzero(
-                        new != labels[i])
-                    labels[i] = new
-        changed = int(psum(counts))
+        icm_sweep_halo_(labels, unary_k, w_ext, mask_i, beta,
+                        {d: c[sweep] for d, c in counts.items()}, row0=row0,
+                        sources=sources)
+        changed = sum(int(c[sweep]) for c in counts.values())
         sweep += 1
     return labels
 

@@ -5,8 +5,9 @@ Run on a GPU machine: ``python -m pytest tests/test_torch_cuda.py -q
 --noconftest``.
 Shapes: a small ragged grid (H and W of no tile multiple) and the chr21
 cell (R=1, K=10, H=672, W=768, F=4), for K1-K4 also the chr21 region at
-K=30, for K3/K4 also two ragged regions (R=2) and random edge shapes (F=1,
-F=8, K=32, an empty region). K5/K6 run on the graph of a real expansion
+K=30, for K7/K8 also the spatial fit's 24 x 768 off-diagonal block over 4
+shards and 3 shards of 11 rows, for K3/K4 also two ragged regions (R=2)
+and random edge shapes (F=1, F=8, K=32, an empty region). K5/K6 run on the graph of a real expansion
 move (the one with the most pixels in play) of the K1-K3 start; K1, K2,
 K5 and K6 also on random instances whose shapes put pixels on every kind
 of tile edge.
@@ -564,78 +565,169 @@ def _halo_shards(x, n):
                                    ("mask_i", x["mask_i"]), ("lab0", lab0))}
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_k7_kernel_matches_plain(dev, shape):
-    """K7 on every shard of 4 (1-row halos): rtol 2e-4, atol 1e-6 against
-    its plain version; one launch per call."""
-    from phylo_hmrf_tpu_torch.ops.mf_kernels import (mf_sweep_halo,
-                                                     mf_sweep_halo_plain)
+def _halo_args(sh):
+    """The row-shard operands of K7/K8 from ``_halo_shards``: the weights
+    with one exchanged row a side, the shards' first global rows and the
+    row sources of one device (every neighbour read in place)."""
+    from phylo_hmrf_tpu_torch.ops.halo_rows import row_sources
     from phylo_hmrf_tpu_torch.parallel.halo import extend_rows
 
-    sh = _halo_shards(_inputs(dev, shape), 4)
-    for qe, b, we in zip(extend_rows(sh["q0"]), sh["base"],
-                         extend_rows(sh["w"])):
-        n0 = mf_sweep_halo.launches
-        got = mf_sweep_halo(qe, b, we, 0.5, 0.5, 1.0)
-        want = mf_sweep_halo_plain(qe, b, we, 0.5, 0.5, 1.0)
+    heights = [t.shape[-2] for t in sh["q0"]]
+    row0 = [sum(heights[:i]) for i in range(len(heights))]
+    return (extend_rows(sh["w"]), row0,
+            row_sources(["one"] * len(heights), heights))
+
+
+def _offdiag_inputs(dev):
+    """The spatial fit's 20 x 653 off-diagonal block of seed 0, padded to
+    24 x 768 (6-row shards over 4), as ``chip_smoke.py`` builds it."""
+    from phylo_hmrf_tpu_torch.synth import kernel_inputs, synteny_problem
+
+    _, region, means, covs, warm, _ = synteny_problem(0, 20, 653, False,
+                                                      pad_h=8)
+    return kernel_inputs(region, means, covs, warm, dev)
+
+
+HALO_SHAPES = {
+    # name: (inputs, shards): the spatial fit's 4 x 6 x 768 block; 4 shards
+    # of 168 rows; 3 shards of 11 rows (not a multiple of K7's 8-row
+    # tiles); 4 uneven shards of a ragged 23 x 37 grid
+    "offdiag": ("offdiag", 4), "chr21": ("chr21", 4),
+    "rows11": ("chr21_33", 3), "ragged": ("ragged", 4)}
+
+
+def _halo_inputs(dev, name):
+    kind, n = HALO_SHAPES[name]
+    if kind == "offdiag":
+        x = _offdiag_inputs(dev)
+    elif kind == "chr21_33":
+        x = {k: v[..., :33, :].contiguous() for k, v in
+             _inputs(dev, "chr21").items()
+             if k in ("q0", "base", "w", "unary_k", "mask_i", "mask",
+                      "warm")}
+    else:
+        x = _inputs(dev, kind)
+    return x, _halo_shards(x, n)
+
+
+@pytest.mark.parametrize("name", list(HALO_SHAPES))
+def test_k7_kernel_matches_plain(dev, name):
+    """K7 over all the shards of the card at 1, 8 and 12 sweeps: bitwise
+    the per-shard route it replaced (``mf_sweeps_halo_chained``), rtol
+    2e-4, atol 1e-6 against its plain version; one launch a call."""
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import (
+        mf_sweeps_halo, mf_sweeps_halo_chained, mf_sweeps_halo_plain)
+
+    _, sh = _halo_inputs(dev, name)
+    w_ext, _, src = _halo_args(sh)
+    k7 = (sh["q0"], sh["base"], w_ext, 0.5, 0.5, 1.0)
+    for n in (1, 8, 12):
+        n0 = mf_sweeps_halo.launches
+        got = mf_sweeps_halo(*k7, n_sweeps=n, sources=src)
         torch.cuda.synchronize()
-        assert mf_sweep_halo.launches - n0 == 1
-        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-6)
+        assert mf_sweeps_halo.launches - n0 == 1
+        want = mf_sweeps_halo_chained(*k7, n_sweeps=n)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (n, float((a - b).abs().max()))
+        for a, b in zip(got, mf_sweeps_halo_plain(*k7, n)):
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_k8_kernel_matches_plain(dev, shape):
-    """K8 on every shard of 4, all four phases with the global parity:
-    labels identical to its plain version, halo rows untouched."""
-    from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_phase_halo_,
-                                                      icm_phase_halo_plain)
-    from phylo_hmrf_tpu_torch.parallel.halo import extend_rows
+@pytest.mark.parametrize("name", list(HALO_SHAPES))
+def test_k8_kernel_matches_plain(dev, name):
+    """K8 over all the shards of the card, one sweep with the global
+    parity: labels identical to the per-shard route it replaced
+    (``icm_sweep_halo_chained``) and to its plain version, the changed
+    count theirs; one launch a sweep."""
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import (
+        icm_sweep_halo_, icm_sweep_halo_chained, icm_sweep_halo_plain)
 
-    sh = _halo_shards(_inputs(dev, shape), 4)
-    row0 = 0
-    for le, u, we, m in zip(extend_rows(sh["lab0"]), sh["unary_k"],
-                            extend_rows(sh["w"]), sh["mask_i"]):
-        for a in (0, 1):
-            for b in (0, 1):
-                ae = (a + row0) % 2
-                want = icm_phase_halo_plain(le, u, we, m, 1.0, ae, b)
-                got = icm_phase_halo_(le.clone(), u, we, m, 1.0, ae, b)
-                assert torch.equal(got, want)
-                le = want
-        row0 += u.shape[-2]
+    _, sh = _halo_inputs(dev, name)
+    w_ext, row0, src = _halo_args(sh)
+    k8 = (sh["unary_k"], w_ext, sh["mask_i"], 1.0)
+    want, count = icm_sweep_halo_chained(sh["lab0"], *k8, row0=row0)
+    got = [t.clone() for t in sh["lab0"]]
+    changed = {dev_: torch.zeros((), dtype=torch.int32, device=dev_)
+               for dev_ in {t.device for t in got}}
+    n0 = icm_sweep_halo_.launches
+    icm_sweep_halo_(got, *k8, changed, row0=row0, sources=src)
+    torch.cuda.synchronize()
+    assert icm_sweep_halo_.launches - n0 == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert sum(int(c) for c in changed.values()) == int(count) > 0
+    plain = [t.cpu() for t in sh["lab0"]]
+    cpu = torch.device("cpu")
+    pc = {cpu: torch.zeros((), dtype=torch.int32)}
+    icm_sweep_halo_plain(plain, *([t.cpu() for t in a] for a in k8[:3]),
+                         1.0, pc, row0=row0)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, plain))
+    assert int(pc[cpu]) == int(count)
+
+
+@pytest.mark.parametrize("name", ["offdiag", "rows11"])
+def test_halo_remote_route_bitwise(dev, name):
+    """Every neighbour marked remote (a table dealt over two device
+    labels): the 1-row copies and one launch a sweep or phase give
+    bitwise the same-device route's q, labels and changed count."""
+    from phylo_hmrf_tpu_torch.ops.halo_rows import row_sources
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_sweep_halo_
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import mf_sweeps_halo
+
+    _, sh = _halo_inputs(dev, name)
+    w_ext, row0, local = _halo_args(sh)
+    heights = [t.shape[-2] for t in sh["q0"]]
+    remote = row_sources((["a", "b"] * len(heights))[:len(heights)], heights)
+    k7 = (sh["q0"], sh["base"], w_ext, 0.5, 0.5, 1.0)
+    n0 = mf_sweeps_halo.launches
+    a = mf_sweeps_halo(*k7, n_sweeps=8, sources=remote)
+    assert mf_sweeps_halo.launches - n0 == 8
+    b = mf_sweeps_halo(*k7, n_sweeps=8, sources=local)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    out = {}
+    for tag, src in (("remote", remote), ("local", local)):
+        lab = [t.clone() for t in sh["lab0"]]
+        changed = {dev_: torch.zeros((), dtype=torch.int32, device=dev_)
+                   for dev_ in {t.device for t in lab}}
+        icm_sweep_halo_(lab, sh["unary_k"], w_ext, sh["mask_i"], 1.0,
+                        changed, row0=row0, sources=src)
+        out[tag] = (lab, sum(int(c) for c in changed.values()))
+    assert all(torch.equal(x, y) for x, y in zip(out["remote"][0],
+                                                 out["local"][0]))
+    assert out["remote"][1] == out["local"][1]
 
 
 @pytest.mark.parametrize("shape", ["ragged"])
 def test_halo_split_identity(dev, shape):
-    """On the card, bitwise: K7 over 4 row shards with exchanged halos is
-    one K1 sweep of the whole grid; K8 over the shards with the global
-    parity is one K2 phase; K1's 8 sweeps and K2's sweep pair on 8-row
-    halos (2 shards) are the whole grid's. (`chip_smoke.py` checks the K7/K8
-    identities at the 10 kb scale.)"""
+    """On the card, bitwise: K7 over 4 row shards is one K1 sweep of the
+    whole grid; K8 over the shards with the global parity is each K2
+    phase of the whole grid; K1's 8 sweeps and K2's sweep pair on 8-row
+    halos (2 shards) are the whole grid's. (`chip_smoke.py` checks the
+    K7/K8 identities at the 10 kb scale.)"""
     from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_phase_,
-                                                      icm_phase_halo_,
+                                                      icm_sweep_halo_,
                                                       icm_sweep_pair)
-    from phylo_hmrf_tpu_torch.ops.mf_kernels import mf_sweep_halo, mf_sweeps
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import mf_sweeps, mf_sweeps_halo
     from phylo_hmrf_tpu_torch.parallel.halo import _center, extend_rows
 
     x = _inputs(dev, shape)
     sh = _halo_shards(x, 4)
+    w_ext, row0, src = _halo_args(sh)
     full = mf_sweeps(x["q0"], x["base"], x["w"], 0.5, 0.5, 1.0, n_inner=1)
-    split = [mf_sweep_halo(qe, b, we, 0.5, 0.5, 1.0) for qe, b, we in zip(
-        extend_rows(sh["q0"]), sh["base"], extend_rows(sh["w"]))]
+    split = mf_sweeps_halo(sh["q0"], sh["base"], w_ext, 0.5, 0.5, 1.0,
+                           n_sweeps=1, sources=src)
     assert torch.equal(torch.cat(split, dim=-2), full)
     lab0 = torch.cat(sh["lab0"], dim=-2)
-    for a in (0, 1):
-        for b in (0, 1):
-            full = icm_phase_(lab0.clone(), x["unary_k"], x["w"], x["mask_i"],
-                              1.0, a, b)
-            lab_ext, row0 = extend_rows(sh["lab0"]), 0
-            for le, u, we, m in zip(lab_ext, sh["unary_k"],
-                                    extend_rows(sh["w"]), sh["mask_i"]):
-                icm_phase_halo_(le, u, we, m, 1.0, (a + row0) % 2, b)
-                row0 += u.shape[-2]
-            assert torch.equal(torch.cat([le[:, 1:-1] for le in lab_ext],
-                                         dim=1), full)
+    for phase, (a, b) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        full = icm_phase_(lab0.clone(), x["unary_k"], x["w"], x["mask_i"],
+                          1.0, a, b)
+        lab = [t.clone() for t in sh["lab0"]]
+        card = lab0.device
+        changed = {card: torch.zeros((), dtype=torch.int32, device=card)}
+        icm_sweep_halo_(lab, sh["unary_k"], w_ext, sh["mask_i"], 1.0,
+                        changed, row0=row0, sources=src, phase0=phase,
+                        n_phases=1)
+        assert torch.equal(torch.cat(lab, dim=1), full)
+        assert int(changed[card]) == int((full != lab0).sum())
     H = x["q0"].shape[-2]
     if H // 2 >= 8:
         two = _halo_shards(x, 2)

@@ -3,10 +3,13 @@ and kernels K7/K8 against the JAX package, on CPU shards.
 
 The port's meshes here are 8 shards on the CPU
 (``make_mesh((8,), devices=[cpu])``); JAX runs on the 8 virtual CPU
-devices of ``tests/conftest.py``. K7/K8 run as their plain versions (CPU
-tensors), held to the Pallas kernels in interpret mode at the tiny shapes
-of ``tests/test_halo.py``; the E-steps are held to the JAX jnp halo path
-(``use_pallas=False``), which computes the same functions.
+devices of ``tests/conftest.py``. K7/K8 (``mf_sweeps_halo``,
+``icm_sweep_halo_``) run as their plain versions (CPU tensors), held to the
+Pallas kernels in interpret mode at the tiny shapes of
+``tests/test_halo.py`` and to the per-shard route they replaced; their
+row-source tables are checked without a card; the E-steps are held to the
+JAX jnp halo path (``use_pallas=False``), which computes the same
+functions.
 """
 
 import functools
@@ -23,10 +26,12 @@ from phylo_hmrf_tpu.data.regions import (  # noqa: E402
     flat_index_order, region_from_samples)
 from phylo_hmrf_tpu_torch import PhyloHMRF  # noqa: E402
 from phylo_hmrf_tpu_torch.convert import export_state, import_state  # noqa
+from phylo_hmrf_tpu_torch.ops.halo_rows import (  # noqa: E402
+    RowSource, device_groups, is_chained, row_sources)
 from phylo_hmrf_tpu_torch.ops.icm_kernels import (  # noqa: E402
-    icm_phase_halo_, icm_phase_halo_plain, icm_phase_plain, icm_sweep_pair)
+    icm_phase_halo_plain, icm_phase_plain, icm_sweep_halo_, icm_sweep_pair)
 from phylo_hmrf_tpu_torch.ops.mf_kernels import (  # noqa: E402
-    mf_sweep_halo, mf_sweep_halo_plain, mf_sweeps_plain)
+    mf_sweep_halo_plain, mf_sweeps_halo, mf_sweeps_plain)
 from phylo_hmrf_tpu_torch.parallel import halo  # noqa: E402
 from phylo_hmrf_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from phylo_hmrf_tpu_torch.synth import bench_tree  # noqa: E402
@@ -78,8 +83,9 @@ def _stencil_inputs(rng, K=3, H=16, W=128):
 # ------------------------------------------------------- K7 / K8 vs JAX --
 
 def test_k7_plain_matches_jax_halo_kernel(rng):
-    """The port's K7 plain version on two half-shards against
-    `mf_sweep_pallas(halo_extended=True)` in interpret mode: rtol 2e-4,
+    """The port's K7 plain version (``mf_sweeps_halo`` on CPU shards, one
+    sweep) on two half-shards against `mf_sweep_pallas(halo_extended=True)`
+    in interpret mode on each half with its exchanged rows: rtol 2e-4,
     atol 1e-6 (K1's gate)."""
     from phylo_hmrf_tpu.ops.mf_pallas import mf_sweep_pallas
 
@@ -87,22 +93,29 @@ def test_k7_plain_matches_jax_halo_kernel(rng):
     K, H, W = q.shape
     H1 = H // 2
     T, damp, beta = 1.0, 0.5, 0.7
+    w_h = _halves(w, H1, (4, 1, W))
+    got = mf_sweeps_halo(
+        [_t(q[None, :, :H1]), _t(q[None, :, H1:])],
+        [_t(base[None, :, :H1]), _t(base[None, :, H1:])],
+        [_t(we[None]) for we in w_h], T, damp, beta, n_sweeps=1,
+        sources=row_sources(["cpu"] * 2, [H1] * 2))
     for part, (qe, we, b) in enumerate(zip(
-            _halves(q, H1, (K, 1, W)), _halves(w, H1, (4, 1, W)),
-            (base[:, :H1], base[:, H1:]))):
+            _halves(q, H1, (K, 1, W)), w_h, (base[:, :H1], base[:, H1:]))):
         want = mf_sweep_pallas(jnp.asarray(qe), jnp.asarray(b),
                                jnp.asarray(we), T, damp, beta,
                                halo_extended=True, interpret=True)
-        got = mf_sweep_halo(_t(qe[None]), _t(b[None]), _t(we[None]), T,
-                            damp, beta)[0]
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
-                                   atol=1e-6, err_msg=f"half {part}")
+        np.testing.assert_allclose(got[part][0].numpy(), np.asarray(want),
+                                   rtol=2e-4, atol=1e-6,
+                                   err_msg=f"half {part}")
 
 
 def test_k8_plain_matches_jax_halo_kernel(rng):
-    """The port's K8 plain version on two half-shards, phase parity offset
-    by the shard's first row, against `icm_phase_pallas(halo_extended=True)`
-    in interpret mode: identical labels, for all four phases."""
+    """The port's K8 plain version (``icm_sweep_halo_`` on CPU shards, one
+    sweep) on two half-shards against `icm_phase_pallas(halo_extended=True)`
+    in interpret mode on each half, phase by phase with the label rows
+    exchanged between phases and the phase parity offset by the shard's
+    first row: identical labels after every phase (one phase a call), and
+    after the whole sweep, with the changed count that of the labels."""
     from phylo_hmrf_tpu.ops.icm_pallas import icm_phase_pallas
 
     _, _, w, labels = _stencil_inputs(rng)
@@ -110,28 +123,32 @@ def test_k8_plain_matches_jax_halo_kernel(rng):
     unary_k = rng.random((1, K, H, W)).astype(np.float32)
     mask = (rng.random((1, H, W)) > 0.1).astype(np.int32)
     H1, beta = H // 2, 0.9
-    lab_h = _halves(labels, H1, (1, W))
-    w_h = _halves(w, H1, (4, 1, W))
-    for a in (0, 1):
-        for b in (0, 1):
-            for part, row0 in enumerate((0, H1)):
-                rows = slice(row0, row0 + H1)
-                a_eff = (a + row0) % 2
-                want = icm_phase_pallas(
-                    jnp.asarray(lab_h[part][None]),
-                    jnp.asarray(unary_k[:, :, rows]),
-                    jnp.asarray(w_h[part][None]),
-                    jnp.asarray(mask[:, rows]), beta, a_eff, b,
-                    halo_extended=True, interpret=True)
-                lab_ext = _t(lab_h[part][None].copy())
-                icm_phase_halo_(lab_ext, _t(unary_k[:, :, rows]),
-                                _t(w_h[part][None]), _t(mask[:, rows]),
-                                beta, a_eff, b)
-                np.testing.assert_array_equal(lab_ext[:, 1:-1].numpy(),
-                                              np.asarray(want))
-                # the halo rows are read, never written
-                np.testing.assert_array_equal(lab_ext[:, [0, -1]].numpy(),
-                                              lab_h[part][None][:, [0, -1]])
+    w_h = [_t(we[None]) for we in _halves(w, H1, (4, 1, W))]
+    halves = [slice(0, H1), slice(H1, H)]
+    args = ([_t(unary_k[:, :, r]) for r in halves], w_h,
+            [_t(mask[:, r]) for r in halves], beta)
+    src = row_sources(["cpu"] * 2, [H1] * 2)
+    cpu = torch.device("cpu")
+    want = labels.copy()
+    by_phase = [_t(labels[None, r].copy()) for r in halves]
+    for phase, (a, b) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        lab_h = _halves(want, H1, (1, W))
+        want = np.concatenate([np.asarray(icm_phase_pallas(
+            jnp.asarray(lab_h[part][None]), jnp.asarray(unary_k[:, :, r]),
+            jnp.asarray(w_h[part].numpy()), jnp.asarray(mask[:, r]), beta,
+            (a + row0) % 2, b, halo_extended=True, interpret=True))[0]
+            for part, (r, row0) in enumerate(zip(halves, (0, H1)))])
+        icm_sweep_halo_(by_phase, *args, {cpu: torch.zeros(
+            (), dtype=torch.int32)}, row0=[0, H1], sources=src,
+            phase0=phase, n_phases=1)
+        np.testing.assert_array_equal(
+            torch.cat(by_phase, dim=1)[0].numpy(), want,
+            err_msg=f"phase {(a, b)}")
+    changed = {cpu: torch.zeros((), dtype=torch.int32)}
+    sweep = [_t(labels[None, r].copy()) for r in halves]
+    icm_sweep_halo_(sweep, *args, changed, row0=[0, H1], sources=src)
+    np.testing.assert_array_equal(torch.cat(sweep, dim=1)[0].numpy(), want)
+    assert int(changed[cpu]) == int((want != labels).sum())
 
 
 # ----------------------------------------------------- split identities --
@@ -144,7 +161,7 @@ def _shards(x, n):
 def test_split_identity_bitwise(rng, case):
     """Row shards with exchanged halos give bitwise the full-grid result:
     K7 on 4 shards of 4 rows against one K1 sweep; K8 on 4 shards (global
-    parity) against a K2 phase; K1's 8 sweeps on 2 shards of 8 rows with
+    parity) against a K2 phase, with its changed count; K1's 8 sweeps on 2 shards of 8 rows with
     8-row halos; K2's sweep pair likewise, parity offset by the slab's
     first global row. (Plain versions here; the card tests run the
     kernels.)"""
@@ -153,17 +170,23 @@ def test_split_identity_bitwise(rng, case):
     unary = _t(rng.random(tuple(base.shape)).astype(np.float32))
     mask = _t((rng.random(tuple(labels.shape)) > 0.1).astype(np.int32))
     T, damp, beta = 0.5, 0.5, 0.8
+    src4 = row_sources(["cpu"] * 4, [4] * 4)
     if case == "k7":
         want = mf_sweeps_plain(q, base, w, T, damp, beta, 1)
-        got = [mf_sweep_halo_plain(qe, b, we, T, damp, beta) for qe, b, we
-               in zip(halo.extend_rows(_shards(q, 4)), _shards(base, 4),
-                      halo.extend_rows(_shards(w, 4)))]
+        got = mf_sweeps_halo(_shards(q, 4), _shards(base, 4),
+                             halo.extend_rows(_shards(w, 4)), T, damp, beta,
+                             n_sweeps=1, sources=src4)
     elif case == "k8":
+        # the phase (a, b) = (1, 0), the third of a sweep
         want = icm_phase_plain(labels, unary, w, mask, beta, 1, 0)
-        got = [icm_phase_halo_plain(le, u, we, m, beta, (1 + 4 * i) % 2, 0)
-               [:, 1:-1] for i, (le, u, we, m) in enumerate(zip(
-                   halo.extend_rows(_shards(labels, 4)), _shards(unary, 4),
-                   halo.extend_rows(_shards(w, 4)), _shards(mask, 4)))]
+        got = [x.clone() for x in _shards(labels, 4)]
+        changed = {torch.device("cpu"): torch.zeros((), dtype=torch.int32)}
+        icm_sweep_halo_(got, _shards(unary, 4),
+                        halo.extend_rows(_shards(w, 4)), _shards(mask, 4),
+                        beta, changed, row0=[0, 4, 8, 12], sources=src4,
+                        phase0=2, n_phases=1)
+        assert int(changed[torch.device("cpu")]) == int(
+            (want != labels).sum())
     elif case == "k1_deep":
         want = mf_sweeps_plain(q, base, w, T, damp, beta, 8)
         got = [halo._center(mf_sweeps_plain(qe, be, we, T, damp, beta, 8), 8)
@@ -177,6 +200,99 @@ def test_split_identity_bitwise(rng, case):
                    *(halo.extend_rows(_shards(x, 2), 8)
                      for x in (labels, unary, w, mask))))]
     assert torch.equal(torch.cat(got, dim=-2), want)
+
+
+# ------------------------------------- K7 / K8 against the per-shard route --
+
+# (shards, rows a shard, sweeps): 1-8 shards, heights 1-7, the K7 sweeps
+# of one temperature at iters_per_temp 1, 8 and 12
+HALO_ROUTE_CASES = [(1, 7, 1), (2, 1, 8), (2, 5, 12), (4, 3, 8), (4, 6, 1),
+                    (4, 7, 12), (8, 2, 12), (8, 4, 8)]
+
+
+@pytest.mark.parametrize("n_shards,rows,n_sweeps", HALO_ROUTE_CASES)
+def test_halo_entries_match_per_shard_route(n_shards, rows, n_sweeps):
+    """The new entries' plain route against the per-shard route they
+    replaced (each sweep or phase `extend_rows` by one row, then the
+    one-shard plain step on every shard, then `count_nonzero`), bitwise:
+    K7's ``n_sweeps`` sweeps, and as many K8 sweeps, each with its changed
+    count; on a ragged width (37 columns), K=3."""
+    rng = np.random.default_rng(100 * n_shards + rows)
+    K, H, W = 3, n_shards * rows, 37
+    q, base, w, labels = _stencil_inputs(rng, K=K, H=H, W=W)
+    unary = _t(rng.random((1, K, H, W)).astype(np.float32))
+    mask = _t((rng.random((1, H, W)) > 0.1).astype(np.int32))
+    q, base, w, labels = (_t(x[None]) for x in (q, base, w, labels))
+    T, damp, beta = 0.5, 0.5, 0.8
+    src = row_sources(["cpu"] * n_shards, [rows] * n_shards)
+    w_ext = halo.extend_rows(_shards(w, n_shards))
+    row0 = [i * rows for i in range(n_shards)]
+
+    got = mf_sweeps_halo(_shards(q, n_shards), _shards(base, n_shards),
+                         w_ext, T, damp, beta, n_sweeps=n_sweeps,
+                         sources=src)
+    want = _shards(q, n_shards)
+    for _ in range(n_sweeps):
+        want = [mf_sweep_halo_plain(qe, b, we, T, damp, beta)
+                for qe, b, we in zip(halo.extend_rows(want),
+                                     _shards(base, n_shards), w_ext)]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    got = [x.clone() for x in _shards(labels, n_shards)]
+    want = _shards(labels, n_shards)
+    args = (_shards(unary, n_shards), w_ext, _shards(mask, n_shards), beta)
+    for sweep in range(n_sweeps):
+        changed = {torch.device("cpu"): torch.zeros((), dtype=torch.int32)}
+        icm_sweep_halo_(got, *args, changed, row0=row0, sources=src)
+        count = 0
+        for a in (0, 1):
+            for b in (0, 1):
+                ext = halo.extend_rows(want)
+                new = [icm_phase_halo_plain(le, u, we, m, beta,
+                                            (a + r0) % 2, b)[:, 1:-1]
+                       for le, u, we, m, r0 in zip(ext, *args[:3], row0)]
+                count += sum(int(torch.count_nonzero(x != y))
+                             for x, y in zip(new, want))
+                want = new
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), sweep
+        assert int(changed[torch.device("cpu")]) == count, sweep
+
+
+def test_row_source_tables():
+    """The row-source table without a card: a mesh dealt round-robin over
+    two device labels reads every neighbour row remotely, over one label
+    in place (one launch a device then chains the sweeps); the ends have no
+    source; the rows are the neighbour's last (above) and first (below).
+    The shards group by device, and a source read in place on another
+    device is refused."""
+    heights = [3, 5, 2, 4]
+    one = row_sources(["d0"] * 4, heights)
+    two = row_sources(["d0", "d1"] * 2, heights)
+    assert one[0][0] is None and one[-1][1] is None
+    assert two[0][0] is None and two[-1][1] is None
+    for i in range(1, 4):
+        assert one[i][0] == RowSource(i - 1, heights[i - 1] - 1, False)
+        assert two[i][0] == RowSource(i - 1, heights[i - 1] - 1, True)
+    for i in range(3):
+        assert one[i][1] == RowSource(i + 1, 0, False)
+        assert two[i][1] == RowSource(i + 1, 0, True)
+    mixed = row_sources(["d0", "d0", "d1", "d1"], heights)
+    assert [(u is not None and u.remote, d is not None and d.remote)
+            for u, d in mixed] == [(False, False), (False, True),
+                                   (True, False), (False, False)]
+    with pytest.raises(ValueError):
+        row_sources(["d0"] * 3, heights)
+
+    assert is_chained(one) and not is_chained(two)
+    assert not is_chained(mixed)
+    # a source read in place must lie on its shard's device
+    xs = [torch.zeros(1, h, 4, device=d) for h, d in
+          zip(heights, ["cpu", "cpu", "meta", "meta"])]
+    with pytest.raises(ValueError, match="remote"):
+        device_groups(xs, one)
+    groups = device_groups(xs, mixed)
+    assert groups == {torch.device("cpu"): [0, 1],
+                      torch.device("meta"): [2, 3]}
 
 
 # ----------------------------------------------------- the spatial E-step --

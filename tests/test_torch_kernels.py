@@ -394,7 +394,7 @@ def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
     counters = (mf_kernels.mf_sweeps, icm_kernels.icm_phase_,
                 icm_kernels.icm_sweep_pair,
                 finish_kernels.potts_energy, finish_kernels.finish_stats,
-                mf_kernels.mf_sweep_halo, icm_kernels.icm_phase_halo_)
+                mf_kernels.mf_sweeps_halo, icm_kernels.icm_sweep_halo_)
     before = [f.launches for f in counters]
     wm, mask, img_f, logprob_k, labels = _finish_problem(rng, R=1)
     mf_kernels.mf_sweeps(_t(-logprob_k), _t(-logprob_k), _t(wm), 1.0, 0.5,
@@ -412,12 +412,16 @@ def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
                                 _t(wm), 1.0)
     finish_kernels.finish_stats(_t(logprob_k), _t(img_f), _t(mask),
                                 _t(labels), _t(wm), 1.0, SMALL_EPS)
-    pad = (0, 0, 1, 1)   # one zero halo row on each side
-    wm_ext = torch.nn.functional.pad(_t(wm), pad)
-    mf_kernels.mf_sweep_halo(torch.nn.functional.pad(_t(-logprob_k), pad),
-                             _t(-logprob_k), wm_ext, 1.0, 0.5, 1.0)
-    icm_kernels.icm_phase_halo_(torch.nn.functional.pad(_t(labels), pad),
-                                _t(-logprob_k), wm_ext, _t(mask), 1.0, 1, 0)
+    # one row shard: one zero halo row of weights on each side
+    from phylo_hmrf_tpu_torch.ops.halo_rows import row_sources
+    wm_ext = torch.nn.functional.pad(_t(wm), (0, 0, 1, 1))
+    src = row_sources(["cpu"], [labels.shape[-2]])
+    mf_kernels.mf_sweeps_halo([_t(-logprob_k)], [_t(-logprob_k)], [wm_ext],
+                              1.0, 0.5, 1.0, n_sweeps=2, sources=src)
+    changed = {torch.device("cpu"): torch.zeros((), dtype=torch.int32)}
+    icm_kernels.icm_sweep_halo_([_t(labels.copy())], [_t(-logprob_k)],
+                                [wm_ext], [_t(mask)], 1.0, changed, row0=[1],
+                                sources=src)
     assert [f.launches for f in counters] == before
 
 
