@@ -25,6 +25,19 @@ time, host reads per move), and fits the chr21 problem
 default config (``final_polish=True``, ``polish_method="expansion"``)
 through ``PhyloHMRF.fit`` and checks the result.
 
+The command line drives the same problem from files (``[cli]``): the
+port's writer puts a chr21-scale input (657 bins, 4 species, ~194k contact
+rows a species) in the reference's layout into a fresh temporary working
+directory, and ``phylo_hmrf_tpu_torch.cli.main`` runs the default config
+on it (5 iterations, K=10, seed 0) with a checkpoint every 2 iterations
+and a run artifact: K1-K6 launched, the C++ hole fill, the ``.mat`` keys,
+its 213,531 samples and ``cost1 == pairwise + unary``, the artifact's
+backend and card. Then (``[resume]``) garbage is appended to the
+checkpoint's ``.hist`` and ``python -m phylo_hmrf_tpu_torch.cli`` reruns
+with the same flags and ``--reload 1`` in a subprocess: it resumes from
+iteration 4 and writes bitwise the first run's ``cost_vec`` and
+``state_vec``.
+
 The multi-device paths run over a mesh of 4 shards (all on the one card
 when it is the only one): the row-shard kernels K7 (mean-field sweeps)
 and K8 (ICM phases), one launch over the 4 shards of the card, bitwise
@@ -64,6 +77,7 @@ that.
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -308,7 +322,7 @@ def check_kernels(x, beta=1.0):
     return out
 
 
-def launch_counts():
+def launch_counts(attempts=3):
     """K3's and K4's kernel launches in one call (one labeling, the pair,
     K4) on the chr21, K=30 and 10 kb operands, and K7's and K8's in one
     unit on the spatial fit's off-diagonal block (8 sweeps, a sweep) and
@@ -317,13 +331,25 @@ def launch_counts():
     ``--count-launches``). In this run's process they cannot be: once a
     process has launched many kernels outside a profiler session, a
     session of one short kernel mostly records no device event
-    (``tools/profiler_probe.py``). {point: {entry: [launches, names]}}."""
-    res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--count-launches"], capture_output=True,
-                         text=True, cwd=REPO)
+    (``tools/profiler_probe.py``). A fresh process can go blind too: a
+    run whose profiler recorded no device event is repeated in another
+    fresh process, at most ``attempts`` runs in all; any other failure,
+    or a blind last run, fails. {point: {entry: [launches, names]},
+    "blind_runs": n}."""
+    for attempt in range(attempts):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--count-launches"], capture_output=True,
+                             text=True, cwd=REPO)
+        blind = "recorded no device event" in res.stderr
+        if res.returncode == 0 or not blind or attempt == attempts - 1:
+            break
+        print(f"[launch_counts] run {attempt + 1}: the profiler recorded "
+              f"no device event; again in a fresh process")
     _check(res.returncode == 0, "the launch count failed:\n"
            f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
-    return json.loads(res.stdout.strip().splitlines()[-1])
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    out["blind_runs"] = attempt
+    return out
 
 
 def count_launches_main() -> int:
@@ -1354,6 +1380,110 @@ def spatial_fit(mesh, device, max_iter=3):
     return res, model, launches, grids, rec, np.concatenate([true_d, true_o])
 
 
+CLI_FLAGS = ["-n", "10", "-p", "input", "--chromvec", "21", "--miter", "5",
+             "--seed", "0", "--output", "out", "--checkpoint", "ck.npz",
+             "--checkpoint_every", "2", "--run_json", "run.json"]
+
+
+def check_cli():
+    """``[cli]`` and ``[resume]``: the command line at chr21 scale in a
+    fresh temporary working directory, with the launch counters set to 0
+    just before ``cli.main`` and read just after, then the resumed rerun
+    in a subprocess. Returns the launches of the command line's fit."""
+    import numpy as np
+    import scipy.io
+    import torch
+
+    from phylo_hmrf_tpu_torch import cli, native
+    from phylo_hmrf_tpu_torch.data import filters
+    from phylo_hmrf_tpu_torch.synth import CHR21_H0, write_example
+
+    n_samples = CHR21_H0 * (CHR21_H0 + 1) // 2
+    work = tempfile.mkdtemp(prefix="phmrf_cli_")
+    cwd = os.getcwd()
+    os.chdir(work)   # chrom_quantile_test.txt lands here
+    try:
+        t0 = time.perf_counter()
+        write_example("input", n_bins=CHR21_H0 + 4, n_states=10,
+                      chroms=(21,), seed=0)
+        write_s = time.perf_counter() - t0
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        fills = filters.hole_fill.calls
+        t0 = time.perf_counter()
+        out_file = cli.main(CLI_FLAGS)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        fills = filters.hole_fill.calls - fills
+        for name in list(KERNELS)[:6]:
+            _check(launches[name] > 0,
+                   f"{name} never launched on the command line's path")
+        _check(fills == 4, f"{fills} C++ hole fills, expected one a species")
+        mat = scipy.io.loadmat(out_file)
+        for key in ("state_vec", "len_vec", "params_vec1", "params_vec2",
+                    "iter_id1", "iter_id2", "cost_vec"):
+            _check(key in mat, f".mat lacks {key}")
+        cv = mat["cost_vec"]
+        _check(int(mat["len_vec"][0, 0]) == n_samples,
+               f"len_vec {mat['len_vec'][0, 0]} samples, not {n_samples}")
+        _check(mat["state_vec"].size == n_samples, "state_vec size")
+        _check(cv.shape == (5, 4) and np.isfinite(cv).all(),
+               f"cost_vec {cv.shape} not 5 finite rows")
+        _check(np.allclose(cv[:, 3], cv[:, 1] + cv[:, 2], rtol=1e-6, atol=0),
+               "cost1 != pairwise + unary")
+        with open("run.json") as f:
+            doc = json.load(f)
+        env = doc["environment"]
+        _check(env["backend"] == "cuda", f"run.json backend {env}")
+        _check(env["device_kind"] == torch.cuda.get_device_name(0),
+               f"run.json device_kind {env}")
+        _check(os.path.exists("ck.npz") and os.path.exists("ck.npz.hist"),
+               "no checkpoint written")
+        rec = dict(wall_s=wall, write_input_s=write_s,
+                   walls_s=doc["walls_s"], phases=doc["phase_timings"],
+                   launches=launches,
+                   hole_fill=dict(route="C++ (native/gridops.cc)",
+                                  calls=fills,
+                                  library=os.path.basename(native.build())),
+                   n_samples=doc["n_samples"], x_max=doc["x_max"],
+                   hbm_peak_bytes=doc["hbm_peak_bytes"], environment=env,
+                   cost_vec=cv.tolist())
+        print(f"[cli] {json.dumps(rec)}")
+
+        with open("ck.npz.hist", "ab") as f:
+            f.write(b"garbage: the tail of a save that never finished")
+        env_vars = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "phylo_hmrf_tpu_torch.cli", *CLI_FLAGS,
+             "--reload", "1"], cwd=work, env=env_vars, capture_output=True,
+            text=True, timeout=600)
+        resume_s = time.perf_counter() - t0
+        _check(proc.returncode == 0, f"the resumed run exited {proc.returncode}"
+                                     f":\n{proc.stderr[-3000:]}")
+        _check("[resume] from iter 4" in proc.stdout,
+               f"no '[resume] from iter 4':\n{proc.stdout[-3000:]}")
+        _check("cache missing" not in proc.stdout, "the cache was not read")
+        mat2 = scipy.io.loadmat(out_file)
+        for key in ("cost_vec", "state_vec"):
+            _check(np.array_equal(mat2[key], mat[key]),
+                   f"resumed {key} differs from the uninterrupted run's")
+        with open("run.json") as f:
+            doc2 = json.load(f)
+        rec = dict(wall_s=resume_s, walls_s=doc2["walls_s"],
+                   phases=doc2["phase_timings"],
+                   stdout=[ln for ln in proc.stdout.splitlines()
+                           if ln.startswith(("[resume]", "[iter", "x_max"))],
+                   bitwise=["cost_vec", "state_vec"])
+        print(f"[resume] {json.dumps(rec)}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1438,6 +1568,8 @@ def main() -> int:
                polish=polish, phases=summ, launches=launches,
                best_match_accuracy=acc, cost_vec=res.cost_vec.tolist())
     print(f"[fit] {json.dumps(fit)}")
+    # the command line's path: the same fit from files, then its resume
+    cli_launches = check_cli()
     # after the fit: a profiler run can leave host overhead on later
     # launches, and the fit's host-bound phases would pay it
     print(f"[polish_profile] "
@@ -1534,7 +1666,7 @@ def main() -> int:
         k = kernels[name] = _with_bound(kernels[name])
         bound_ms, bound_by = k["bound_ms"], k["bound_by"]
         path_launches = slaunches if name.startswith(("K7", "K8")) else \
-            launches
+            cli_launches
         # units of the timed work per fit, and the ms they lose to the
         # bound: the ranking of the kernels to redesign
         units = path_launches[name] / k["launches_per_unit"]

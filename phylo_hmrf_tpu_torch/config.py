@@ -193,3 +193,4 @@ class PhyloHMRFConfig:
 
 
 SMALL_EPS = 1e-16  # matches the reference's global `small_eps`
+THRESH1 = 1e-5     # "missing pixel" threshold (reference `utility.py:47`)

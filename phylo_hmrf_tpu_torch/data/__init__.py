@@ -1,1 +1,3 @@
-"""Region grids (the port's copy of ``phylo_hmrf_tpu/data/regions.py``)."""
+"""The data loader: the port's copies of ``phylo_hmrf_tpu/data/``
+(``regions``, ``synteny``, ``contacts`` with a numpy reader, ``filters``
+and ``pipeline``), numpy only."""

@@ -33,17 +33,22 @@ to float rounding.
 With a mesh, the init, the M-step and the final polish run on the mesh's
 first device, which also keeps each whole region bucket for the polish.
 
+``fit(checkpoint_path=..., resume=True)`` saves and resumes the EM state
+in the JAX engine's checkpoint format (``utils/checkpoint.py``), so a
+checkpoint of either package resumes in the other.
+
 What raises rather than running: any labeler but ``mf_icm``,
-``dtype="float64"``, ``kmeans_backend="sklearn"`` and checkpoint/resume
-arguments to ``fit``. Config fields read by the JAX
-engine only to work around XLA or a remote TPU have no counterpart here;
-each is noted where the JAX engine reads it (see `_check_config`).
+``dtype="float64"`` and ``kmeans_backend="sklearn"``. Config fields read
+by the JAX engine only to work around XLA or a remote TPU have no
+counterpart here; each is noted where the JAX engine reads it (see
+`_check_config`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import types
 from typing import Sequence
 
 import numpy as np
@@ -69,6 +74,7 @@ from phylo_hmrf_tpu_torch.parallel.mesh import Mesh
 from phylo_hmrf_tpu_torch.parallel.sharding import (
     device_put_bucket, make_sharded_estep, pad_bucket_to_devices)
 from phylo_hmrf_tpu_torch.tree import PhyloTree
+from phylo_hmrf_tpu_torch.utils import checkpoint as ckpt
 from phylo_hmrf_tpu_torch.utils.profiling import ConvergenceMonitor, PhaseTimer
 
 
@@ -616,11 +622,14 @@ class PhyloHMRF:
             resume: bool = False, patience: int | None = None,
             track_states: bool = False, monitor=None,
             cost_log: str | None = None) -> FitResult:
-        """The sequential EM loop of the JAX engine's ``fit``."""
-        if checkpoint_path is not None or resume:
-            raise NotImplementedError(
-                "checkpoint/resume is not ported yet")
-        del checkpoint_every
+        """The sequential EM loop of the JAX engine's ``fit``.
+
+        With ``checkpoint_path``, the EM state is saved after the M-step of
+        every ``checkpoint_every``-th iteration: the per-iteration rows go
+        to the append-only ``.hist`` sidecar, then the npz is replaced
+        atomically. ``resume=True`` continues from that file when it
+        exists (the numpy RNG included; the torch generator feeds only
+        ``initialize``, which a resume skips)."""
         cfg = self.cfg
         patience = cfg.patience if patience is None else patience
         state_list = [] if track_states else None
@@ -629,25 +638,57 @@ class PhyloHMRF:
                                          log_file=cost_log)
         self.monitor_ = monitor
         self.timer = PhaseTimer()
-        if self.params_vec is None:
-            t0 = time.time()
-            with self.timer.phase("init"):
-                self.initialize()
+        it_start = 0
+        restored = None
+        if resume and checkpoint_path is not None:
+            restored = ckpt.load_checkpoint(checkpoint_path)
+        if restored is not None:
+            arrays, meta = restored
+            book = ckpt.restore_model(self, arrays, meta)
+            it_start = int(book["iter"]) + 1
+            prev = np.asarray(book["prev"])
+            cost_rows = [list(r) for r in book["cost_rows"]]
+            min_cost = list(book["min_cost"])
+            min_cost1 = list(book["min_cost1"])
+            params_best = arrays["params_best"].copy()
+            params_best1 = arrays["params_best1"].copy()
+            # the per-iteration rows live in the sidecar; the npz's offset
+            # is authoritative (a partial tail is cut at the next save)
+            hist_offset = int(book["hist_offset"])
+            hist_states = bool(book["hist_states"])
+            recs = ckpt.read_history(checkpoint_path, int(book["hist_count"]),
+                                     2 if hist_states else 1)
+            params_list = [r[0] for r in recs]
+            if track_states and hist_states:
+                state_list = [r[1] for r in recs]
+            t_label_grids = [_regrid(r, arrays[f"t_labels_{i}"])
+                             for i, r in enumerate(self.regions)]
+            n_iters = it_start
             if verbose:
-                print(f"[init] k-means + OU init in {time.time() - t0:.2f}s")
-        prev = np.array([1e-3, 1e-3, 1e-3])   # pairwise/unary/cost1 "pre"
-        cost_rows = []
-        params_list = []
-        min_cost = [0, 1000.0]
-        min_cost1 = [0, 1000.0]
-        params_best = self.params_vec.copy()
-        params_best1 = self.params_vec.copy()
-        t_label_grids = list(self.labels_local)
-        n_iters = 0
+                print(f"[resume] from iter {it_start}")
+        else:
+            if self.params_vec is None:
+                t0 = time.time()
+                with self.timer.phase("init"):
+                    self.initialize()
+                if verbose:
+                    print(f"[init] k-means + OU init in "
+                          f"{time.time() - t0:.2f}s")
+            prev = np.array([1e-3, 1e-3, 1e-3])  # pairwise/unary/cost1 "pre"
+            cost_rows = []
+            params_list = []
+            min_cost = [0, 1000.0]
+            min_cost1 = [0, 1000.0]
+            params_best = self.params_vec.copy()
+            params_best1 = self.params_vec.copy()
+            t_label_grids = list(self.labels_local)
+            n_iters = 0
+            hist_offset = 0   # fresh run: the first save truncates a stale log
+        hist_pending = []
         ratio_vec = (self.len_vec[:, 0].astype(np.float64)
                      / self.n_samples_total)
 
-        for it in range(cfg.max_iter):
+        for it in range(it_start, cfg.max_iter):
             t0 = time.time()
             with self.timer.phase("estep"):
                 label_grids, stats, costs, _ = self.estep(
@@ -670,9 +711,12 @@ class PhyloHMRF:
             monitor.report(it, pairwise_cost, unary_cost, cost1)
             cost_rows.append([it, pairwise_cost, unary_cost, cost1])
             params_list.append(self.params_vec.copy())
+            hist_rec = [params_list[-1]]
             n_iters = it + 1
             if track_states:
                 state_list.append(self._flat_labels(label_grids))
+                hist_rec.append(state_list[-1])
+            hist_pending.append(hist_rec)
 
             if verbose:
                 print(f"[iter {it:3d}] pairwise={pairwise_cost:.6f} "
@@ -704,6 +748,26 @@ class PhyloHMRF:
             if verbose:
                 print(f"[iter {it:3d}] mstep={time.time() - t2:.2f}s")
 
+            if (checkpoint_path is not None
+                    and (it + 1) % checkpoint_every == 0):
+                # the post-M-step state; only the rows added since the last
+                # save go to the sidecar, then the npz points at them
+                hist_offset = ckpt.append_history(
+                    checkpoint_path, hist_pending, truncate_to=hist_offset)
+                hist_pending = []
+                extra = {"params_best": params_best,
+                         "params_best1": params_best1}
+                for ri, g in enumerate(t_label_grids):
+                    extra[f"t_labels_{ri}"] = _host_labels(g)
+                ckpt.save_checkpoint(
+                    checkpoint_path, self._host_state(),
+                    {"iter": it, "prev": prev, "cost_rows": cost_rows,
+                     "min_cost": min_cost, "min_cost1": min_cost1,
+                     "hist_count": len(params_list),
+                     "hist_offset": hist_offset,
+                     "hist_states": bool(track_states)},
+                    extra)
+
         # restore: params_vec1 = best-from-3; moments from the overall best
         self.params_vec = params_best1.copy()
         self.means_, self.covars_ = self._moments_np(params_best)
@@ -728,8 +792,33 @@ class PhyloHMRF:
             n_iters=n_iters,
             state_list=(np.asarray(state_list) if track_states else None))
 
+    def _host_state(self):
+        """What ``utils/checkpoint.py::save_checkpoint`` reads of the model,
+        with the label grids (device tensors after an E-step) as host
+        int32 arrays."""
+        return types.SimpleNamespace(
+            params_vec=self.params_vec, init_ou_params=self.init_ou_params,
+            means_=self.means_, covars_=self.covars_,
+            init_labels=self.init_labels,
+            labels_local=[_host_labels(g) for g in self.labels_local],
+            _rng=self._rng, cfg=self.cfg)
+
     def _flat_labels(self, grids) -> np.ndarray:
         if not self.regions:
             return np.zeros(0, np.int32)
         return np.concatenate([r.labels_to_flat(_to_numpy(g))
                                for r, g in zip(self.regions, grids)])
+
+
+def _host_labels(grid) -> np.ndarray:
+    """A label grid (device tensor or array) as a host int32 array."""
+    return _to_numpy(grid).astype(np.int32)
+
+
+def _regrid(region: RegionGrid, grid: np.ndarray) -> np.ndarray:
+    """A saved label grid on ``region``'s padded shape: a grid saved under
+    other padding goes through the padding-invariant flat samples, as
+    ``utils/checkpoint.py::restore_model`` does for the warm labels."""
+    if tuple(grid.shape) == tuple(region.shape):
+        return grid.copy()
+    return region.labels_to_grid(grid[region.flat_rows, region.flat_cols])

@@ -1,11 +1,14 @@
-"""The host C++ graph-cut oracle: lazy g++ build and ctypes bindings.
+"""The host C++ library: the graph-cut oracle and the data loader's hole
+fill, built with g++ at first use, bound with ctypes.
 
 ``maxflow.cc`` is a copy of ``phylo_hmrf_tpu/native/maxflow.cc`` (exact
 alpha-expansion by Boykov-Kolmogorov max flow on a general graph, and the
 weighted-Potts energy, in float64). The port holds its exact polish to it.
-The library is built with g++ at first use into ``native/build/``
-(git-ignored), named by a hash of the source and flags, so an edited
-source rebuilds and a stale library is never loaded. A failed build raises.
+``gridops.cc`` is a copy of ``phylo_hmrf_tpu/native/gridops.cc``: the
+reference's sequential median hole fill (``data/filters.py::hole_fill``).
+Both build into one library in ``native/build/`` (git-ignored), named by a
+hash of the sources and flags, so an edited source rebuilds and a stale
+library is never loaded. A failed build raises `NativeBuildError`.
 """
 
 from __future__ import annotations
@@ -20,8 +23,13 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "maxflow.cc")
+SOURCES = [SOURCE, os.path.join(_DIR, "gridops.cc")]
 BUILD_DIR = os.path.join(_DIR, "build")
 FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+# hole-fill variant -> entry point (reference near_interpolation1,
+# near_interpolation1a, near_interpolation2)
+HOLE_FILLS = {"sym": "phmrf_hole_fill_sym", "rect": "phmrf_hole_fill_rect",
+              "sym2": "phmrf_hole_fill_sym2"}
 _lock = threading.Lock()
 _lib = None
 
@@ -31,24 +39,26 @@ class NativeBuildError(RuntimeError):
 
 
 def build() -> str:
-    """Compile the oracle if no library for the current source exists;
+    """Compile the library if none for the current sources exists;
     returns its path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            digest.update(f.read())
     path = os.path.join(BUILD_DIR,
-                        f"libphmrf_oracle_{digest.hexdigest()[:16]}.so")
+                        f"libphmrf_native_{digest.hexdigest()[:16]}.so")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     try:
-        subprocess.run(["g++", *FLAGS, "-o", tmp, SOURCE], check=True,
+        subprocess.run(["g++", *FLAGS, "-o", tmp, *SOURCES], check=True,
                        capture_output=True, text=True)
         os.replace(tmp, path)   # atomic: no reader sees half a library
     except FileNotFoundError as e:
         raise NativeBuildError("g++ not available") from e
     except subprocess.CalledProcessError as e:
-        raise NativeBuildError(f"oracle build failed:\n{e.stderr}") from e
+        raise NativeBuildError(f"native build failed:\n{e.stderr}") from e
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -56,7 +66,7 @@ def build() -> str:
 
 
 def load() -> ctypes.CDLL:
-    """Build (if needed) and load the oracle; cached per process."""
+    """Build (if needed) and load the library; cached per process."""
     global _lib
     with _lock:
         if _lib is None:
@@ -71,6 +81,10 @@ def load() -> ctypes.CDLL:
             lib.phmrf_potts_expansion.restype = i32
             lib.phmrf_potts_expansion.argtypes = [
                 i64, i64, i64p, f64p, f64p, i32, ctypes.c_double, i32, i32p]
+            for name in HOLE_FILLS.values():
+                fn = getattr(lib, name)
+                fn.restype = None
+                fn.argtypes = [f64p, i64, i64, ctypes.c_double, i32]
             _lib = lib
     return _lib
 
@@ -111,3 +125,14 @@ def potts_expansion(edges: np.ndarray, weights: np.ndarray,
         n, edges.shape[0], e_p, w_p, u_p, k, beta, max_cycles,
         labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
     return labels
+
+
+def hole_fill(mtx: np.ndarray, variant: str, threshold: float) -> None:
+    """The sequential median hole fill of ``gridops.cc``, in place on a
+    C-contiguous float64 (H, W) array; ``variant`` is a key of
+    `HOLE_FILLS`."""
+    if mtx.dtype != np.float64 or not mtx.flags.c_contiguous:
+        raise ValueError("hole_fill needs a C-contiguous float64 array")
+    fn = getattr(load(), HOLE_FILLS[variant])
+    fn(mtx.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), mtx.shape[0],
+       mtx.shape[1], threshold, 3)

@@ -7,9 +7,14 @@ The same generator as ``bench.py`` (``_bench_tree_and_moments`` and
 ``_sample_blocky``): blocky true labels, per-state Gaussian emissions
 with OU moments of separated states, and a 15%-corrupted warm start. It is
 numpy only, so it runs where JAX is not installed.
+
+`write_example` writes the same kind of data as files in the reference's
+input layout, for the command line (``python -m phylo_hmrf_tpu_torch.cli``).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -22,10 +27,15 @@ CHR21_K = 10
 CHR21_F = 4
 
 
-def bench_tree():
+TREE_EDGES = [(0, 1), (1, 2), (1, 3), (3, 4), (4, 5), (4, 6), (3, 7)]
+BRANCH_LENGTHS = [0, 32, 20, 6, 6, 6, 12]
+SPECIES = ["speciesA", "speciesB", "speciesC", "speciesD"]
+
+
+def bench_tree(species=()):
     """The 4-species tree of the benchmark."""
-    return build_tree([(0, 1), (1, 2), (1, 3), (3, 4), (4, 5), (4, 6),
-                       (3, 7)], branch_lengths=[0, 32, 20, 6, 6, 6, 12])
+    return build_tree(TREE_EDGES, branch_lengths=BRANCH_LENGTHS,
+                      species=species)
 
 
 def ou_moments_np(p, tree):
@@ -129,3 +139,63 @@ def kernel_inputs(region, means, covs, warm_flat, device, beta=1.0,
         img=img, img_f=img.permute(0, 3, 1, 2).contiguous(),
         q0=torch.softmax(-unary_k, dim=1).contiguous(),
         base=(unary_k + beta * wsum[:, None]).contiguous())
+
+
+def write_example(out: str, n_bins: int = 120, n_states: int = 5,
+                  chroms=(21, 22), seed: int = 0,
+                  resolution: int = 50000) -> list:
+    """Write a synthetic dataset in the reference's input layout into
+    ``out``: ``edge.1.txt``, ``branch_length.1.txt``,
+    ``species_name.1.txt``, ``path_list.txt`` (absolute species
+    directories), ``hg38.chrom.sizes``, ``hic_<species>/chrN.<kb>K.txt``
+    (start1, start2 in bp, value as ``%.4f``; a random 10% of the upper
+    triangle dropped) and ``chrN.synteny.txt`` (one block, bins
+    [2, n_bins - 2)), the files ``examples/make_synthetic_example.py``
+    writes. The states are blocky (24-bin blocks), the values a distance
+    decay times OU-Gaussian signal per state and species. One diagonal
+    region of ``n_bins - 4`` bins a chromosome: ``n_bins=657`` gives the
+    chr21 cell's 653 x 653 region. Returns the species directories."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(out, exist_ok=True)
+    tree = bench_tree(SPECIES)
+    with open(os.path.join(out, "edge.1.txt"), "w") as f:
+        f.write("".join(f"{a}\t{b}\n" for a, b in TREE_EDGES))
+    with open(os.path.join(out, "branch_length.1.txt"), "w") as f:
+        f.write("\t".join(str(v) for v in BRANCH_LENGTHS) + "\n")
+    with open(os.path.join(out, "species_name.1.txt"), "w") as f:
+        f.write("\n".join(SPECIES) + "\n")
+    paths = [os.path.abspath(os.path.join(out, f"hic_{s}")) for s in SPECIES]
+    for d in paths:
+        os.makedirs(d, exist_ok=True)
+    with open(os.path.join(out, "path_list.txt"), "w") as f:
+        f.write("\n".join(paths) + "\n")
+    with open(os.path.join(out, "hg38.chrom.sizes"), "w") as f:
+        f.write("".join(f"chr{c}\t{n_bins * resolution}\n" for c in chroms))
+
+    # per-state OU params with spread optima
+    K = n_states
+    params = rng.random((K, tree.n_params)) * 0.5 + 0.2
+    for c in range(K):
+        params[c, tree.n_params - tree.n_nodes:] = 0.8 * c / K + 0.4
+    moments = [ou_moments_np(params[c], tree) for c in range(K)]
+    means = np.array([m for m, _ in moments])                   # (K, F)
+    var = np.array([np.diag(v) for _, v in moments]) + 1e-3     # (K, F)
+
+    ii, jj = np.triu_indices(n_bins)
+    lab = (ii // 24 + jj // 24) % K
+    decay = np.exp(-0.05 * (jj - ii))
+    for c in chroms:
+        for si, d in enumerate(paths):
+            sig = np.expm1(np.abs(
+                means[lab, si]
+                + rng.standard_normal(ii.shape[0]) * np.sqrt(var[lab, si])))
+            values = 50.0 * decay * (0.3 + sig)
+            keep = rng.random(ii.shape[0]) > 0.1
+            np.savetxt(os.path.join(d, f"chr{c}.{resolution // 1000}K.txt"),
+                       np.stack([ii[keep] * resolution, jj[keep] * resolution,
+                                 values[keep]], axis=1),
+                       fmt=["%d", "%d", "%.4f"], delimiter="\t")
+        start, stop = 2 * resolution, (n_bins - 2) * resolution
+        with open(os.path.join(out, f"chr{c}.synteny.txt"), "w") as f:
+            f.write(f"{start}\t{stop}\t{stop - start}\n")
+    return paths

@@ -1,6 +1,7 @@
 """Host helpers of the port: the ``.mat`` writers (``io``), the phase
-timer and convergence monitor (``profiling``) and ``best_match_accuracy``
-(``metrics``)."""
+timer, convergence monitor and trace scope (``profiling``),
+``best_match_accuracy`` (``metrics``) and EM checkpoints
+(``checkpoint``)."""
 
 from phylo_hmrf_tpu_torch.utils.io import load_estimate, save_estimate
 from phylo_hmrf_tpu_torch.utils.metrics import best_match_accuracy

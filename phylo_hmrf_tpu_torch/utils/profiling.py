@@ -1,12 +1,14 @@
 """Per-phase timers and the EM convergence monitor — the port's own copy
 of ``PhaseTimer`` and ``ConvergenceMonitor`` from
-``phylo_hmrf_tpu/utils/profiling.py``.
+``phylo_hmrf_tpu/utils/profiling.py`` — and `torch_trace`, the
+counterpart of its ``jax_trace``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 from collections import defaultdict
 
@@ -82,3 +84,23 @@ class ConvergenceMonitor:
             return False
         return self.history[-1][0] - self.best[0] > self.patience
 
+
+@contextlib.contextmanager
+def torch_trace(log_dir: str | None):
+    """``torch.profiler`` scope over the host and, where CUDA is present,
+    the device; writes a Chrome trace (``trace_<pid>.json``) into
+    ``log_dir`` on exit. No-op when log_dir is empty."""
+    if not log_dir:
+        yield
+        return
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    path = os.path.join(log_dir, f"trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    print(f"trace -> {path}")

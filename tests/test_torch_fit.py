@@ -219,14 +219,21 @@ def test_unsupported_config_raises(kw):
 
 def test_unsupported_run_options_raise(tmp_path):
     """A mesh that is not the port's `Mesh` raises (meshes from
-    `parallel.mesh.make_mesh` run: tests/test_torch_halo.py), and so do
-    the checkpoint/resume arguments of fit."""
+    `parallel.mesh.make_mesh` run: tests/test_torch_halo.py), and the
+    command line refuses what the port does not run, before it reads any
+    input: multi-process runs and the labelers other than ``mf_icm``
+    (checkpoint/resume runs: tests/test_torch_cli.py)."""
+    from phylo_hmrf_tpu_torch.cli import main
+
     regions, _ = synth_problem(np.random.default_rng(0), H0=8)
     cfg = PhyloHMRFConfig(final_polish=False, n_states=3)
     with pytest.raises(TypeError, match="make_mesh"):
         PhyloHMRF(TREE, regions, cfg, mesh=object(), device="cpu")
-    model = PhyloHMRF(TREE, regions, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        model.fit(checkpoint_path=os.path.join(str(tmp_path), "ck.npz"))
-    with pytest.raises(NotImplementedError):
-        model.fit(resume=True)
+    base = ["-p", str(tmp_path / "absent"), "--output", str(tmp_path),
+            "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="multi-process"):
+        main(base + ["--num_processes", "2"])
+    with pytest.raises(NotImplementedError, match="multi-process"):
+        main(base + ["--coordinator", "localhost:1234"])
+    with pytest.raises(NotImplementedError, match="swap_tpu"):
+        main(base + ["--labeler", "swap_tpu"])

@@ -495,12 +495,18 @@ def test_port_imports_no_jax():
         "p.__name__ + '.')]\n"
         "mods = [importlib.import_module(n) for n in names]\n"
         "mods.append(importlib.import_module('chip_smoke'))\n"
-        "assert len(names) >= 24, names\n"
+        "assert len(names) >= 30, names\n"
         "assert {'phylo_hmrf_tpu_torch.parallel.halo', "
         "'phylo_hmrf_tpu_torch.parallel.sharding', "
         "'phylo_hmrf_tpu_torch.native', 'phylo_hmrf_tpu_torch.config', "
         "'phylo_hmrf_tpu_torch.tree', "
-        "'phylo_hmrf_tpu_torch.data.regions'} <= set(names)\n"
+        "'phylo_hmrf_tpu_torch.data.regions', "
+        "'phylo_hmrf_tpu_torch.cli', "
+        "'phylo_hmrf_tpu_torch.data.pipeline', "
+        "'phylo_hmrf_tpu_torch.data.contacts', "
+        "'phylo_hmrf_tpu_torch.data.filters', "
+        "'phylo_hmrf_tpu_torch.data.synteny', "
+        "'phylo_hmrf_tpu_torch.utils.checkpoint'} <= set(names)\n"
         "for m in mods:\n"
         "    tree = ast.parse(pathlib.Path(m.__file__).read_text())\n"
         "    for node in ast.walk(tree):\n"
@@ -521,16 +527,20 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("part", ["dirs", "regions", "tree", "config",
-                                  "mat_roundtrip", "oracle"])
+                                  "mat_roundtrip", "oracle", "synteny",
+                                  "checkpoint", "gridops"])
 def test_port_copies_match_jax_package(tmp_path, part):
     """The port's own copies of the JAX package's jax-free modules give
     what the originals give on the same inputs: ``DIRS``; the
     ``region_from_samples`` arrays and ``flat_edge_list`` of a diagonal
     and an off-diagonal region; the ``build_tree`` / ``load_tree``
     matrices; ``PhyloHMRFConfig``'s field names and defaults (and
-    ``SMALL_EPS``); a ``.mat`` written by one package and read by the
-    other; the C++ oracle (same source, same expansion labels and
-    energy)."""
+    ``SMALL_EPS``, ``THRESH1``); a ``.mat`` written by one package and
+    read by the other; the C++ oracle (same source, same expansion labels
+    and energy). The byte copies are byte for byte the originals:
+    ``data/synteny.py`` (and its region pairs with a centromere split),
+    ``utils/checkpoint.py`` (and a checkpoint written by one copy restores
+    in the other) and ``native/gridops.cc`` (and the hole fills agree)."""
     rng = np.random.default_rng(5)
     if part == "dirs":
         from phylo_hmrf_tpu.data import regions as jr
@@ -587,6 +597,7 @@ def test_port_copies_match_jax_package(tmp_path, part):
         assert list(defaults(tc.PhyloHMRFConfig)) == list(
             defaults(jc.PhyloHMRFConfig))
         assert tc.SMALL_EPS == jc.SMALL_EPS and tc.LABELERS == jc.LABELERS
+        assert tc.THRESH1 == jc.THRESH1
         kw = dict(n_states=4, shard_mode="spatial", labeler="mf_icm+swap@3")
         assert (tc.PhyloHMRFConfig(**kw).to_dict()
                 == jc.PhyloHMRFConfig(**kw).to_dict())
@@ -612,6 +623,55 @@ def test_port_copies_match_jax_package(tmp_path, part):
                                               np.asarray(v).squeeze())
             got_npz = load(path[:-3] + "npz")
             np.testing.assert_array_equal(got_npz["covars"], res.covars)
+    elif part == "synteny":
+        from phylo_hmrf_tpu.data import synteny as js
+        from phylo_hmrf_tpu_torch.data import synteny as ts
+        _same_source(js, ts)
+        blocks = np.array([[0, 1000, 1000], [1200, 2000, 800]])
+        for splits in (None, {3: (400, 600)}):
+            assert (ts.split_regions(blocks, 3, 10, splits)[1]
+                    == js.split_regions(blocks, 3, 10, splits)[1])
+    elif part == "checkpoint":
+        import types
+
+        from phylo_hmrf_tpu.utils import checkpoint as jc
+        from phylo_hmrf_tpu_torch.utils import checkpoint as tc
+        _same_source(jc, tc)
+        cfg = types.SimpleNamespace(to_dict=lambda: {"pad_h": 8})
+        (region,) = _regions(rng, 12, 12, pad_w=16)
+        grid = region.labels_to_grid(
+            rng.integers(0, 3, region.n_samples).astype(np.int32))
+
+        def model(seed):
+            return types.SimpleNamespace(
+                params_vec=rng.random((3, 16)), init_ou_params=rng.random(
+                    (3, 16)), means_=rng.random((3, 4)),
+                covars_=rng.random((3, 4, 4)), init_labels=np.zeros(3),
+                labels_local=[grid], regions=[region], cfg=cfg,
+                _rng=np.random.default_rng(seed))
+        for save, load in ((jc, tc), (tc, jc)):
+            src, dst = model(1), model(2)
+            path = str(tmp_path / f"{save.__name__}.npz")
+            save.save_checkpoint(path, src, {"iter": 4}, {"x": grid})
+            book = load.restore_model(dst, *load.load_checkpoint(path))
+            assert book == {"iter": 4}
+            np.testing.assert_array_equal(dst.params_vec, src.params_vec)
+            np.testing.assert_array_equal(dst.labels_local[0], grid)
+            assert (dst._rng.bit_generator.state
+                    == src._rng.bit_generator.state)
+    elif part == "gridops":
+        from phylo_hmrf_tpu import native as jn
+        from phylo_hmrf_tpu.data.filters import hole_fill as j_fill
+        from phylo_hmrf_tpu_torch import native as tn
+        from phylo_hmrf_tpu_torch.data.filters import hole_fill as t_fill
+        with open(os.path.join(os.path.dirname(jn.__file__),
+                               "gridops.cc"), "rb") as f:
+            assert open(tn.SOURCES[1], "rb").read() == f.read()
+        m = rng.random((16, 16))
+        m[m < 0.4] = 0.0
+        for sym in (True, False):
+            np.testing.assert_array_equal(t_fill(m.copy(), sym),
+                                          j_fill(m.copy(), sym))
     else:
         from phylo_hmrf_tpu import native as jn
         from phylo_hmrf_tpu.data.regions import flat_edge_list
@@ -631,3 +691,10 @@ def test_port_copies_match_jax_package(tmp_path, part):
         np.testing.assert_array_equal(a, b)
         assert (tn.potts_energy(edges, w, unary, 1.0, a)
                 == jn.potts_energy(edges, w, unary, 1.0, b))
+
+
+def _same_source(jax_module, port_module):
+    """A byte copy: the port's module file equals the JAX package's."""
+    with open(jax_module.__file__, "rb") as a, \
+            open(port_module.__file__, "rb") as b:
+        assert a.read() == b.read(), port_module.__name__
