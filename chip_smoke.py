@@ -20,10 +20,22 @@ path and for bitwise determinism, holds the exact expansion polish against
 the C++ expansion oracle on the same unary, weights and start, runs one
 cycle of the polish on both paths (identical labels), profiles one polish
 pass (``[polish_profile]``: device busy time, idle share, K5/K6 device
-time, host reads per move), and fits the chr21 problem
+time, host reads per move) and one pass of swap moves, those of a
+``swap_tpu`` E-step (``[swap_profile]``), and fits the chr21 problem
 (653 x 653 bins, 4 species, K=10, seed 0) for five EM iterations with the
 default config (``final_polish=True``, ``polish_method="expansion"``)
 through ``PhyloHMRF.fit`` and checks the result.
+
+From the ``[fit]`` phase's init state, ``[labelers]`` fits the chr21
+problem with every other E-step labeler: ``swap_tpu`` and
+``expansion_tpu`` (3 iterations; K1-K6 launched, no final polish, every
+exact E-step's energy no higher than its K1-K3 start's), the hybrids
+``mf_icm+swap@2`` and ``mf_icm+expansion@2`` (5 iterations), ``icm`` (K2
+and K4 launched) and ``lbp`` (3 iterations), each with its cost rows, E-step
+walls and launches, moves per exact E-step and peak device memory.
+``[host_swap]`` runs one E-step of the host C++ swap and one of
+``swap_tpu`` on a 223 x 223 region of the same kind (24,976 samples): the
+device energy within 0.1% of the C++ one's.
 
 The command line drives the same problem from files (``[cli]``): the
 port's writer puts a chr21-scale input (657 bins, 4 species, ~194k contact
@@ -55,7 +67,9 @@ bitwise; K1 on a shard's slab bitwise its chained route); the
 row-sharded E-step of that region against the single-device E-step and for
 bitwise repeats (and the device busy time of both under
 ``torch.profiler``); the region-sharded E-step of a 4-region chr21 bucket
-against the single-device bucket; and a default-config spatial fit of the
+against the single-device bucket; a region-mode ``swap_tpu`` E-step over
+a bucket of two chr21 regions (``[mesh_exact]``), its labels equal to each
+region's own on one device; and a default-config spatial fit of the
 chr21 region with a 20 x 653 off-diagonal block (its 24 rows give 6-row
 shards, the K7/K8 branch), whose first E-step is held against the
 single-device one region by region. The fresh process that counts
@@ -670,11 +684,13 @@ def check_polish_paths(x, start, n_states, beta=1.0):
                 stats=dataclasses.asdict(runs["kernel"][2]))
 
 
-def profile_polish(x, start, n_states, max_cycles, beta=1.0):
-    """One `_optimize_batched` expansion pass from the chr21 start (the
-    fit's polish cycles) under ``torch.profiler``: device busy seconds,
-    the idle share against an unprofiled run's wall, K5 and K6 device ms
-    by kernel name, the kernel count, host reads per move."""
+def profile_polish(x, start, n_states, max_cycles, beta=1.0,
+                   method="expansion"):
+    """One `_optimize_batched` pass of ``method`` moves from the chr21
+    start (the fit's polish cycles; with "swap", a ``swap_tpu`` E-step's
+    moves) under ``torch.profiler``: device busy seconds, the idle share
+    against an unprofiled run's wall, K5 and K6 device ms by kernel name,
+    the kernel count, host reads per move."""
     import torch
 
     from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, _optimize_batched
@@ -683,7 +699,7 @@ def profile_polish(x, start, n_states, max_cycles, beta=1.0):
 
     def run(st=None):
         return _optimize_batched(x["unary_k"], x["w"], x["mask"], start,
-                                 beta, n_states, "expansion", max_cycles,
+                                 beta, n_states, method, max_cycles,
                                  stats=st)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -803,23 +819,48 @@ def _counters():
 
 
 def fit_model(tree, regions, cfg, device=None, mesh=None, state=None):
-    """``PhyloHMRF.fit`` with the launch counters set to 0 just before and
-    read just after. Returns (result, model, launches per kernel, each
-    iteration's label grids)."""
+    """``PhyloHMRF.fit`` from ``state`` (``convert.export_state``'s), or
+    from the model's own ``initialize()``, run (and timed) before the fit
+    and its state kept, with the launch counters set to 0 just before the
+    fit and read just after. Each E-step's wall (it ends in the read-back
+    of its statistics) and the kernel launches inside it are logged.
+    Returns a namespace: res, model, launches (per kernel), grids (each
+    iteration's label grids), state, init_s, esteps."""
+    import types
+
     from phylo_hmrf_tpu_torch import PhyloHMRF
-    from phylo_hmrf_tpu_torch.convert import import_state
+    from phylo_hmrf_tpu_torch.convert import export_state, import_state
 
     model = PhyloHMRF(tree, regions, cfg, mesh=mesh, device=device)
-    if state is not None:
+    init_s = None
+    if state is None:
+        t0 = time.perf_counter()
+        model.initialize()
+        init_s = time.perf_counter() - t0
+        state = export_state(model)
+    else:
         import_state(model, state)
-    grids = []
+    grids, esteps = [], []
     counters = _counters()
+    estep = model.estep
+
+    def logged(*args, **kw):
+        before = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        out = estep(*args, **kw)
+        esteps.append(dict(wall_s=time.perf_counter() - t0, launches={
+            k: fn.launches - before[k] for k, fn in counters.items()
+            if fn.launches > before[k]}))
+        return out
+    model.estep = logged
     for fn in counters.values():
         fn.launches = 0
     res = model.fit(verbose=True, callback=lambda m, it, row, g: grids.append(
         [x.clone() for x in g]))
     launches = {k: fn.launches for k, fn in counters.items()}
-    return res, model, launches, grids
+    return types.SimpleNamespace(res=res, model=model, launches=launches,
+                                 grids=grids, state=state, init_s=init_s,
+                                 esteps=esteps)
 
 
 def check_fit(res, model, true, grids):
@@ -885,6 +926,169 @@ def check_fit(res, model, true, grids):
         bfs_sweeps_per_move=st.bfs_sweeps / st.moves,
         moves_at_max_sweeps=st.capped)
     return float(best_match_accuracy(res.labels, true)), polish
+
+
+# labeler -> EM iterations of its [labelers] fit
+LABELER_FITS = (("swap_tpu", 3), ("expansion_tpu", 3), ("mf_icm+swap@2", 5),
+                ("mf_icm+expansion@2", 5), ("icm", 3), ("lbp", 3))
+HOST_SWAP_H0 = 223   # the host swap's region: 24,976 samples
+
+
+def check_labelers(tree, region, state, device):
+    """``[labelers]``: a chr21 fit with each labeler of ``LABELER_FITS``
+    from ``state`` (the [fit] phase's init). Per fit: the cost rows
+    (finite, cost1 == pairwise + unary), each E-step's wall and launches,
+    each exact E-step's moves (``CutStats``, its energy no higher than its
+    K1-K3 start's), the hybrid's exact iterations, the launches per kernel
+    and the peak device memory. The exact labelers launch K1-K6 and skip
+    the final polish; ``icm`` launches K2 and K4."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from phylo_hmrf_tpu_torch import PhyloHMRFConfig
+    from phylo_hmrf_tpu_torch.models.hmrf import EXACT_LABELERS
+
+    recs = {}
+    for labeler, max_iter in LABELER_FITS:
+        cfg = PhyloHMRFConfig(n_states=10, max_iter=max_iter, seed=0,
+                              labeler=labeler)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = fit_model(tree, [region], cfg, device=device, state=state)
+        fit_s = time.perf_counter() - t0
+        res, model = run.res, run.model
+        cv = res.cost_vec
+        _check(res.n_iters == max_iter, f"{labeler}: {res.n_iters} iterations")
+        _check(np.isfinite(cv).all(), f"{labeler}: non-finite costs")
+        _check(np.allclose(cv[:, 3], cv[:, 1] + cv[:, 2], rtol=1e-6, atol=0),
+               f"{labeler}: cost1 != pairwise + unary")
+        must = {"swap_tpu": list(KERNELS)[:6], "expansion_tpu":
+                list(KERNELS)[:6], "icm": ["K2_icm_phase", "K4_finish_stats"]}
+        for name in must.get(labeler, []):
+            _check(run.launches[name] > 0,
+                   f"{name} never launched by the {labeler} fit")
+        summ = model.timer.summary()
+        if labeler in EXACT_LABELERS:
+            _check(model.polish_stats_ is None and "final_polish" not in summ,
+                   f"the final polish ran after the {labeler} labeler")
+        exact = []
+        for st in model.exact_stats_:
+            _check(st.energy_end <= st.energy_start
+                   + 1e-6 * abs(st.energy_start),
+                   f"{labeler}: an exact E-step raised the energy of its "
+                   f"start, {st.energy_start} -> {st.energy_end}")
+            _check(st.capped == 0, f"{labeler}: a move hit max_sweeps")
+            exact.append(dataclasses.asdict(st))
+        n_exact = (len(model.hybrid_exact_iters_) if model._hybrid
+                   else res.n_iters if labeler.endswith("_tpu") else 0)
+        _check(len(exact) == n_exact, f"{labeler}: {len(exact)} exact "
+                                      f"E-steps, expected {n_exact}")
+        rec = dict(
+            n_iters=res.n_iters, fit_s=fit_s, cost_vec=cv.tolist(),
+            estep_s=[e["wall_s"] for e in run.esteps],
+            estep_launches=[e["launches"] for e in run.esteps],
+            exact_esteps=exact,
+            hybrid_exact_iters=list(model.hybrid_exact_iters_),
+            final_polish=model.polish_stats_ is not None,
+            launches=run.launches, phases=summ,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"[labelers] {labeler} {json.dumps(rec)}")
+        recs[labeler] = rec
+    return recs
+
+
+def check_host_swap(device, h0=HOST_SWAP_H0, beta=1.0, beta1=0.5,
+                    min_covar=1e-3):
+    """``[host_swap]``: one E-step of the host ``swap`` labeler (the C++
+    alpha-beta swap of ``native/``, from the warm labels, on the float64
+    unary) and one of ``swap_tpu`` (the K1-K3 start, then swap moves on
+    K5/K6) on an h0 x h0 chr21-like region, the same moments and warm
+    labels. Gate, the reference's own: the device labels' energy (both
+    scored by the C++ energy on the float64 unary) <= the C++ swap's +
+    0.1%."""
+    import numpy as np
+
+    from phylo_hmrf_tpu_torch import PhyloHMRF, PhyloHMRFConfig, native
+    from phylo_hmrf_tpu_torch.data.regions import flat_edge_list
+    from phylo_hmrf_tpu_torch.models.hmrf import _gauss_logpdf_np
+    from phylo_hmrf_tpu_torch.synth import chr21_problem
+
+    tree, region, means, covs, warm, _ = chr21_problem(0, h0=h0)
+    grid = region.labels_to_grid(warm)
+    K = means.shape[0]
+    got = {}
+    for labeler in ("swap", "swap_tpu"):
+        model = PhyloHMRF(tree, [region], PhyloHMRFConfig(
+            n_states=K, seed=0, labeler=labeler), device=device)
+        t0 = time.perf_counter()
+        lab, _, costs, _ = model.estep(means, covs, [grid])
+        wall = time.perf_counter() - t0
+        got[labeler] = (region.labels_to_flat(
+            lab[0].cpu().numpy()).astype(np.int32), wall, costs[0].tolist())
+    X = region.flat_values().astype(np.float64)
+    unary = -np.stack([_gauss_logpdf_np(X, means[c], covs[c], min_covar)
+                       for c in range(K)], axis=1)
+    edges = flat_edge_list(region)
+    w = np.exp(-beta1 * edges[:, 2])
+    ei = edges[:, :2].astype(np.int64)
+    e_cpp, e_dev, e_start = (native.potts_energy(ei, w, unary, beta, lab)
+                             for lab in (got["swap"][0], got["swap_tpu"][0],
+                                         warm.astype(np.int32)))
+    gap = (e_dev - e_cpp) / abs(e_cpp)
+    _check(e_dev <= e_cpp + 1e-3 * abs(e_cpp),
+           f"device swap energy {e_dev} above the C++ swap's {e_cpp} by "
+           f"{gap}")
+    return dict(samples=region.n_samples, shape=list(region.shape),
+                energy_start=e_start, energy_cpp=e_cpp, energy_device=e_dev,
+                rel_gap=gap,
+                agreement=float((got["swap"][0] == got["swap_tpu"][0]).mean()),
+                cpp_estep_s=got["swap"][1], device_estep_s=got["swap_tpu"][1],
+                costs_cpp=got["swap"][2], costs_device=got["swap_tpu"][2])
+
+
+def check_mesh_exact(mesh, device, seeds=(0, 1)):
+    """``[mesh_exact]``: one region-mode ``swap_tpu`` E-step over the mesh
+    on a bucket of two chr21 regions (seeds 0 and 1, the moments of seed
+    0): its labels equal each region's own on one device (a one-region
+    model), the route the JAX engine takes on a mesh. Also says how far
+    the one-device batched route over the bucket (regions sharing one move
+    schedule and stopping test) agrees with them."""
+    import torch
+
+    from phylo_hmrf_tpu_torch import PhyloHMRF, PhyloHMRFConfig
+    from phylo_hmrf_tpu_torch.synth import chr21_problem
+
+    probs = [chr21_problem(s) for s in seeds]
+    tree, _, means, covs, _, _ = probs[0]
+    regions = [p[1] for p in probs]
+    warm = [p[1].labels_to_grid(p[4]) for p in probs]
+    cfg = PhyloHMRFConfig(n_states=means.shape[0], seed=0,
+                          labeler="swap_tpu")
+    meshed = PhyloHMRF(tree, regions, cfg, mesh=mesh)
+    _check(not meshed._spatial and len(meshed._bucket_arrays) == 1,
+           "the meshed model is not one region-mode bucket")
+    t0 = time.perf_counter()
+    got = meshed.estep(means, covs, warm)[0]
+    mesh_s = time.perf_counter() - t0
+    alone = [PhyloHMRF(tree, [r], cfg, device=device).estep(
+        means, covs, [w])[0][0] for r, w in zip(regions, warm)]
+    t0 = time.perf_counter()
+    batched = PhyloHMRF(tree, regions, cfg, device=device).estep(
+        means, covs, warm)[0]
+    batched_s = time.perf_counter() - t0
+    for i, (g, a) in enumerate(zip(got, alone)):
+        _check(torch.equal(g.to(a.device), a),
+               f"meshed exact labels of region {i} differ from its own "
+               f"labels on one device in {int((g.to(a.device) != a).sum())} "
+               f"pixels")
+    masks = [torch.as_tensor(r.mask, device=device) for r in regions]
+    return dict(regions=len(regions), shards=mesh.size, mesh_estep_s=mesh_s,
+                batched_estep_s=batched_s, per_region_equal=True,
+                batched_agreement=[
+                    float((b == a)[m].double().mean())
+                    for b, a, m in zip(batched, alone, masks)])
 
 
 def _compare_estep(got, want, masks, what):
@@ -1375,9 +1579,9 @@ def spatial_fit(mesh, device, max_iter=3):
     rec = _compare_estep(got, want, [r.mask for r in regions],
                          "spatial fit's first E-step")
     rec["shard_rows"] = [r.shape[0] // mesh.size for r in regions]
-    res, model, launches, grids = fit_model(tree, regions, cfg, mesh=mesh,
-                                            state=state)
-    return res, model, launches, grids, rec, np.concatenate([true_d, true_o])
+    run = fit_model(tree, regions, cfg, mesh=mesh, state=state)
+    return (run.res, run.model, run.launches, run.grids, rec,
+            np.concatenate([true_d, true_o]))
 
 
 CLI_FLAGS = ["-n", "10", "-p", "input", "--chromvec", "21", "--miter", "5",
@@ -1552,28 +1756,36 @@ def main() -> int:
 
     # the main path: the default single-device fit
     t0 = time.perf_counter()
-    res, model, launches, grids = fit_model(
-        tree, [region], PhyloHMRFConfig(n_states=10, max_iter=5, seed=0),
-        device=dev)
+    run = fit_model(tree, [region],
+                    PhyloHMRFConfig(n_states=10, max_iter=5, seed=0),
+                    device=dev)
     fit_s = time.perf_counter() - t0
+    res, model = run.res, run.model
     for name in list(KERNELS)[:6]:
-        _check(launches[name] > 0, f"{name} never launched on the fit's path")
-    acc, polish = check_fit(res, model, true, grids)
+        _check(run.launches[name] > 0,
+               f"{name} never launched on the fit's path")
+    acc, polish = check_fit(res, model, true, run.grids)
     summ = model.timer.summary()
     em_s = sum(summ[p]["total_s"] for p in ("estep", "mstep") if p in summ)
-    fit = dict(n_iters=res.n_iters, fit_s=fit_s,
-               init_s=summ.get("init", {}).get("total_s"),
+    fit = dict(n_iters=res.n_iters, fit_s=fit_s, init_s=run.init_s,
                s_per_em_iter=em_s / res.n_iters,
                final_polish_s=summ["final_polish"]["total_s"],
-               polish=polish, phases=summ, launches=launches,
+               polish=polish, phases=summ, launches=run.launches,
                best_match_accuracy=acc, cost_vec=res.cost_vec.tolist())
     print(f"[fit] {json.dumps(fit)}")
+    # every labeler of the port from the [fit] phase's init state, and
+    # the host C++ swap against the device swap on a reduced region
+    check_labelers(tree, region, run.state, dev)
+    print(f"[host_swap] {json.dumps(check_host_swap(dev))}")
     # the command line's path: the same fit from files, then its resume
     cli_launches = check_cli()
     # after the fit: a profiler run can leave host overhead on later
     # launches, and the fit's host-bound phases would pay it
     print(f"[polish_profile] "
           f"{json.dumps(profile_polish(x, start, K, cycles))}")
+    # the moves of a swap_tpu E-step (swap_tpu_cycles = the polish's)
+    print(f"[swap_profile] "
+          f"{json.dumps(profile_polish(x, start, K, cycles, method='swap'))}")
 
     # the multi-device paths, over SHARDS shards of the visible cards
     mesh = make_mesh((SHARDS,))
@@ -1618,6 +1830,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     reg = check_region_estep(mesh, dev)
     print(f"[region_estep] {json.dumps(reg)}")
+    print(f"[mesh_exact] {json.dumps(check_mesh_exact(mesh, dev))}")
 
     t0 = time.perf_counter()
     sres, smodel, slaunches, sgrids, sest, strue = spatial_fit(mesh, dev)

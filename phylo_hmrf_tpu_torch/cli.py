@@ -72,8 +72,8 @@ def parse_args(argv=None):
     a("--output", default=".")
     a("--labeler", default="mf_icm",
       help=f"one of {', '.join(LABELERS)}, or a budgeted hybrid "
-           f"'mf_icm+swap@N' / 'mf_icm+expansion@N'; the port runs "
-           f"'mf_icm' and raises on the others")
+           f"'mf_icm+swap@N' / 'mf_icm+expansion@N' (exact moves every "
+           f"N-th iteration and when the cost stalls)")
     a("--final_polish", default="1",
       help="1: polish the final state map with one exact on-device pass")
     a("--polish_method", default="expansion", choices=["swap", "expansion"])

@@ -1,20 +1,29 @@
 """PhyloHMRF — the model class and EM engine, PyTorch port.
 
-Counterpart of ``phylo_hmrf_tpu/models/hmrf.py`` for its production path:
-the ``mf_icm`` labeler, float32, then the exact final polish, on one
-device or over a mesh of shards (``mesh=make_mesh(...)``). Per EM
-iteration:
+Counterpart of ``phylo_hmrf_tpu/models/hmrf.py`` in float32: every
+labeler of ``config.LABELERS`` and the hybrids ``mf_icm+{swap,expansion}@N``,
+then the exact final polish, on one device or over a mesh of shards
+(``mesh=make_mesh(...)``). Per EM iteration:
 
 * E-step (`_estep_bucket`, per shape bucket of regions): the K-major unary
-  from `gaussian_logpdf_kmajor`, annealed mean field (kernel K1), two
-  checkerboard-ICM runs, from the mean-field labels and from the warm
-  labels (K2), the lower Potts energy of the two (K3), then the fused
-  posterior / cost / statistics pass (K4). Statistics come back per region
-  and the host sums them in float64 in region order. With a mesh,
+  from `gaussian_logpdf_kmajor`, then the labeler. ``mf_icm`` (the
+  default): annealed mean field (kernel K1), two checkerboard-ICM runs,
+  from the mean-field labels and from the warm labels (K2), the lower
+  Potts energy of the two (K3). ``icm``: K2 from the warm labels. ``lbp``:
+  a min-sum loopy BP proposal (``ops/lbp.py``, plain tensor code as in the
+  JAX package) in place of the mean field. Then the fused posterior / cost
+  / statistics pass (K4). Statistics come back per region and the host
+  sums them in float64 in region order. With a mesh,
   ``shard_mode="region"`` (the default) deals each bucket's regions over
   the shards (``parallel/sharding.py``) and ``shard_mode="spatial"`` splits
   each region's rows over them with halo exchange (``parallel/halo.py``,
   kernels K1/K2 on deep halos, K7/K8 over all the shards of a device).
+* Exact E-steps (``swap_tpu`` / ``expansion_tpu`` every iteration, a
+  hybrid's exact passes on its schedule): `_exact_labels_all` (the K1-K3
+  start, then swap or expansion moves on kernels K5 and K6), then K4 on
+  those labels. The host ``swap`` / ``expansion`` labelers run the C++
+  moves of ``native/`` on the float64 unary of the float64 moments, then
+  K4.
 * M-step (`mstep`): one batched boxed L-BFGS solve of the OU parameters of
   all K states on the device, the validity check and the OU moments, with
   the reference's retry ladder and the fallback to the init params.
@@ -23,22 +32,25 @@ After the loop, ``final_polish`` (the default) relabels the best
 iteration's labels once under the restored best moments with exact
 graph-cut moves (`_exact_labels_all` -> ``ops/maxflow.py``: the K1-K3
 start, then expansion or swap moves, each a push-relabel min cut on
-kernels K5 and K6).
+kernels K5 and K6); the exact labelers skip it, as the JAX engine does.
 
 The host-side control flow (convergence, patience, best-iteration
 bookkeeping, the numpy RNG draw order) follows the JAX engine line for
 line, so a fit started from the same state follows the same trajectory up
 to float rounding.
 
-With a mesh, the init, the M-step and the final polish run on the mesh's
-first device, which also keeps each whole region bucket for the polish.
+With a mesh, the init, the M-step, the exact labelings and K4 after them
+run on the mesh's first device, which also keeps each whole region bucket.
+There the exact moves label each region alone, as the JAX engine does on
+a mesh (batched regions share one move schedule and one stopping test).
 
 ``fit(checkpoint_path=..., resume=True)`` saves and resumes the EM state
 in the JAX engine's checkpoint format (``utils/checkpoint.py``), so a
 checkpoint of either package resumes in the other.
 
-What raises rather than running: any labeler but ``mf_icm``,
-``dtype="float64"`` and ``kmeans_backend="sklearn"``. Config fields read
+What raises rather than running: ``dtype="float64"`` and
+``kmeans_backend="sklearn"``; with ``shard_mode="spatial"``, any labeler
+but ``mf_icm`` (``ValueError``, as in the JAX engine). Config fields read
 by the JAX engine only to work around XLA or a remote TPU have no
 counterpart here; each is noted where the JAX engine reads it (see
 `_check_config`).
@@ -54,20 +66,25 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from phylo_hmrf_tpu_torch.config import PhyloHMRFConfig, SMALL_EPS
+from phylo_hmrf_tpu_torch.config import (PhyloHMRFConfig, SMALL_EPS,
+                                         parse_hybrid_labeler)
 from phylo_hmrf_tpu_torch.convert import to_numpy as _to_numpy
-from phylo_hmrf_tpu_torch.data.regions import RegionGrid
-from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
+from phylo_hmrf_tpu_torch.data.regions import RegionGrid, flat_edge_list
+from phylo_hmrf_tpu_torch.models.emission import (gaussian_logpdf,
+                                                  gaussian_logpdf_kmajor)
 from phylo_hmrf_tpu_torch.models.ou import (
     TreeTensors, check_params, ou_moments_batch, ou_nll_init, ou_nll_stats,
     propagate_mean_guess, tree_tensors)
 from phylo_hmrf_tpu_torch.ops.finish_kernels import (
     cost_vec_from_sums, finish_stats, finish_stats_plain)
+from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
 from phylo_hmrf_tpu_torch.ops.kmeans import kmeans
 from phylo_hmrf_tpu_torch.ops.lbfgs import minimize_boxed
-from phylo_hmrf_tpu_torch.ops.maxflow import (CutStats, _start_batch,
-                                              exact_labels_batched)
-from phylo_hmrf_tpu_torch.ops.potts import valid_maps, weight_maps
+from phylo_hmrf_tpu_torch.ops.lbp import lbp_labels
+from phylo_hmrf_tpu_torch.ops.maxflow import (
+    CutStats, _icm_pick, _start_batch, exact_labels_batched)
+from phylo_hmrf_tpu_torch.ops.potts import (pairwise_potential, valid_maps,
+                                            weight_maps)
 from phylo_hmrf_tpu_torch.parallel.halo import (
     estep_region_rowsharded, gather_rows, shard_rows)
 from phylo_hmrf_tpu_torch.parallel.mesh import Mesh
@@ -76,6 +93,34 @@ from phylo_hmrf_tpu_torch.parallel.sharding import (
 from phylo_hmrf_tpu_torch.tree import PhyloTree
 from phylo_hmrf_tpu_torch.utils import checkpoint as ckpt
 from phylo_hmrf_tpu_torch.utils.profiling import ConvergenceMonitor, PhaseTimer
+
+# the labelers whose every E-step is an exact move-making pass: after them
+# the final polish would repeat what the last E-step did
+EXACT_LABELERS = ("swap", "swap_tpu", "expansion", "expansion_tpu")
+
+
+def _gauss_logpdf_np(X, mean, cov, min_covar):
+    """Float64 Gaussian log-density of the host labelers, with the
+    reference's robustness: symmetrise, Cholesky with escalating
+    ``min_covar`` jitter, an eigen pseudo-inverse as the last resort."""
+    c = 0.5 * (np.asarray(cov, np.float64) + np.asarray(cov, np.float64).T)
+    F = c.shape[0]
+    d = X - np.asarray(mean, np.float64)
+    for mult in (0.0, 1.0, 10.0):
+        try:
+            L = np.linalg.cholesky(c + mult * min_covar * np.eye(F))
+            sol = np.linalg.solve(L, d.T)
+            logdet = 2.0 * np.log(np.diag(L)).sum()
+            return -0.5 * (np.sum(sol * sol, axis=0) + logdet
+                           + F * np.log(2.0 * np.pi))
+        except np.linalg.LinAlgError:
+            continue
+    w, v = np.linalg.eigh(c)
+    w_inv = np.where(w > 1e-12, 1.0 / np.maximum(w, 1e-12), 0.0)
+    sol = (d @ v) * np.sqrt(w_inv)
+    logdet = np.log(np.maximum(w, 1e-12)).sum()
+    return -0.5 * (np.sum(sol * sol, axis=1) + logdet
+                   + F * np.log(2.0 * np.pi))
 
 
 @dataclasses.dataclass
@@ -96,9 +141,10 @@ class FitResult:
 
 
 def _estep_bucket(img, mask, dmaps, warm, means, covars, beta, beta1, *,
-                  weighted_pp: bool, max_sweeps: int, plain: bool = False):
-    """One E-step over a stacked region bucket (the ``mf_icm`` kernel
-    branch of the JAX ``_estep_bucket``).
+                  weighted_pp: bool, max_sweeps: int, labeler: str = "mf_icm",
+                  plain: bool = False):
+    """One E-step over a stacked region bucket (the JAX ``_estep_bucket``)
+    with the ``labeler`` "mf_icm", "icm" or "lbp".
 
     img (R, H, W, F), mask (R, H, W) bool, dmaps (R, 4, H, W), warm
     (R, H, W) labels. Returns (labels (R, H, W) int32, per-region
@@ -108,12 +154,33 @@ def _estep_bucket(img, mask, dmaps, warm, means, covars, beta, beta1, *,
     """
     w_cut = weight_maps(dmaps, beta1)
     unary_k = -gaussian_logpdf_kmajor(img, means, covars)     # (R, K, H, W)
-    labels = _start_batch(unary_k, w_cut, mask, warm, beta, max_sweeps,
-                          plain=plain)
+    if labeler == "mf_icm":
+        labels = _start_batch(unary_k, w_cut, mask, warm, beta, max_sweeps,
+                              plain=plain)
+    elif labeler == "icm":
+        labels = icm_kmajor(unary_k, w_cut, mask, warm, beta, max_sweeps,
+                            plain=plain)
+    elif labeler == "lbp":
+        # the BP proposal runs per region in the (H, W, K) layout
+        prop = torch.stack([lbp_labels(u.permute(1, 2, 0), w, m, beta)
+                            for u, w, m in zip(unary_k, w_cut, mask)])
+        labels = _icm_pick(unary_k, w_cut, mask, prop, warm, beta,
+                           max_sweeps, plain=plain)
+    else:
+        raise ValueError(f"unknown E-step labeler {labeler!r}")
     stats, cost_vec, n_valid = _finish_fused(
         unary_k, img, mask, dmaps, labels, beta, beta1, weighted_pp,
         from_unary=True, plain=plain)
     return labels, stats, cost_vec, n_valid
+
+
+def _finish_bucket(img, mask, dmaps, labels, means, covars, beta, beta1, *,
+                   weighted_pp: bool):
+    """K4 over a bucket's labels from elsewhere (the exact and the host
+    labelers), on the K-major log-density."""
+    lp_k = gaussian_logpdf_kmajor(img, means, covars)
+    return _finish_fused(lp_k, img, mask, dmaps, labels, beta, beta1,
+                         weighted_pp)
 
 
 def _finish_fused(lp_k, img, mask, dmaps, labels, beta, beta1,
@@ -219,9 +286,6 @@ def _check_config(cfg: PhyloHMRFConfig, mesh) -> None:
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a phylo_hmrf_tpu_torch.parallel.mesh."
                         f"Mesh (make_mesh), got {type(mesh).__name__}")
-    if cfg.labeler != "mf_icm":
-        raise NotImplementedError(
-            f"labeler={cfg.labeler!r} is not ported yet; only 'mf_icm' runs")
     if cfg.dtype == "float64":
         raise NotImplementedError("dtype='float64' is not ported yet")
     if cfg.dtype != "float32":
@@ -325,10 +389,16 @@ class PhyloHMRF:
                  shard_rows(mesh, torch.as_tensor(r.dmaps,
                                                   dtype=torch.float32), 1))
                 for r in self.regions]
-        elif self._n_shards > 1:
+        # the labeler of the fast E-steps: a hybrid runs mf_icm between its
+        # exact passes (`estep` routes the exact labelers itself)
+        self._hybrid = parse_hybrid_labeler(cfg.labeler)
+        self._labeler_static = (
+            "mf_icm" if (self._hybrid is not None
+                         or cfg.labeler in EXACT_LABELERS) else cfg.labeler)
+        if self._n_shards > 1 and not self._spatial:
             self._sharded_estep = make_sharded_estep(
                 mesh, weighted_pp=(cfg.estimate_type == 3),
-                max_sweeps=cfg.icm_max_sweeps)
+                labeler=self._labeler_static, max_sweeps=cfg.icm_max_sweeps)
         self._tt = tree_tensors(tree, self.device)
 
         # mutable fit state
@@ -342,6 +412,8 @@ class PhyloHMRF:
         self.labels_local = None     # warm-start label grids per region
         self.init_labels = None
         self.polish_stats_ = None    # CutStats of the last fit's polish
+        self.exact_stats_ = []       # CutStats of each exact E-step
+        self.hybrid_exact_iters_ = []
 
     def _dev(self, a, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
@@ -433,13 +505,26 @@ class PhyloHMRF:
     # E-step
     # ------------------------------------------------------------------
 
-    def estep(self, means, covars, warm_grids):
+    def estep(self, means, covars, warm_grids, exact_method=None):
         """E-step over all buckets (on a mesh: over the shards, in the
         config's ``shard_mode``). Returns (label grids per region, as
         device tensors; per-region stats (post (R, K), obs (R, K, F),
         obs2 (R, K, F, F)); costs (R, 4); n_valid (R,)), the numbers in
-        float64 numpy after one read-back for the whole E-step."""
+        float64 numpy after one read-back for the whole E-step.
+
+        ``exact_method`` ("swap" / "expansion") labels this call with exact
+        graph-cut moves (a hybrid labeler's exact pass); the ``swap_tpu`` /
+        ``expansion_tpu`` labelers always do. The host ``swap`` /
+        ``expansion`` labelers label with the C++ moves from the float64
+        ``means`` / ``covars``; K4 reads their float32 cast, as every other
+        route does."""
         cfg = self.cfg
+        if self._spatial and exact_method is not None:
+            # fit cannot get here (the constructor refuses those labelers
+            # in spatial mode); a direct caller must not get a mean-field
+            # pass when it asked for an exact one
+            raise ValueError("exact_method is not supported with "
+                             "shard_mode='spatial'; use shard_mode='region'")
         K, F = self.n_states, self.n_features
         R = len(self.regions)
         post = np.zeros((R, K))
@@ -463,6 +548,9 @@ class PhyloHMRF:
                     (pad,) + warm.shape[1:])])
             return warm
 
+        if cfg.labeler in ("swap_tpu", "expansion_tpu"):
+            exact_method = ("expansion" if cfg.labeler == "expansion_tpu"
+                            else "swap")
         done = []   # (region indices, post, obs, obs2, costs, n_valid)
         if self._spatial:
             for ri, (img, mask, dmaps) in enumerate(self._spatial_arrays):
@@ -472,6 +560,25 @@ class PhyloHMRF:
                 label_grids[ri] = gather_rows(labels, self.device)
                 done.append(([ri], p[None], o[None], o2[None], cv[None],
                              nv[None]))
+        elif exact_method is not None or cfg.labeler in ("swap", "expansion"):
+            # labels from the exact moves, then K4 on them per bucket, on
+            # the (first) device; the labels stay there
+            if exact_method is not None:
+                self.exact_stats_.append(CutStats())
+                grids = self._exact_labels_all(
+                    means, covars, warm_grids, method=exact_method,
+                    stats=self.exact_stats_[-1])
+            else:
+                grids = [self._dev(g, torch.int32) for g in self._swap_labels(
+                    means, covars, warm_grids, method=cfg.labeler)]
+            for idxs, img, mask, dmaps in self._bucket_arrays.values():
+                labels = torch.stack([grids[i] for i in idxs])
+                (p, o, o2), cv, nv = _finish_bucket(
+                    img, mask, dmaps, labels, means_t, covars_t, cfg.beta,
+                    cfg.beta1, weighted_pp=kw["weighted_pp"])
+                done.append((idxs, p, o, o2, cv, nv))
+                for bi, ri in enumerate(idxs):
+                    label_grids[ri] = labels[bi]
         elif self._n_shards > 1:
             for idxs, img, mask, dmaps in self._sharded_buckets.values():
                 r_pad = sum(x.shape[0] for x in img)
@@ -485,7 +592,7 @@ class PhyloHMRF:
             for idxs, img, mask, dmaps in self._bucket_arrays.values():
                 labels, (p, o, o2), cv, nv = _estep_bucket(
                     img, mask, dmaps, warm_of(idxs), means_t, covars_t,
-                    cfg.beta, cfg.beta1, **kw)
+                    cfg.beta, cfg.beta1, labeler=self._labeler_static, **kw)
                 done.append((idxs, p, o, o2, cv, nv))
                 for bi, ri in enumerate(idxs):
                     label_grids[ri] = labels[bi]
@@ -517,24 +624,65 @@ class PhyloHMRF:
                           method: str = "swap",
                           stats: CutStats | None = None):
         """Exact labeling (mean field + ICM start, then graph-cut swap or
-        expansion moves) of every region, one batch per shape bucket;
-        returns the label grids as device tensors."""
+        expansion moves) of every region on the (first) device; returns
+        the label grids as device tensors. One device labels each shape
+        bucket as one batch. A mesh labels each region alone, a batch of
+        one, as the JAX engine does: batched regions share one move
+        schedule and one stopping test, so a bucket's labels can differ
+        from its regions' own. (The unary is the K-major one of that
+        region alone, as a one-region model computes it.)"""
         cfg = self.cfg
         out = [None] * len(self.regions)
         means_t = self._dev(means)
         covars_t = self._dev(covars)
+        kw = dict(max_cycles=cfg.swap_tpu_cycles,
+                  icm_max_sweeps=cfg.icm_max_sweeps, method=method,
+                  stats=stats)
         for idxs, img, mask, dmaps in self._bucket_arrays.values():
-            unary_k = -gaussian_logpdf_kmajor(img, means_t, covars_t)
+            wm = weight_maps(dmaps, cfg.beta1)
             warm = torch.stack([
                 torch.as_tensor(warm_grids[i], device=self.device)
                 for i in idxs]).to(torch.int32)
-            labels = exact_labels_batched(
-                unary_k, weight_maps(dmaps, cfg.beta1), mask, warm, cfg.beta,
-                self.n_states, max_cycles=cfg.swap_tpu_cycles,
-                icm_max_sweeps=cfg.icm_max_sweeps, method=method,
-                stats=stats)
+            if self._n_shards > 1:
+                for bi, ri in enumerate(idxs):
+                    one = slice(bi, bi + 1)
+                    unary_k = -gaussian_logpdf_kmajor(img[one], means_t,
+                                                      covars_t)
+                    out[ri] = exact_labels_batched(
+                        unary_k, wm[one], mask[one], warm[one], cfg.beta,
+                        self.n_states, **kw)[0]
+                continue
+            unary_k = -gaussian_logpdf_kmajor(img, means_t, covars_t)
+            labels = exact_labels_batched(unary_k, wm, mask, warm, cfg.beta,
+                                          self.n_states, **kw)
             for bi, ri in enumerate(idxs):
                 out[ri] = labels[bi]
+        return out
+
+    def _swap_labels(self, means, covars, warm_grids, method: str = "swap"):
+        """Exact graph-cut labeling on the host: the C++ alpha-beta swap
+        (the reference's optimizer) or alpha-expansion of ``native/``, on
+        the float64 unary of the float64 moments. Returns a host label
+        grid per region."""
+        from phylo_hmrf_tpu_torch import native
+
+        solver = (native.potts_expansion if method == "expansion"
+                  else native.potts_swap)
+        means = np.asarray(_to_numpy(means), np.float64)
+        covars = np.asarray(_to_numpy(covars), np.float64)
+        out = []
+        for r, warm in zip(self.regions, warm_grids):
+            X = r.flat_values().astype(np.float64)
+            logprob = np.stack([
+                _gauss_logpdf_np(X, means[c], covars[c], self.cfg.min_covar)
+                for c in range(self.n_states)], axis=1)
+            edges = flat_edge_list(r, self.cfg.num_neighbor)
+            w = np.exp(-self.cfg.beta1 * edges[:, 2])
+            warm_flat = r.labels_to_flat(_to_numpy(warm)).astype(np.int32)
+            labels = solver(edges[:, :2].astype(np.int64), w, -logprob,
+                            self.cfg.beta, warm_flat,
+                            self.cfg.swap_max_cycles)
+            out.append(r.labels_to_grid(labels))
         return out
 
     # ------------------------------------------------------------------
@@ -638,6 +786,7 @@ class PhyloHMRF:
                                          log_file=cost_log)
         self.monitor_ = monitor
         self.timer = PhaseTimer()
+        self.polish_stats_ = None
         it_start = 0
         restored = None
         if resume and checkpoint_path is not None:
@@ -688,11 +837,42 @@ class PhyloHMRF:
         ratio_vec = (self.len_vec[:, 0].astype(np.float64)
                      / self.n_samples_total)
 
+        # the relative cost changes the hybrid schedule reads; a resume
+        # recomputes them from the restored rows, so it makes the exact or
+        # fast choice the uninterrupted run made
+        d3_prev = d12_prev = np.inf
+        if it_start > 0 and len(cost_rows) >= 2:
+            last, before = cost_rows[-1], cost_rows[-2]
+            d3_prev = abs((last[3] - before[3]) / before[3])
+            d12_prev = max(abs((last[1] - before[1]) / before[1]),
+                           abs((last[2] - before[2]) / before[2]))
+        self.hybrid_exact_iters_ = []
+        self.exact_stats_ = []
+
+        def _exact_for(it_n):
+            """A hybrid labeler's exact pass at iteration ``it_n``: when the
+            period comes up, when either stop rule is within 3x of its
+            threshold (so the run cannot converge on the fast labeler's
+            fixed point), or while cost1 still moves by more than
+            ``hybrid_exact_hi``. None: the fast labeler."""
+            if self._hybrid is None:
+                return None
+            method, period = self._hybrid
+            if (it_n % period == 0 or d3_prev < 3 * cfg.threshold
+                    or d12_prev < 3 * cfg.threshold
+                    or d3_prev > cfg.hybrid_exact_hi):
+                return method
+            return None
+
         for it in range(it_start, cfg.max_iter):
+            exact_method = _exact_for(it)
+            if exact_method is not None:
+                self.hybrid_exact_iters_.append(it)
             t0 = time.time()
             with self.timer.phase("estep"):
                 label_grids, stats, costs, _ = self.estep(
-                    self.means_, self.covars_, self.labels_local)
+                    self.means_, self.covars_, self.labels_local,
+                    exact_method=exact_method)
             t1 = time.time()
 
             # the accumulated "pairwise_cost" that drives convergence and
@@ -707,6 +887,8 @@ class PhyloHMRF:
             d2 = abs((unary_cost - prev[1]) / prev[1])
             d3 = abs((cost1 - prev[2]) / prev[2])
             prev = np.array([pairwise_cost, unary_cost, cost1])
+            d3_prev = d3
+            d12_prev = max(d1, d2)
 
             monitor.report(it, pairwise_cost, unary_cost, cost1)
             cost_rows.append([it, pairwise_cost, unary_cost, cost1])
@@ -772,10 +954,9 @@ class PhyloHMRF:
         self.params_vec = params_best1.copy()
         self.means_, self.covars_ = self._moments_np(params_best)
 
-        if cfg.final_polish:
+        if cfg.final_polish and cfg.labeler not in EXACT_LABELERS:
             # one exact graph-cut pass over the best-iteration labels under
-            # the restored best-iteration moments (the JAX engine skips it
-            # after exact E-step labelers, which do not run here)
+            # the restored best-iteration moments
             self.polish_stats_ = CutStats()
             with self.timer.phase("final_polish"):
                 t_label_grids = self._exact_labels_all(
@@ -791,6 +972,89 @@ class PhyloHMRF:
             means=self.means_.copy(), covars=self.covars_.copy(),
             n_iters=n_iters,
             state_list=(np.asarray(state_list) if track_states else None))
+
+    def fit_accumulate(self, **kw) -> FitResult:
+        """The reference's ``fit_accumulate``: `fit` with a patience of 20
+        iterations past the best cost and the states of every iteration
+        tracked."""
+        kw.setdefault("patience", 20)
+        kw.setdefault("track_states", True)
+        return self.fit(**kw)
+
+    def fit_v1(self, **kw) -> FitResult:
+        """The reference's v1 ``fit()``: patience 20, no minimum-iteration
+        guard on the threshold stop, and the best cost from iteration 3 on
+        restored for the params and the moments alike."""
+        cfg0 = self.cfg
+        self.cfg = dataclasses.replace(cfg0, min_iter=-1)
+        try:
+            kw.setdefault("patience", 20)
+            result = self.fit(**kw)
+        finally:
+            self.cfg = cfg0
+        self.params_vec = result.params_vec1.copy()
+        self.means_, self.covars_ = self._moments_np(result.params_vec1)
+        return dataclasses.replace(result, means=self.means_.copy(),
+                                   covars=self.covars_.copy())
+
+    # ------------------------------------------------------------------
+    # inference under the current parameters
+    # ------------------------------------------------------------------
+
+    def predict(self) -> np.ndarray:
+        """MAP state labels (N,) of all samples: one E-step of the
+        configured labeler (a hybrid's fast one) from the warm labels."""
+        if self.means_ is None:
+            raise RuntimeError("model not initialized/fit")
+        warm = self.labels_local or [
+            np.zeros(r.shape, np.int32) for r in self.regions]
+        label_grids, _, _, _ = self.estep(self.means_, self.covars_, warm)
+        return self._flat_labels(label_grids)
+
+    def predict_proba(self, labels_flat: np.ndarray | None = None
+                      ) -> np.ndarray:
+        """Per-sample state posteriors (N, K): softmax(logprob - pairwise
+        potential) at the given labeling, or at `predict`'s."""
+        cfg = self.cfg
+        if self.means_ is None:
+            raise RuntimeError("model not initialized/fit")
+        if labels_flat is None:
+            labels_flat = self.predict()
+        means_t, covars_t = self._dev(self.means_), self._dev(self.covars_)
+        out = np.zeros((self.n_samples, self.n_states), np.float64)
+        for i, r in enumerate(self.regions):
+            grid = self._dev(r.labels_to_grid(
+                labels_flat[self.offsets[i]:self.offsets[i + 1]]),
+                torch.int32)
+            logprob = gaussian_logpdf(self._dev(r.img), means_t, covars_t)
+            dmaps = self._dev(r.dmaps)
+            w_pp = (weight_maps(dmaps, cfg.beta1) if cfg.estimate_type == 3
+                    else valid_maps(dmaps))
+            pp = pairwise_potential(grid, w_pp, self.n_states, cfg.beta)
+            post = _to_numpy(torch.softmax(logprob - pp, dim=-1))
+            out[self.offsets[i]:self.offsets[i + 1]] = \
+                post[r.flat_rows, r.flat_cols]
+        return out
+
+    def score_samples(self, labels_flat: np.ndarray | None = None):
+        """(total log probability, per-sample posteriors): the posteriors
+        of `predict_proba` and the emission log-evidence
+        sum_n logsumexp_k logprob(n, k) under a uniform state prior, summed
+        in float64."""
+        from scipy.special import logsumexp
+
+        if self.means_ is None:
+            raise RuntimeError("model not initialized/fit")
+        posteriors = self.predict_proba(labels_flat)
+        means_t, covars_t = self._dev(self.means_), self._dev(self.covars_)
+        total = 0.0
+        for r in self.regions:
+            logprob = _to_numpy(gaussian_logpdf(self._dev(r.img), means_t,
+                                                covars_t))
+            lse = logsumexp(
+                logprob[r.flat_rows, r.flat_cols].astype(np.float64), axis=-1)
+            total += float(lse.sum()) - lse.shape[0] * np.log(self.n_states)
+        return total, posteriors
 
     def _host_state(self):
         """What ``utils/checkpoint.py::save_checkpoint`` reads of the model,

@@ -2,8 +2,10 @@
 fill, built with g++ at first use, bound with ctypes.
 
 ``maxflow.cc`` is a copy of ``phylo_hmrf_tpu/native/maxflow.cc`` (exact
-alpha-expansion by Boykov-Kolmogorov max flow on a general graph, and the
-weighted-Potts energy, in float64). The port holds its exact polish to it.
+alpha-beta swap and alpha-expansion by Boykov-Kolmogorov max flow on a
+general graph, and the weighted-Potts energy, in float64): the host
+``swap`` / ``expansion`` labelers, and the oracle the port holds its exact
+moves to.
 ``gridops.cc`` is a copy of ``phylo_hmrf_tpu/native/gridops.cc``: the
 reference's sequential median hole fill (``data/filters.py::hole_fill``).
 Both build into one library in ``native/build/`` (git-ignored), named by a
@@ -78,9 +80,11 @@ def load() -> ctypes.CDLL:
             lib.phmrf_potts_energy.restype = ctypes.c_double
             lib.phmrf_potts_energy.argtypes = [
                 i64, i64, i64p, f64p, f64p, i32, ctypes.c_double, i32p]
-            lib.phmrf_potts_expansion.restype = i32
-            lib.phmrf_potts_expansion.argtypes = [
-                i64, i64, i64p, f64p, f64p, i32, ctypes.c_double, i32, i32p]
+            for name in ("phmrf_potts_swap", "phmrf_potts_expansion"):
+                fn = getattr(lib, name)
+                fn.restype = i32
+                fn.argtypes = [i64, i64, i64p, f64p, f64p, i32,
+                               ctypes.c_double, i32, i32p]
             for name in HOLE_FILLS.values():
                 fn = getattr(lib, name)
                 fn.restype = None
@@ -113,18 +117,35 @@ def potts_energy(edges: np.ndarray, weights: np.ndarray, unary: np.ndarray,
         lab.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
 
 
+def _moves(entry: str, edges, weights, unary, beta, init_labels,
+           max_cycles) -> np.ndarray:
+    """Run the move-making entry point ``entry`` from ``init_labels``;
+    returns the new labels."""
+    n, k = unary.shape
+    arrays, (e_p, w_p, u_p) = _graph(edges, weights, unary)
+    labels = np.array(init_labels, dtype=np.int32, copy=True)
+    getattr(load(), entry)(
+        n, edges.shape[0], e_p, w_p, u_p, k, beta, max_cycles,
+        labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return labels
+
+
+def potts_swap(edges: np.ndarray, weights: np.ndarray, unary: np.ndarray,
+               beta: float, init_labels: np.ndarray,
+               max_cycles: int = 5000) -> np.ndarray:
+    """Exact alpha-beta swap from ``init_labels`` (the reference E-step's
+    move family, ``pygco.cut_general_graph(..., algorithm='swap')``);
+    returns new labels."""
+    return _moves("phmrf_potts_swap", edges, weights, unary, beta,
+                  init_labels, max_cycles)
+
+
 def potts_expansion(edges: np.ndarray, weights: np.ndarray,
                     unary: np.ndarray, beta: float, init_labels: np.ndarray,
                     max_cycles: int = 5000) -> np.ndarray:
     """Exact alpha-expansion from ``init_labels``; returns new labels."""
-    lib = load()
-    n, k = unary.shape
-    arrays, (e_p, w_p, u_p) = _graph(edges, weights, unary)
-    labels = np.array(init_labels, dtype=np.int32, copy=True)
-    lib.phmrf_potts_expansion(
-        n, edges.shape[0], e_p, w_p, u_p, k, beta, max_cycles,
-        labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
-    return labels
+    return _moves("phmrf_potts_expansion", edges, weights, unary, beta,
+                  init_labels, max_cycles)
 
 
 def hole_fill(mtx: np.ndarray, variant: str, threshold: float) -> None:

@@ -12,6 +12,7 @@ block-coordinate-descent step and the energy never rises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -28,34 +29,46 @@ def _phase_masks(H: int, W: int, device):
 
 
 def icm(unary: torch.Tensor, wmaps: torch.Tensor, mask: torch.Tensor,
-        init_labels: torch.Tensor, beta: float,
-        max_sweeps: int = 60) -> torch.Tensor:
+        init_labels: torch.Tensor, beta: float, max_sweeps: int = 60,
+        beta_ramp: int = 0) -> torch.Tensor:
     """Checkerboard ICM from ``init_labels`` until no label changes or
     ``max_sweeps`` sweeps ran; returns labels (H, W) int32.
 
-    unary (H, W, K); wmaps (4, H, W); mask (H, W) bool. (The JAX module's
-    ``beta_ramp`` anneal serves only the ``icm`` labeler, not ported.)"""
+    unary (H, W, K); wmaps (4, H, W); mask (H, W) bool. ``beta_ramp > 0``
+    first runs that many sweeps at the float32 strength
+    beta * min(1, (t + 1) / beta_ramp), t = 0, 1, ... (a deterministic
+    anneal for cold starts)."""
     H, W, K = unary.shape
     phases = _phase_masks(H, W, unary.device)
     labels = torch.where(mask, init_labels, 0).to(torch.int32)
-    changed, sweep = 1, 0
-    while changed > 0 and sweep < max_sweeps:
+
+    def one_sweep(labels, beta_t):
         changed = 0
         for ph in phases:
             agree, _ = neighbor_sums(labels, wmaps, K)
-            score = unary - beta * agree
+            score = unary - beta_t * agree
             best = torch.argmin(score, dim=-1).to(torch.int32)
             new = torch.where(ph & mask, best, labels)
             changed += int(torch.sum(new != labels))
             labels = new
+        return labels, changed
+
+    for t in range(beta_ramp):
+        ramp = np.minimum(np.float32(1.0),
+                          np.float32(t + 1.0) / np.float32(beta_ramp))
+        labels, _ = one_sweep(labels, float(np.float32(beta) * ramp))
+    changed, sweep = 1, 0
+    while changed > 0 and sweep < max_sweeps:
+        labels, changed = one_sweep(labels, beta)
         sweep += 1
     return labels
 
 
 def icm_with_energy(unary, wmaps, mask, init_labels, beta,
-                    max_sweeps: int = 60):
+                    max_sweeps: int = 60, beta_ramp: int = 0):
     """ICM plus the final MRF energy."""
-    labels = icm(unary, wmaps, mask, init_labels, beta, max_sweeps)
+    labels = icm(unary, wmaps, mask, init_labels, beta, max_sweeps,
+                 beta_ramp)
     return labels, potts_energy(labels, unary, wmaps, mask, beta)
 
 
@@ -73,3 +86,27 @@ def mean_field(unary: torch.Tensor, wmaps: torch.Tensor, beta: float,
     agree, wsum = neighbor_sums_soft(q, wmaps)
     field = unary + beta * (wsum[..., None] - agree)
     return torch.argmin(field, dim=-1).to(torch.int32)
+
+
+def label_optimize(unary: torch.Tensor, wmaps: torch.Tensor,
+                   mask: torch.Tensor, init_labels: torch.Tensor,
+                   beta: float, method: str = "mf_icm",
+                   max_sweeps: int = 60, beta_ramp: int = 0) -> torch.Tensor:
+    """One region's E-step labeling. ``method`` "mf_icm": annealed mean
+    field proposes, ICM polishes the proposal and the warm labels, the
+    lower energy wins; "icm": ICM from the warm labels; "lbp": as
+    "mf_icm" with a min-sum loopy BP proposal (``ops/lbp.py``)."""
+    if method == "icm":
+        return icm(unary, wmaps, mask, init_labels, beta, max_sweeps,
+                   beta_ramp)
+    if method == "lbp":
+        from phylo_hmrf_tpu_torch.ops.lbp import lbp_labels
+        prop = lbp_labels(unary, wmaps, mask, beta)
+    elif method == "mf_icm":
+        prop = mean_field(unary, wmaps, beta)
+    else:
+        raise ValueError(f"unknown label method {method!r}")
+    cand_a, e_a = icm_with_energy(unary, wmaps, mask, prop, beta, max_sweeps)
+    cand_b, e_b = icm_with_energy(unary, wmaps, mask, init_labels, beta,
+                                  max_sweeps)
+    return torch.where(e_a <= e_b, cand_a, cand_b)

@@ -47,6 +47,8 @@ class CutStats:
     bfs_sweeps: int = 0      # BFS sweeps (global relabels + source-side BFS)
     capped: int = 0          # moves stopped by max_sweeps with nodes active
     host_reads: int = 0      # loop tests read back to the host
+    energy_start: float = 0.0   # MRF energy of the start labels and of the
+    energy_end: float = 0.0     # labels returned (float64, summed)
 
 
 def _read(x, stats):
@@ -340,7 +342,7 @@ def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
     wsum = _incident_wsum(wmaps, beta)
     labels = torch.where(mask, init_labels, 0).to(torch.int32)
     e, hist_t = _energy_hist(labels, unary_k, wmaps, mask, beta, n_states)
-    prev_e = float(e.sum())
+    e_start = prev_e = e_now = float(e.sum())
     hist = hist_t.cpu().numpy()
 
     if method == "expansion":
@@ -402,7 +404,24 @@ def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
         if prev_e - e_now <= tol * max(1.0, abs(prev_e)):
             break
         prev_e = e_now
+    if stats is not None:
+        stats.energy_start += e_start
+        stats.energy_end += e_now
     return labels
+
+
+def _icm_pick(unary_k, wmaps, mask, proposal, warm, beta: float,
+              icm_max_sweeps: int, *, plain: bool = False) -> torch.Tensor:
+    """Checkerboard ICM (K2) from ``proposal`` and from ``warm``; the
+    lower Potts energy (K3, both labelings in one call) wins per region."""
+    cand_a = icm_kmajor(unary_k, wmaps, mask, proposal, beta, icm_max_sweeps,
+                        plain=plain)
+    cand_b = icm_kmajor(unary_k, wmaps, mask, warm, beta, icm_max_sweeps,
+                        plain=plain)
+    energy = potts_energy_pair_plain if plain else potts_energy_pair
+    e_a, e_b = energy(unary_k, mask.to(torch.int32), cand_a, cand_b, wmaps,
+                      beta)
+    return torch.where((e_a <= e_b)[:, None, None], cand_a, cand_b)
 
 
 def _start_batch(unary_k, wmaps, mask, warm, beta: float,
@@ -411,14 +430,8 @@ def _start_batch(unary_k, wmaps, mask, warm, beta: float,
     field (K1) proposes, checkerboard ICM (K2) polishes both the proposal
     and the warm labels, the lower Potts energy (K3) wins per region."""
     mf = mean_field_kmajor(unary_k, wmaps, beta, plain=plain)
-    cand_a = icm_kmajor(unary_k, wmaps, mask, mf, beta, icm_max_sweeps,
-                        plain=plain)
-    cand_b = icm_kmajor(unary_k, wmaps, mask, warm, beta, icm_max_sweeps,
-                        plain=plain)
-    energy = potts_energy_pair_plain if plain else potts_energy_pair
-    e_a, e_b = energy(unary_k, mask.to(torch.int32), cand_a, cand_b, wmaps,
-                      beta)
-    return torch.where((e_a <= e_b)[:, None, None], cand_a, cand_b)
+    return _icm_pick(unary_k, wmaps, mask, mf, warm, beta, icm_max_sweeps,
+                     plain=plain)
 
 
 def exact_labels_batched(unary_k, wmaps, mask, warm, beta: float,
@@ -436,3 +449,42 @@ def exact_labels_batched(unary_k, wmaps, mask, warm, beta: float,
     return _optimize_batched(unary_k, wmaps, mask, start, beta, n_states,
                              method, max_cycles, max_sweeps, tol,
                              plain=plain, stats=stats)
+
+
+def exact_labels(unary, wmaps, mask, warm, beta: float, n_states: int,
+                 max_cycles: int = 2, icm_max_sweeps: int = 60,
+                 method: str = "swap", *, plain: bool = False,
+                 stats: CutStats | None = None) -> torch.Tensor:
+    """`exact_labels_batched` of one region with a state-minor (H, W, K)
+    unary, run as a batch of one: the region gets its own move schedule
+    and stopping test. Returns labels (H, W) int32."""
+    return exact_labels_batched(
+        unary.permute(2, 0, 1)[None].contiguous(), wmaps[None], mask[None],
+        warm[None], beta, n_states, max_cycles, icm_max_sweeps, method,
+        plain=plain, stats=stats)[0]
+
+
+def swap_optimize(unary, wmaps, mask, init_labels, beta: float,
+                  n_states: int, max_cycles: int = 10,
+                  max_sweeps: int = 3000, tol: float = 1e-6, *,
+                  plain: bool = False,
+                  stats: CutStats | None = None) -> torch.Tensor:
+    """Exact alpha-beta swap moves from ``init_labels`` on one region with
+    a state-minor (H, W, K) unary (see `_optimize_batched`)."""
+    return _optimize_batched(
+        unary.permute(2, 0, 1)[None].contiguous(), wmaps[None], mask[None],
+        init_labels[None], beta, n_states, "swap", max_cycles, max_sweeps,
+        tol, plain=plain, stats=stats)[0]
+
+
+def expansion_optimize(unary, wmaps, mask, init_labels, beta: float,
+                       n_states: int, max_cycles: int = 10,
+                       max_sweeps: int = 3000, tol: float = 1e-6, *,
+                       plain: bool = False,
+                       stats: CutStats | None = None) -> torch.Tensor:
+    """Exact alpha-expansion moves from ``init_labels`` on one region with
+    a state-minor (H, W, K) unary (see `_optimize_batched`)."""
+    return _optimize_batched(
+        unary.permute(2, 0, 1)[None].contiguous(), wmaps[None], mask[None],
+        init_labels[None], beta, n_states, "expansion", max_cycles,
+        max_sweeps, tol, plain=plain, stats=stats)[0]

@@ -49,9 +49,10 @@ def device_put_bucket(mesh, img, mask, dmaps):
             shard_regions(mesh, dmaps))
 
 
-def make_sharded_estep(mesh, *, weighted_pp: bool, max_sweeps: int):
-    """The region-sharded E-step: `_estep_bucket` on every shard's block
-    of regions. Takes per-shard lists img, mask, dmaps (`device_put_bucket`)
+def make_sharded_estep(mesh, *, weighted_pp: bool, max_sweeps: int,
+                       labeler: str = "mf_icm"):
+    """The region-sharded E-step: `_estep_bucket` with ``labeler`` on every
+    shard's block of regions. Takes per-shard lists img, mask, dmaps (`device_put_bucket`)
     and the padded warm labels (R_pad, H, W) on any device; returns the
     `_estep_bucket` outputs for all R_pad regions on the first shard's
     device."""
@@ -63,7 +64,8 @@ def make_sharded_estep(mesh, *, weighted_pp: bool, max_sweeps: int):
             dev = x.device
             outs.append(_estep_bucket(
                 x, m, dm, w, means.to(dev), covars.to(dev), beta, beta1,
-                weighted_pp=weighted_pp, max_sweeps=max_sweeps))
+                weighted_pp=weighted_pp, max_sweeps=max_sweeps,
+                labeler=labeler))
         dev0 = mesh.devices[0]
 
         def cat(ts):

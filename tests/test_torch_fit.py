@@ -202,14 +202,11 @@ def test_cuda_device_raises_without_cuda():
                                                  n_states=3), device="cuda")
 
 
-@pytest.mark.parametrize("kw", [
-    dict(labeler="swap_tpu"), dict(labeler="icm"), dict(labeler="lbp"),
-    dict(labeler="mf_icm+swap@2"), dict(dtype="float64"),
-    dict(kmeans_backend="sklearn"), dict(labeler="expansion_tpu"),
-    dict(labeler="mf_icm+expansion@3")])
+@pytest.mark.parametrize("kw", [dict(dtype="float64"),
+                                dict(kmeans_backend="sklearn")])
 def test_unsupported_config_raises(kw):
-    """Everything but the mf_icm labeler in float32 raises, with the final
-    polish on (the default) or off."""
+    """What the port does not run raises: the float64 mode and the
+    scikit-learn k-means (every labeler runs: tests/test_torch_labelers.py)."""
     regions, _ = synth_problem(np.random.default_rng(0), H0=8)
     base = dict(n_states=3)
     base.update(kw)
@@ -221,8 +218,9 @@ def test_unsupported_run_options_raise(tmp_path):
     """A mesh that is not the port's `Mesh` raises (meshes from
     `parallel.mesh.make_mesh` run: tests/test_torch_halo.py), and the
     command line refuses what the port does not run, before it reads any
-    input: multi-process runs and the labelers other than ``mf_icm``
-    (checkpoint/resume runs: tests/test_torch_cli.py)."""
+    input: multi-process runs (checkpoint/resume runs:
+    tests/test_torch_cli.py; every labeler runs:
+    tests/test_torch_labelers.py)."""
     from phylo_hmrf_tpu_torch.cli import main
 
     regions, _ = synth_problem(np.random.default_rng(0), H0=8)
@@ -235,5 +233,3 @@ def test_unsupported_run_options_raise(tmp_path):
         main(base + ["--num_processes", "2"])
     with pytest.raises(NotImplementedError, match="multi-process"):
         main(base + ["--coordinator", "localhost:1234"])
-    with pytest.raises(NotImplementedError, match="swap_tpu"):
-        main(base + ["--labeler", "swap_tpu"])

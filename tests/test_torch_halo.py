@@ -598,7 +598,8 @@ def test_spatial_rejects_indivisible_rows():
 
 def test_spatial_rejects_hybrid_labeler():
     """tests/test_spatial_fit.py:55-60: spatial mode with another labeler
-    than mf_icm raises ValueError, before the port's own refusal."""
+    than mf_icm raises ValueError (the row-sharded E-step is the mean
+    field + ICM pipeline; region mode runs every labeler)."""
     regions, _ = synth_problem(np.random.default_rng(0), H0=32)
     cfg = PhyloHMRFConfig(final_polish=False, n_states=3, pad_h=8, pad_w=8,
                           shard_mode="spatial", labeler="mf_icm+swap@2")

@@ -10,11 +10,14 @@ this tree's, each as ``python3 tools/fit_ab.py --one TREE`` in its own
 process: ``PhyloHMRF(tree, [chr21 region], PhyloHMRFConfig(n_states=10,
 max_iter=5, seed=0)).fit()``, the ``chip_smoke.py`` fit without the phases
 that run before it there. Prints one JSON line per fit: fit seconds, init,
-seconds per EM iteration (E-step + M-step), the final polish; with
+seconds per EM iteration (E-step + M-step), the final polish, the
+SHA-256 of the cost rows (float64) and of the final labels (int32), so
+two trees' fits compare bitwise; with
 ``--cuts`` (the first turn of this tree) also the wall of the first three
 whole min cuts of the chr21 move graph in the process, before the fit.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -63,7 +66,11 @@ def one(tree: str, cuts: bool) -> None:
     rec.update(init_s=s["init"]["total_s"],
                s_per_em_iter=(s["estep"]["total_s"] + s["mstep"]["total_s"])
                / res.n_iters,
-               final_polish_s=s["final_polish"]["total_s"])
+               final_polish_s=s["final_polish"]["total_s"],
+               cost_vec_sha256=hashlib.sha256(
+                   res.cost_vec.astype("<f8").tobytes()).hexdigest(),
+               labels_sha256=hashlib.sha256(
+                   res.labels.astype("<i4").tobytes()).hexdigest())
     print(json.dumps(rec), flush=True)
 
 
