@@ -37,6 +37,19 @@ walls and launches, moves per exact E-step and peak device memory.
 ``swap_tpu`` on a 223 x 223 region of the same kind (24,976 samples): the
 device energy within 0.1% of the C++ one's.
 
+``[postprocess]`` smooths the ``[fit]`` output's states, writes its
+per-bin-pair state file and a PNG state map (read back equal to
+``states_to_rgb``), compares the fit's ``.mat`` with itself (NMI, ARI and
+the matched accuracy 1.0) and its labels with the truth. ``[f64]`` fits
+the chr21 problem with the default config at ``dtype="float64"`` (3
+iterations, from its own init): its phase walls, peak memory and K1-K8
+launches (all 0: the float64 mode runs the plain versions), the float64
+unary at the JAX gate against the host's, one float64 E-step from the
+``[fit]`` init state bitwise repeatable, bitwise equal over 4 spatial
+shards, and >= 0.99 label agreement with the float32 E-step.
+``[f64_oracle]`` holds one float64 expansion polish on the card against
+the C++ expansion on the ``[host_swap]`` problem (energy within 0.1%).
+
 The command line drives the same problem from files (``[cli]``): the
 port's writer puts a chr21-scale input (657 bins, 4 species, ~194k contact
 rows a species) in the reference's layout into a fresh temporary working
@@ -818,20 +831,26 @@ def _counters():
             "K8_icm_sweep_halo": icm_kernels.icm_sweep_halo_}
 
 
-def fit_model(tree, regions, cfg, device=None, mesh=None, state=None):
+def fit_model(tree, regions, cfg, device=None, mesh=None, state=None,
+              count_init=False):
     """``PhyloHMRF.fit`` from ``state`` (``convert.export_state``'s), or
     from the model's own ``initialize()``, run (and timed) before the fit
     and its state kept, with the launch counters set to 0 just before the
-    fit and read just after. Each E-step's wall (it ends in the read-back
-    of its statistics) and the kernel launches inside it are logged.
-    Returns a namespace: res, model, launches (per kernel), grids (each
-    iteration's label grids), state, init_s, esteps."""
+    fit (``count_init``: just before the init) and read just after. Each
+    E-step's wall (it ends in the read-back of its statistics) and the
+    kernel launches inside it are logged. Returns a namespace: res,
+    model, launches (per kernel), grids (each iteration's label grids),
+    state, init_s, esteps."""
     import types
 
     from phylo_hmrf_tpu_torch import PhyloHMRF
     from phylo_hmrf_tpu_torch.convert import export_state, import_state
 
     model = PhyloHMRF(tree, regions, cfg, mesh=mesh, device=device)
+    counters = _counters()
+    if count_init:
+        for fn in counters.values():
+            fn.launches = 0
     init_s = None
     if state is None:
         t0 = time.perf_counter()
@@ -841,7 +860,6 @@ def fit_model(tree, regions, cfg, device=None, mesh=None, state=None):
     else:
         import_state(model, state)
     grids, esteps = [], []
-    counters = _counters()
     estep = model.estep
 
     def logged(*args, **kw):
@@ -853,8 +871,9 @@ def fit_model(tree, regions, cfg, device=None, mesh=None, state=None):
             if fn.launches > before[k]}))
         return out
     model.estep = logged
-    for fn in counters.values():
-        fn.launches = 0
+    if not count_init:
+        for fn in counters.values():
+            fn.launches = 0
     res = model.fit(verbose=True, callback=lambda m, it, row, g: grids.append(
         [x.clone() for x in g]))
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -1046,6 +1065,257 @@ def check_host_swap(device, h0=HOST_SWAP_H0, beta=1.0, beta1=0.5,
                 agreement=float((got["swap"][0] == got["swap_tpu"][0]).mean()),
                 cpp_estep_s=got["swap"][1], device_estep_s=got["swap_tpu"][1],
                 costs_cpp=got["swap"][2], costs_device=got["swap_tpu"][2])
+
+
+F64_ITERS = 3   # EM iterations of the [f64] fit
+
+
+def check_f64(tree, region, state, fit_launches, device):
+    """``[f64]``: the default config at ``dtype="float64"`` on the chr21
+    cell, ``F64_ITERS`` iterations from its own init (depth cut only):
+    the walls of its phases, its peak device memory and the launches of
+    K1-K8 from its init to its polish (all 0: the float64 mode runs the
+    plain versions, as the JAX engine runs its jnp paths in float64),
+    beside the ``[fit]`` phase's (non-zero). Checks: the float64 unary of
+    the ``[fit]`` init moments against the float64 host
+    ``_gauss_logpdf_np`` (rtol 1e-9, atol 1e-9, the JAX gate);
+    ``cost1 == pairwise + unary`` on every iteration; one float64 E-step
+    from the ``[fit]`` init state run twice, bitwise equal; its labels
+    against the float32 E-step's from that state (agreement >= 0.99); the
+    float64 E-step over 4 spatial shards of the card, bitwise the
+    single-device one (the pinned order)."""
+    import numpy as np
+    import torch
+
+    from phylo_hmrf_tpu_torch import PhyloHMRF, PhyloHMRFConfig
+    from phylo_hmrf_tpu_torch.convert import import_state
+    from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
+    from phylo_hmrf_tpu_torch.models.hmrf import _gauss_logpdf_np
+    from phylo_hmrf_tpu_torch.parallel.mesh import make_mesh
+
+    K = int(state["means"].shape[0])
+    cfg = PhyloHMRFConfig(n_states=K, max_iter=F64_ITERS, seed=0,
+                          dtype="float64")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = fit_model(tree, [region], cfg, device=device, count_init=True)
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res, model = run.res, run.model
+    _check(model._dtype == torch.float64 and not model._use_kernels,
+           "the float64 model chose the kernels")
+    _check(not any(run.launches.values()),
+           f"the float64 fit launched kernels: {run.launches}")
+    _check(all(fit_launches[k] > 0 for k in list(KERNELS)[:6]),
+           "the [fit] phase did not launch K1-K6")
+    cv = res.cost_vec
+    _check(res.n_iters == F64_ITERS and np.isfinite(cv).all(),
+           f"float64 fit: {res.n_iters} iterations, costs {cv.tolist()}")
+    _check(np.allclose(cv[:, 3], cv[:, 1] + cv[:, 2], rtol=1e-12, atol=0),
+           "float64 fit: cost1 != pairwise + unary")
+    st = model.polish_stats_
+    _check(st is not None and st.moves > 0 and st.capped == 0,
+           "float64 fit: the final polish did not run, or a move capped")
+    _check(st.energy_end <= st.energy_start + 1e-9 * abs(st.energy_start),
+           "float64 fit: the polish raised the energy")
+    summ = model.timer.summary()
+    walls = {p: summ[p]["total_s"] for p in ("estep", "mstep",
+                                             "final_polish")}
+    walls["init"] = run.init_s
+
+    # the float64 unary at the JAX gate, from the [fit] init moments
+    means, covars = state["means"], state["covars"]
+    img = torch.as_tensor(region.img[None], dtype=torch.float64,
+                          device=device)
+    unary = -gaussian_logpdf_kmajor(
+        img, torch.as_tensor(means, device=device),
+        torch.as_tensor(covars, device=device))[0]
+    got = unary[:, region.flat_rows, region.flat_cols].T.cpu().numpy()
+    X = region.flat_values().astype(np.float64)
+    want = -np.stack([_gauss_logpdf_np(X, means[c], covars[c], cfg.min_covar)
+                      for c in range(K)], axis=1)
+    unary_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    _check(np.allclose(got, want, rtol=1e-9, atol=1e-9),
+           f"float64 unary off the host's by {unary_rel} (rel)")
+
+    def estep(dtype, mesh=None):
+        m = PhyloHMRF(tree, [region], PhyloHMRFConfig(
+            n_states=K, seed=0, dtype=dtype,
+            shard_mode="spatial" if mesh else "region"), mesh=mesh,
+            device=None if mesh else device)
+        import_state(m, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grids, (p, o, o2), costs, _ = m.estep(m.means_, m.covars_,
+                                              m.labels_local)
+        return (m._flat_labels(grids), p, o, o2, costs,
+                time.perf_counter() - t0)
+
+    one, two = estep("float64"), estep("float64")
+    _check(all(np.array_equal(a, b) for a, b in zip(one[:5], two[:5])),
+           "the float64 E-step is not bitwise repeatable")
+    mesh = make_mesh((SHARDS,))
+    shards = estep("float64", mesh)
+    _check(all(np.array_equal(a, b) for a, b in zip(shards[:5], one[:5])),
+           f"the float64 E-step over {SHARDS} spatial shards is not "
+           f"bitwise the single-device one")
+    _check(not any(fn.launches for fn in _counters().values()),
+           "a float64 E-step launched a kernel")
+    f32 = estep("float32")
+    agree = float((f32[0] == one[0]).mean())
+    _check(agree >= 0.99, f"float64 E-step labels agree {agree} with the "
+                          f"float32 E-step's")
+    return dict(
+        n_iters=res.n_iters, fit_s=fit_s, walls_s=walls,
+        estep_s=[e["wall_s"] for e in run.esteps], peak_mem_gib=peak,
+        launches=run.launches,
+        fit_launches={k: fit_launches[k] for k in KERNELS},
+        cost_vec=cv.tolist(), unary_max_rel=unary_rel,
+        polish=dict(moves=st.moves, pr_iterations=st.pr_iterations,
+                    bfs_sweeps=st.bfs_sweeps, host_reads=st.host_reads,
+                    energy_start=st.energy_start, energy_end=st.energy_end),
+        estep_bitwise_repeat=True, spatial_shards=SHARDS,
+        spatial_bitwise_single=True, f32_label_agreement=agree,
+        f32_cost_rel=float(np.max(np.abs(f32[4] - one[4])
+                                  / np.abs(one[4]))),
+        estep_f64_s=[one[5], two[5]], estep_f64_spatial_s=shards[5],
+        estep_f32_s=f32[5])
+
+
+def check_f64_oracle(device, h0=HOST_SWAP_H0, beta=1.0, beta1=0.5,
+                     min_covar=1e-3):
+    """``[f64_oracle]``: one float64 exact expansion polish on the card
+    (the K1-K3 start and the expansion moves, plain versions in float64,
+    no kernel launched) on the ``[host_swap]`` problem, against the C++
+    alpha-expansion of ``native/`` from the same start on the same
+    float64 unary and weights. Gate, the one the float32 polish meets:
+    the card's energy <= the C++ one's + 0.1%."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from phylo_hmrf_tpu_torch import PhyloHMRFConfig, native
+    from phylo_hmrf_tpu_torch.data.regions import flat_edge_list
+    from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
+    from phylo_hmrf_tpu_torch.models.hmrf import _gauss_logpdf_np
+    from phylo_hmrf_tpu_torch.ops.maxflow import (CutStats, _optimize_batched,
+                                                  _start_batch)
+    from phylo_hmrf_tpu_torch.ops.potts import weight_maps
+    from phylo_hmrf_tpu_torch.synth import chr21_problem
+
+    _, region, means, covs, warm, _ = chr21_problem(0, h0=h0)
+    K = means.shape[0]
+    cfg = PhyloHMRFConfig()
+
+    def dev(a, dtype=torch.float64):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    unary_k = -gaussian_logpdf_kmajor(dev(region.img[None]), dev(means),
+                                      dev(covs)).contiguous()
+    w = weight_maps(dev(region.dmaps[None]), beta1).contiguous()
+    mask = dev(region.mask[None], torch.bool)
+    warm_g = dev(region.labels_to_grid(warm)[None], torch.int32)
+    for fn in _counters().values():
+        fn.launches = 0
+    stats = CutStats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = _start_batch(unary_k, w, mask, warm_g, beta,
+                         cfg.icm_max_sweeps, plain=True)
+    out = _optimize_batched(unary_k, w, mask, start, beta, K, "expansion",
+                            cfg.swap_tpu_cycles, plain=True, stats=stats)
+    torch.cuda.synchronize()
+    port_s = time.perf_counter() - t0
+    _check(not any(fn.launches for fn in _counters().values()),
+           "the float64 polish launched a kernel")
+    X = region.flat_values().astype(np.float64)
+    unary = -np.stack([_gauss_logpdf_np(X, means[c], covs[c], min_covar)
+                       for c in range(K)], axis=1)
+    dev_unary = unary_k[0][:, region.flat_rows, region.flat_cols].T
+    unary_rel = float(np.max(np.abs(dev_unary.cpu().numpy() - unary)
+                             / np.abs(unary)))
+    edges = flat_edge_list(region)
+    wf = np.exp(-beta1 * edges[:, 2])
+    ei = edges[:, :2].astype(np.int64)
+    start_f = region.labels_to_flat(start[0].cpu().numpy()).astype(np.int32)
+    port_f = region.labels_to_flat(out[0].cpu().numpy()).astype(np.int32)
+    t0 = time.perf_counter()
+    cpp = native.potts_expansion(ei, wf, unary, beta, start_f, 5000)
+    cpp_s = time.perf_counter() - t0
+    e_start, e_port, e_cpp = (native.potts_energy(ei, wf, unary, beta, lab)
+                              for lab in (start_f, port_f, cpp))
+    gap = (e_port - e_cpp) / abs(e_cpp)
+    _check(e_port <= e_cpp + 1e-3 * abs(e_cpp),
+           f"float64 polish energy {e_port} above the C++ expansion's "
+           f"{e_cpp} by {gap}")
+    return dict(samples=region.n_samples, shape=list(region.shape),
+                energy_start=e_start, energy_port=e_port, energy_cpp=e_cpp,
+                rel_gap=gap, agreement=float((port_f == cpp).mean()),
+                unary_max_rel_host=unary_rel, port_s=port_s, cpp_s=cpp_s,
+                stats=dataclasses.asdict(stats))
+
+
+def check_postprocess(res, model, true):
+    """``[postprocess]`` on the ``[fit]`` output, none of it needing
+    pandas, scikit-learn or matplotlib: ``smooth_state_vec``,
+    ``write_state_files`` (a row a sample), ``save_state_image`` to a PNG
+    read back equal to ``states_to_rgb``; ``compare_results`` of the
+    fit's ``.mat`` against itself (NMI, ARI and the matched accuracy 1.0,
+    to 1e-12) and ``compare_labeling`` of the fit against the truth."""
+    import numpy as np
+
+    from phylo_hmrf_tpu_torch.compare import compare_results
+    from phylo_hmrf_tpu_torch.postprocess.smooth import (
+        read_state_image, save_state_image, smooth_state_vec, states_to_grid,
+        states_to_rgb, write_state_files)
+    from phylo_hmrf_tpu_torch.utils import save_estimate
+    from phylo_hmrf_tpu_torch.utils.metrics import compare_labeling
+
+    K = model.cfg.n_states
+    lv = model.len_vec
+    walls = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        sm = smooth_state_vec(res.labels, lv, K)
+        walls["smooth_s"] = time.perf_counter() - t0
+        _check(sm.shape == res.labels.shape and 0 <= sm.min()
+               and sm.max() < K, "smoothed states out of range")
+        t0 = time.perf_counter()
+        path = write_state_files(sm, lv, int(lv[0, 9]), 50000, d, "smooth")
+        walls["write_s"] = time.perf_counter() - t0
+        with open(path) as f:
+            n_rows = sum(1 for _ in f)
+        _check(n_rows == res.labels.size, f"{n_rows} state rows written")
+        n, start, stop, H0, W0 = (int(v) for v in lv[0, :5])
+        grid = states_to_grid(sm[start:stop], H0, W0, bool(lv[0, 8]))
+        png = os.path.join(d, "states.png")
+        t0 = time.perf_counter()
+        save_state_image(grid, png, n_components=K, title="chr21 smoothed")
+        walls["png_s"] = time.perf_counter() - t0
+        rgb, title = read_state_image(png)
+        _check(np.array_equal(rgb, states_to_rgb(grid, n_components=K))
+               and title == "chr21 smoothed", "the PNG read back differs")
+        png_bytes = os.path.getsize(png)
+        mat = save_estimate(res, lv, d, 0, model.cfg.lambda_0, K)
+        t0 = time.perf_counter()
+        same = compare_results(mat, mat)
+        walls["compare_s"] = time.perf_counter() - t0
+    for key in ("nmi", "ari", "agreement_best_match"):
+        _check(abs(same[key] - 1.0) <= 1e-12,
+               f"compare_results of the fit against itself: {key} "
+               f"{same[key]}")
+    t0 = time.perf_counter()
+    nmi, ami, ari, ri, prec, rec, f1 = compare_labeling(res.labels, true)
+    walls["compare_labeling_s"] = time.perf_counter() - t0
+    return dict(samples=int(res.labels.size),
+                smoothed_changed=int((sm != res.labels).sum()),
+                state_rows=n_rows, png=[*rgb.shape], png_bytes=png_bytes,
+                self_compare={k: same[k] for k in
+                              ("nmi", "ami", "ari", "agreement_best_match")},
+                vs_truth=dict(nmi=nmi, ami=ami, ari=ari, ri=ri,
+                              precision=prec, recall=rec, f1=f1),
+                walls_s=walls)
 
 
 def check_mesh_exact(mesh, device, seeds=(0, 1)):
@@ -1773,10 +2043,17 @@ def main() -> int:
                polish=polish, phases=summ, launches=run.launches,
                best_match_accuracy=acc, cost_vec=res.cost_vec.tolist())
     print(f"[fit] {json.dumps(fit)}")
+    print(f"[postprocess] {json.dumps(check_postprocess(res, model, true))}")
     # every labeler of the port from the [fit] phase's init state, and
     # the host C++ swap against the device swap on a reduced region
     check_labelers(tree, region, run.state, dev)
     print(f"[host_swap] {json.dumps(check_host_swap(dev))}")
+    # the float64 mode: its fit on the chr21 cell, then its polish against
+    # the C++ expansion on the [host_swap] problem
+    f64 = check_f64(tree, region, run.state, run.launches, dev)
+    print(f"[f64] {json.dumps(f64)}")
+    print(f"[f64_oracle] {json.dumps(check_f64_oracle(dev))}")
+    torch.cuda.empty_cache()
     # the command line's path: the same fit from files, then its resume
     cli_launches = check_cli()
     # after the fit: a profiler run can leave host overhead on later

@@ -1,11 +1,16 @@
 """phylo_hmrf_tpu_torch — the PyTorch/CUDA port of phylo_hmrf_tpu.
 
-Runs ``PhyloHMRF(tree, regions, cfg, device=...).fit()`` for the
-production ``mf_icm`` labeler and the default final exact polish
-(graph-cut expansion or swap moves), in float32, on one device or over a
-mesh of shards (``mesh=parallel.mesh.make_mesh(...)``, ``shard_mode``
-"region" or "spatial"). The eight kernels of those paths (mean-field
-sweep, checkerboard ICM phase, each also on halo-extended row shards;
+Runs ``PhyloHMRF(tree, regions, cfg, device=...).fit()`` with every
+labeler of the JAX package and the default final exact polish (graph-cut
+expansion or swap moves), in float32 or (``dtype="float64"``, on the
+kernels' plain versions) float64, on one device or over a mesh of shards
+(``mesh=parallel.mesh.make_mesh(...)``, ``shard_mode`` "region" or
+"spatial"); around it the command line (``cli``), the post-processing
+(``postprocess.smooth``), the metrics and ``compare`` tool, the simulator,
+the BED helpers and the reconstruction script of the JAX package, without
+pandas, scikit-learn or matplotlib. The eight kernels of those paths
+(mean-field sweep, checkerboard ICM phase, each also on halo-extended row
+shards;
 Potts energy, fused posterior/statistics pass, push-relabel iteration, BFS
 relabel sweep) are hand-written CUDA for the H100 (``csrc/``, built by
 nvcc at first use); on CPU tensors their plain PyTorch versions run

@@ -9,9 +9,7 @@ the reference's flat-sample, len_vec and .npy-cache contracts so cached
 preprocessing is interchangeable (with the JAX package's too).
 
 Both process pools use the spawn context: the caller may hold a CUDA
-context, which a forked child must not inherit. Not copied (no caller on
-the command line's path): ``write_matrix_image_v1_mask`` and
-``load_region_with_positions``.
+context, which a forked child must not inherit.
 """
 
 from __future__ import annotations
@@ -255,3 +253,65 @@ def load_cache(output_path: str, cfg: PhyloHMRFConfig):
             chrom=int(chrom), region_id=int(rid), start1=int(s1),
             start2=int(s2), keep=keep))
     return regions
+
+
+def write_matrix_image_v1_mask(value: np.ndarray, pos: np.ndarray):
+    """Full port of the reference's masked rasterizer
+    (``write_matrix_image_v1_mask``, utility.py:2231-2292): per-feature 5%
+    quantile flooring of positive values, symmetric scatter into a dense
+    square window, and a 2x2-upper-left-neighborhood observed-support mask
+    over interior upper-triangle pixels (mirrored to the lower triangle).
+
+    Returns (mtx (ws, ws, F), start_region, value_index1, value_index2) —
+    value_index1 = flat pixels with any signal, value_index2 = flat pixels
+    kept by the neighborhood mask.
+    """
+    value = np.array(value, dtype=np.float64)
+    pos = np.asarray(pos, dtype=np.int64)
+    start_region = int(min(pos[:, 0].min(), pos[:, 1].min()))
+    stop_region = int(max(pos[:, 0].max(), pos[:, 1].max()))
+    ws = stop_region - start_region + 1
+    F = value.shape[1]
+
+    for f in range(F):
+        t1 = value[:, f]
+        positive = t1[t1 > 0]
+        if positive.size:
+            t1[t1 < np.quantile(positive, 0.05)] = 0
+        value[:, f] = t1
+
+    mtx = np.zeros((ws, ws, F))
+    r = pos[:, 0] - start_region
+    c = pos[:, 1] - start_region
+    mtx[r, c] = value
+    mtx[c, r] = value
+
+    temp1 = mtx.sum(2)
+    value_index1 = np.where(temp1.ravel() > 0)[0]
+    temp1[temp1 <= 0] = 0
+
+    # blk[i, j] = temp1[i-1:i+1, j-1:j+1].sum() for i, j >= 1
+    blk = (temp1 + np.roll(temp1, 1, 0) + np.roll(temp1, 1, 1)
+           + np.roll(np.roll(temp1, 1, 0), 1, 1))
+    ii = np.arange(ws)[:, None]
+    jj = np.arange(ws)[None, :]
+    interior = (ii >= 1) & (ii <= ws - 2) & (jj > ii) & (jj <= ws - 2)
+    dead = interior & (blk <= 0)
+    mask = np.ones((ws, ws))
+    mask[dead] = 0
+    mask[dead.T] = 0
+    value_index2 = np.where(mask.ravel() > 0)[0]
+    return mtx, start_region, value_index1, value_index2
+
+
+def load_region_with_positions(x: np.ndarray, position: np.ndarray, pair,
+                               cfg: PhyloHMRFConfig, chrom):
+    """Load one region and also return each flat sample's genomic bin-pair
+    coordinates (reference ``load_data_chromosome_sub3_position``,
+    utility.py:536-601 — the worker variant whose queue payload carries
+    ``t_position``). Returns (RegionGrid, positions (N, 2) int64)."""
+    region = _load_one_region((x, position, pair, cfg.to_dict(), chrom))
+    positions = np.stack([
+        region.start1 + region.flat_rows.astype(np.int64),
+        region.start2 + region.flat_cols.astype(np.int64)], axis=1)
+    return region, positions

@@ -1,6 +1,7 @@
 """Region grids — the port's own copy of ``phylo_hmrf_tpu/data/regions.py``
 (``DIRS``, ``RegionGrid``, ``flat_index_order``, ``edge_distance_maps``,
-``region_from_samples``, ``flat_edge_list``), numpy only.
+``region_from_samples``, ``flat_edge_list``, ``save_edge_dump``,
+``pack_regions``), numpy only.
 
 The reference stores each synteny region as a flat sample array plus an
 explicit edge list (``utility.py:1871-2053``) and runs a serial general-graph
@@ -185,3 +186,31 @@ def flat_edge_list(region: RegionGrid, num_neighbor: int = 8) -> np.ndarray:
     order = np.lexsort((edges[:, 1], edges[:, 0]))
     return edges[order]
 
+
+def save_edge_dump(region: RegionGrid, path: str, beta1: float | None = None,
+                   num_neighbor: int = 8) -> None:
+    """Write the reference-format edge-list debug dump
+    (`edge_weightList_undirected.txt`, reference phylo_hmrf.py:631-636 /
+    utility.py:1964-1971): tab-separated id1, id2, weight rows. With beta1
+    given, weights are exp(-beta1 * d); otherwise raw distances."""
+    edges = flat_edge_list(region, num_neighbor)
+    w = np.exp(-beta1 * edges[:, 2]) if beta1 is not None else edges[:, 2]
+    out = np.column_stack([edges[:, 0].astype(np.int64),
+                           edges[:, 1].astype(np.int64), w])
+    np.savetxt(path, out, fmt=["%d", "%d", "%.6f"], delimiter="\t")
+
+
+def pack_regions(regions: list, pad_h: int = 8, pad_w: int = 128):
+    """Bucket regions by padded shape and stack each bucket along a leading
+    axis for vmapped/sharded E-steps. Returns
+    ``{(H, W): (indices, img (R,H,W,F), mask (R,H,W), dmaps (R,4,H,W))}``."""
+    buckets = {}
+    for idx, r in enumerate(regions):
+        buckets.setdefault(r.shape, []).append(idx)
+    out = {}
+    for shape, idxs in buckets.items():
+        img = np.stack([regions[i].img for i in idxs])
+        mask = np.stack([regions[i].mask for i in idxs])
+        dmaps = np.stack([regions[i].dmaps for i in idxs])
+        out[shape] = (np.asarray(idxs), img, mask, dmaps)
+    return out

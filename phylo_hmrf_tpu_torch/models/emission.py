@@ -7,7 +7,10 @@ Counterpart of ``phylo_hmrf_tpu/models/emission.py``:
 The quadratic form is a matmul against the inverse Cholesky factor. It
 runs in full float32: the package turns TF32 off at import, because the
 quadratic form feeds exp() downstream and reduced-precision inputs visibly
-distort the posteriors.
+distort the posteriors. In float64 (the strict-parity mode) the K-major
+form is computed pixel by pixel in a fixed order instead of a matmul,
+whose reduction order a library may pick from the batch size: a pixel's
+unary is then bitwise the same in any region batch or row shard.
 """
 
 from __future__ import annotations
@@ -46,8 +49,27 @@ def gaussian_logpdf_kmajor(X: torch.Tensor, means: torch.Tensor,
     (R, K, H, W), the layout every E-step kernel takes."""
     F = X.shape[-1]
     Linv, logdet = _chol_inv_and_logdet(covars)
+    if X.dtype == torch.float64:
+        return _kmajor_pinned(X, means, Linv, logdet)
     y = torch.einsum("rhwf,kgf->rkhwg", X, Linv)
     y_mu = torch.einsum("kf,kgf->kg", means, Linv)
     diff = y - y_mu[None, :, None, None, :]
     quad = torch.sum(diff * diff, dim=-1)
+    return -0.5 * (F * _LOG_2PI + logdet[None, :, None, None] + quad)
+
+
+def _kmajor_pinned(X, means, Linv, logdet):
+    """The K-major log-density as elementwise adds in a fixed order:
+    y_kg = sum_f x_f Linv_kgf, then quad_k = sum_g (y_kg - mu_kg)^2, each
+    sum over f or g taken in index order."""
+    F = X.shape[-1]
+    xs = X.permute(0, 3, 1, 2)[:, :, None]            # (R, F, 1, H, W)
+    y_mu = torch.einsum("kf,kgf->kg", means, Linv)     # (K, F): tiny, once
+    quad = None
+    for g in range(F):
+        y = xs[:, 0] * Linv[None, :, g, 0, None, None]
+        for f in range(1, F):
+            y = y + xs[:, f] * Linv[None, :, g, f, None, None]
+        diff = y - y_mu[None, :, g, None, None]
+        quad = diff * diff if quad is None else quad + diff * diff
     return -0.5 * (F * _LOG_2PI + logdet[None, :, None, None] + quad)

@@ -1,9 +1,10 @@
 """PhyloHMRF — the model class and EM engine, PyTorch port.
 
-Counterpart of ``phylo_hmrf_tpu/models/hmrf.py`` in float32: every
-labeler of ``config.LABELERS`` and the hybrids ``mf_icm+{swap,expansion}@N``,
-then the exact final polish, on one device or over a mesh of shards
-(``mesh=make_mesh(...)``). Per EM iteration:
+Counterpart of ``phylo_hmrf_tpu/models/hmrf.py``: every labeler of
+``config.LABELERS`` and the hybrids ``mf_icm+{swap,expansion}@N``, then the
+exact final polish, on one device or over a mesh of shards
+(``mesh=make_mesh(...)``), in float32 or (``dtype="float64"``, the
+strict-parity mode) in float64. Per EM iteration:
 
 * E-step (`_estep_bucket`, per shape bucket of regions): the K-major unary
   from `gaussian_logpdf_kmajor`, then the labeler. ``mf_icm`` (the
@@ -44,12 +45,22 @@ run on the mesh's first device, which also keeps each whole region bucket.
 There the exact moves label each region alone, as the JAX engine does on
 a mesh (batched regions share one move schedule and one stopping test).
 
+``dtype="float64"`` runs every step above in float64 on the plain
+PyTorch versions of the kernels, as the JAX engine runs its jnp paths
+there (its fused kernels are float32-only): the kernels are chosen once,
+by `use_kernels` of the model's device and dtype, and the choice goes down
+to every kernel wrapper as ``plain=``. Its grid reductions take the
+pinned order of ``ops/potts.py``, so its statistics do not depend on the
+bucketing, the padding or the number of row shards. A float32 model built
+after a float64 one in the same process stays float32 and runs its
+kernels: nothing here is process-global.
+
 ``fit(checkpoint_path=..., resume=True)`` saves and resumes the EM state
 in the JAX engine's checkpoint format (``utils/checkpoint.py``), so a
 checkpoint of either package resumes in the other.
 
-What raises rather than running: ``dtype="float64"`` and
-``kmeans_backend="sklearn"``; with ``shard_mode="spatial"``, any labeler
+What raises rather than running: ``kmeans_backend="sklearn"`` (the GPU
+machine has no scikit-learn); with ``shard_mode="spatial"``, any labeler
 but ``mf_icm`` (``ValueError``, as in the JAX engine). Config fields read
 by the JAX engine only to work around XLA or a remote TPU have no
 counterpart here; each is noted where the JAX engine reads it (see
@@ -76,7 +87,7 @@ from phylo_hmrf_tpu_torch.models.ou import (
     TreeTensors, check_params, ou_moments_batch, ou_nll_init, ou_nll_stats,
     propagate_mean_guess, tree_tensors)
 from phylo_hmrf_tpu_torch.ops.finish_kernels import (
-    cost_vec_from_sums, finish_stats, finish_stats_plain)
+    cost_vec_from_sums, finish_stats)
 from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
 from phylo_hmrf_tpu_torch.ops.kmeans import kmeans
 from phylo_hmrf_tpu_torch.ops.lbfgs import minimize_boxed
@@ -140,6 +151,14 @@ class FitResult:
     state_list: np.ndarray | None = None   # (n_iters, N) when track_states
 
 
+def use_kernels(device, dtype) -> bool:
+    """Whether a model on ``device`` in ``dtype`` runs the CUDA kernels:
+    on a CUDA device in float32. The kernels are float32-only, as the JAX
+    engine's fused kernels are (it turns them off in float64); elsewhere
+    their plain versions run."""
+    return torch.device(device).type == "cuda" and dtype == torch.float32
+
+
 def _estep_bucket(img, mask, dmaps, warm, means, covars, beta, beta1, *,
                   weighted_pp: bool, max_sweeps: int, labeler: str = "mf_icm",
                   plain: bool = False):
@@ -175,12 +194,12 @@ def _estep_bucket(img, mask, dmaps, warm, means, covars, beta, beta1, *,
 
 
 def _finish_bucket(img, mask, dmaps, labels, means, covars, beta, beta1, *,
-                   weighted_pp: bool):
+                   weighted_pp: bool, plain: bool = False):
     """K4 over a bucket's labels from elsewhere (the exact and the host
     labelers), on the K-major log-density."""
     lp_k = gaussian_logpdf_kmajor(img, means, covars)
     return _finish_fused(lp_k, img, mask, dmaps, labels, beta, beta1,
-                         weighted_pp)
+                         weighted_pp, plain=plain)
 
 
 def _finish_fused(lp_k, img, mask, dmaps, labels, beta, beta1,
@@ -191,10 +210,9 @@ def _finish_fused(lp_k, img, mask, dmaps, labels, beta, beta1,
     semantics). With ``from_unary`` lp_k is the unary (-logprob)."""
     w_pp = weight_maps(dmaps, beta1) if weighted_pp else valid_maps(dmaps)
     img_f = img.permute(0, 3, 1, 2).contiguous()
-    fn = finish_stats_plain if plain else finish_stats
-    post, obs, obs2, sums = fn(lp_k, img_f, mask.to(torch.int32),
-                               labels.to(torch.int32), w_pp, beta, SMALL_EPS,
-                               negate=from_unary)
+    post, obs, obs2, sums = finish_stats(
+        lp_k, img_f, mask.to(torch.int32), labels.to(torch.int32), w_pp,
+        beta, SMALL_EPS, negate=from_unary, plain=plain)
     cost_vec, n_valid = cost_vec_from_sums(sums)
     return (post, obs, obs2), cost_vec, n_valid
 
@@ -217,7 +235,8 @@ def _mstep_solve_full(p0, post, obs, obs2, n_samples, lambda_0, min_covar, *,
                       tt: TreeTensors, lo, hi, iters):
     """M-step solve for all K states, validity and OU moments, on the
     device. The returned covariances carry the ``min_covar`` jitter, added
-    in float32 like the host mirror (`_moments_np`), so both are equal."""
+    in the model dtype like the host mirror (`_moments_np`), so both are
+    equal."""
     def fn(p):
         return ou_nll_stats(p, post, obs, obs2, tt, n_samples, lambda_0,
                             min_covar)
@@ -278,7 +297,7 @@ def _check_config(cfg: PhyloHMRFConfig, mesh) -> None:
     ``em_pipeline`` (its pipelined loop is bitwise the sequential loop, so
     the port runs the sequential one); ``prewarm_compiles`` (warms XLA
     compiles; the port has no compile step); ``use_pallas`` (the kernels
-    run exactly when the tensors are on a CUDA device). The JAX engine's
+    run on a CUDA device in float32, `use_kernels`). The JAX engine's
     VMEM tile pickers and its ``_map_buckets`` compile-overlap threads and
     ``_dev_warm`` warm-label cache served XLA and the remote TPU link: the
     port's warm labels stay on the device anyway (the previous E-step's
@@ -286,9 +305,7 @@ def _check_config(cfg: PhyloHMRFConfig, mesh) -> None:
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a phylo_hmrf_tpu_torch.parallel.mesh."
                         f"Mesh (make_mesh), got {type(mesh).__name__}")
-    if cfg.dtype == "float64":
-        raise NotImplementedError("dtype='float64' is not ported yet")
-    if cfg.dtype != "float32":
+    if cfg.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be float32/float64, got {cfg.dtype!r}")
     if cfg.kmeans_backend != "jax":
         raise NotImplementedError(
@@ -301,9 +318,10 @@ class PhyloHMRF:
     over the shards of a ``mesh`` (`parallel.mesh.make_mesh`).
 
     ``device="cuda"`` (the default without a mesh) runs the CUDA kernels
-    and raises when CUDA is absent; ``device="cpu"`` runs every kernel's
-    plain PyTorch version. With a mesh, each shard runs on its own device
-    and the model's ``device`` is the mesh's first."""
+    (in float32) and raises when CUDA is absent; ``device="cpu"``, and
+    ``dtype="float64"`` anywhere, run every kernel's plain PyTorch
+    version. With a mesh, each shard runs on its own device and the
+    model's ``device`` is the mesh's first."""
 
     def __init__(self, tree: PhyloTree, regions: Sequence[RegionGrid],
                  config: PhyloHMRFConfig | None = None, mesh=None, *,
@@ -341,6 +359,10 @@ class PhyloHMRF:
                 raise RuntimeError(f"device {dev} requested but CUDA is not "
                                    f"available")
 
+        self._dtype = getattr(torch, cfg.dtype)
+        self._np_dtype = np.dtype(cfg.dtype)
+        # the one kernel choice of the model, passed down as ``plain``
+        self._use_kernels = use_kernels(self.device, self._dtype)
         self.n_states = cfg.n_states
         self.n_features = tree.n_leaves
         self.n_params = tree.n_params
@@ -370,10 +392,10 @@ class PhyloHMRF:
         self._sharded_buckets = {}
         for shape, idxs in buckets.items():
             img = np.stack([self.regions[i].img
-                            for i in idxs]).astype(np.float32)
+                            for i in idxs]).astype(self._np_dtype)
             mask = np.stack([self.regions[i].mask for i in idxs])
             dmaps = np.stack([self.regions[i].dmaps
-                              for i in idxs]).astype(np.float32)
+                              for i in idxs]).astype(self._np_dtype)
             self._bucket_arrays[shape] = (
                 idxs, self._dev(img), torch.as_tensor(mask,
                                                       device=self.device),
@@ -384,10 +406,10 @@ class PhyloHMRF:
                                                  self._n_shards)[:3]))
         if self._spatial:
             self._spatial_arrays = [
-                (shard_rows(mesh, torch.as_tensor(r.img, dtype=torch.float32)),
+                (shard_rows(mesh, torch.as_tensor(r.img, dtype=self._dtype)),
                  shard_rows(mesh, torch.as_tensor(r.mask)),
                  shard_rows(mesh, torch.as_tensor(r.dmaps,
-                                                  dtype=torch.float32), 1))
+                                                  dtype=self._dtype), 1))
                 for r in self.regions]
         # the labeler of the fast E-steps: a hybrid runs mf_icm between its
         # exact passes (`estep` routes the exact labelers itself)
@@ -398,8 +420,9 @@ class PhyloHMRF:
         if self._n_shards > 1 and not self._spatial:
             self._sharded_estep = make_sharded_estep(
                 mesh, weighted_pp=(cfg.estimate_type == 3),
-                labeler=self._labeler_static, max_sweeps=cfg.icm_max_sweeps)
-        self._tt = tree_tensors(tree, self.device)
+                labeler=self._labeler_static, max_sweeps=cfg.icm_max_sweeps,
+                plain=not self._use_kernels)
+        self._tt = tree_tensors(tree, self.device, self._dtype)
 
         # mutable fit state
         self._rng = np.random.default_rng(cfg.seed)
@@ -415,8 +438,10 @@ class PhyloHMRF:
         self.exact_stats_ = []       # CutStats of each exact E-step
         self.hybrid_exact_iters_ = []
 
-    def _dev(self, a, dtype=torch.float32) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=dtype, device=self.device)
+    def _dev(self, a, dtype=None) -> torch.Tensor:
+        """``a`` on the model's device, in the model dtype unless given."""
+        return torch.as_tensor(a, dtype=dtype or self._dtype,
+                               device=self.device)
 
     # ------------------------------------------------------------------
     # initialization (reference `_init`)
@@ -429,19 +454,23 @@ class PhyloHMRF:
 
     def initialize(self):
         """k-means, per-cluster stats, tree-propagated guesses and the
-        attempt-0 OU init solve run on the device, then one read-back."""
+        attempt-0 OU init solve run on the device, then one read-back.
+        k-means runs on the float32 samples, as the JAX engine's does in
+        both modes; the stats, guesses and solve in the model dtype."""
         cfg = self.cfg
         X = self.flat_values()
         K, P = self.n_states, self.n_params
-        X_dev = self._dev(X)
+        X_dev = self._dev(X, torch.float32)
         centers_d, labels_d, _ = kmeans(self._gen, X_dev, K)
-        xbar_d, xxT_d, cnt_d = _init_cluster_stats(X_dev, labels_d, K)
+        xbar_d, xxT_d, cnt_d = _init_cluster_stats(X_dev.to(self._dtype),
+                                                   labels_d, K)
         # host RNG draws in the reference order: params first, then one
         # guess per cluster
         params_draw = self._rng.random((K, P))
         rand_part = np.stack([cfg.initial_magnitude * self._rng.random(P)
                               for _ in range(K)])
-        guesses_d = _init_guess(centers_d, self._dev(rand_part), self.tree, P)
+        guesses_d = _init_guess(centers_d.to(self._dtype),
+                                self._dev(rand_part), self.tree, P)
         solved_d, _ = _init_solve(
             guesses_d, xbar_d, xxT_d, cfg.min_covar, tt=self._tt,
             lo=cfg.param_lo, hi=cfg.param_hi, iters=cfg.mstep_iters)
@@ -516,8 +545,8 @@ class PhyloHMRF:
         graph-cut moves (a hybrid labeler's exact pass); the ``swap_tpu`` /
         ``expansion_tpu`` labelers always do. The host ``swap`` /
         ``expansion`` labelers label with the C++ moves from the float64
-        ``means`` / ``covars``; K4 reads their float32 cast, as every other
-        route does."""
+        ``means`` / ``covars``; K4 reads their cast to the model dtype, as
+        every other route does."""
         cfg = self.cfg
         if self._spatial and exact_method is not None:
             # fit cannot get here (the constructor refuses those labelers
@@ -556,7 +585,8 @@ class PhyloHMRF:
             for ri, (img, mask, dmaps) in enumerate(self._spatial_arrays):
                 labels, (p, o, o2), cv, nv = estep_region_rowsharded(
                     img, mask, dmaps, shard_rows(self.mesh, warm_of([ri])[0]),
-                    means_t, covars_t, cfg.beta, cfg.beta1, **kw)
+                    means_t, covars_t, cfg.beta, cfg.beta1,
+                    plain=not self._use_kernels, **kw)
                 label_grids[ri] = gather_rows(labels, self.device)
                 done.append(([ri], p[None], o[None], o2[None], cv[None],
                              nv[None]))
@@ -575,7 +605,8 @@ class PhyloHMRF:
                 labels = torch.stack([grids[i] for i in idxs])
                 (p, o, o2), cv, nv = _finish_bucket(
                     img, mask, dmaps, labels, means_t, covars_t, cfg.beta,
-                    cfg.beta1, weighted_pp=kw["weighted_pp"])
+                    cfg.beta1, weighted_pp=kw["weighted_pp"],
+                    plain=not self._use_kernels)
                 done.append((idxs, p, o, o2, cv, nv))
                 for bi, ri in enumerate(idxs):
                     label_grids[ri] = labels[bi]
@@ -592,7 +623,8 @@ class PhyloHMRF:
             for idxs, img, mask, dmaps in self._bucket_arrays.values():
                 labels, (p, o, o2), cv, nv = _estep_bucket(
                     img, mask, dmaps, warm_of(idxs), means_t, covars_t,
-                    cfg.beta, cfg.beta1, labeler=self._labeler_static, **kw)
+                    cfg.beta, cfg.beta1, labeler=self._labeler_static,
+                    plain=not self._use_kernels, **kw)
                 done.append((idxs, p, o, o2, cv, nv))
                 for bi, ri in enumerate(idxs):
                     label_grids[ri] = labels[bi]
@@ -637,7 +669,7 @@ class PhyloHMRF:
         covars_t = self._dev(covars)
         kw = dict(max_cycles=cfg.swap_tpu_cycles,
                   icm_max_sweeps=cfg.icm_max_sweeps, method=method,
-                  stats=stats)
+                  stats=stats, plain=not self._use_kernels)
         for idxs, img, mask, dmaps in self._bucket_arrays.values():
             wm = weight_maps(dmaps, cfg.beta1)
             warm = torch.stack([
@@ -722,9 +754,11 @@ class PhyloHMRF:
             iters=cfg.mstep_iters)
 
     def _moments_np(self, params):
-        """OU moments of ``params`` with the float32 jitter, as float64."""
+        """OU moments of ``params`` with the jitter added in the model
+        dtype, as float64."""
         means, covars = ou_moments_batch(self._dev(params), self._tt)
-        eye = torch.eye(self.n_features, device=self.device)
+        eye = torch.eye(self.n_features, dtype=self._dtype,
+                        device=self.device)
         covars = covars + self.cfg.min_covar * eye
         return (np.asarray(_to_numpy(means), np.float64),
                 np.asarray(_to_numpy(covars), np.float64))

@@ -178,9 +178,11 @@ def ou_nll_stats(params, post_c, obs_c, obs2_c, tt: TreeTensors,
     Sn = (obs2_c - obsmean - obsmean.transpose(-1, -2)
           + post_c[..., None, None] * _outer(m, m))
     logdet, trace_term = _logdet_trace_solve(V, Sn)
-    # lambda_0 / sqrt(n) in float32, the order the JAX objective uses
-    lam1 = np.float32(1.0) / np.sqrt(np.float32(n_samples))
-    coef = float(np.float32(lambda_0) * lam1)
+    # lambda_0 / sqrt(n) in the params' dtype, the order the JAX objective
+    # uses
+    ft = np.float64 if params.dtype == torch.float64 else np.float32
+    lam1 = ft(1.0) / np.sqrt(ft(n_samples))
+    coef = float(ft(lambda_0) * lam1)
     return (post_c * logdet / n_samples + trace_term / n_samples
             + coef * torch.sum(params * params, dim=-1))
 

@@ -11,8 +11,15 @@ sums per block, then the blocks of a region in block order, inside the
 launch), so repeated calls are bitwise equal. ``potts_energy_pair`` takes
 two labelings of the same operands in one launch; each of its energies is
 bitwise what ``potts_energy`` gives for that labeling. The plain versions
-accumulate in float64 as well. On a CPU tensor the wrappers run the plain
-version; on a CUDA tensor they launch the kernel or raise.
+accumulate in float64 as well. On a CPU tensor, or with ``plain=True``,
+the wrappers run the plain version; on a CUDA tensor they launch the
+kernel or raise (on any operand that is not float32 among them).
+
+The plain versions keep their operands' dtype. In float64 (the model's
+strict-parity mode, which runs no kernel) they reduce in the pinned order
+of ``ops/potts.py``: per-row sums (`energy_rows`, `finish_rows`), then a
+fold over the rows, so a row-sharded region folds its shards' rows into
+bitwise the single-device sums.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import torch
 from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch import _build
 from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2
+from phylo_hmrf_tpu_torch.ops.potts import (fold_rows, pinned, row_sums,
+                                            seq_max, seq_sum, stats_rows)
 
 
 def _f32(x: float) -> float:
@@ -30,8 +39,36 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def energy_rows(unary_k, mask_i, labels, wmaps):
+    """Per-row terms of the float64 energy, (R, 5, H): the unary at the
+    labels over the valid pixels, then the weights of the cut forward
+    edges of each direction, each row summed by `row_sums`."""
+    K = unary_k.shape[1]
+    ks = torch.arange(K, device=labels.device).view(1, K, 1, 1)
+    u_at = torch.sum(unary_k * (labels[:, None] == ks).to(unary_k.dtype),
+                     dim=1)
+    terms = [torch.where(mask_i != 0, u_at, 0.0)]
+    for d, (dr, dc) in enumerate(DIRS):
+        nb = _shift2(labels, dr, dc, -1)
+        terms.append(wmaps[:, d] * (labels != nb).to(wmaps.dtype))
+    return row_sums(torch.stack(terms, dim=1))
+
+
+def energy_from_rows(rows, beta):
+    """The energies (R,) from the `energy_rows` of all a region's rows."""
+    tot = fold_rows(rows)
+    e_p = tot[:, 1]
+    for d in range(2, 5):
+        e_p = e_p + tot[:, d]
+    return tot[:, 0] + beta * e_p
+
+
 def potts_energy_plain(unary_k, mask_i, labels, wmaps, beta):
-    """Plain version of K3: per-region energy (R,) float32."""
+    """Plain version of K3: per-region energy (R,) float32 (float64 in the
+    pinned order for float64 operands)."""
+    if pinned(unary_k.dtype):
+        return energy_from_rows(energy_rows(unary_k, mask_i, labels, wmaps),
+                                beta)
     K = unary_k.shape[1]
     ks = torch.arange(K, device=labels.device).view(1, K, 1, 1)
     onehot = (labels[:, None] == ks).to(unary_k.dtype)
@@ -94,10 +131,11 @@ def _energy_launch(unary_k, mask_i, labelings, wmaps, beta):
     return out
 
 
-def potts_energy(unary_k, mask_i, labels, wmaps, beta):
+def potts_energy(unary_k, mask_i, labels, wmaps, beta, *,
+                 plain: bool = False):
     """Per-region MRF energy sum_p(valid) unary[p, s_p]
     + beta * sum_d sum_p w_d[p] [s_p != s_{p+d}] (forward edges). (R,)."""
-    if unary_k.device.type == "cpu":
+    if plain or unary_k.device.type == "cpu":
         return potts_energy_plain(unary_k, mask_i, labels, wmaps, beta)
     return _energy_launch(unary_k, mask_i, (labels,), wmaps, beta)[0]
 
@@ -105,25 +143,65 @@ def potts_energy(unary_k, mask_i, labels, wmaps, beta):
 potts_energy.launches = 0   # K3 launches, the pair's included
 
 
-def potts_energy_pair(unary_k, mask_i, labels_a, labels_b, wmaps, beta):
+def potts_energy_pair(unary_k, mask_i, labels_a, labels_b, wmaps, beta, *,
+                      plain: bool = False):
     """The energies of two labelings of the same operands, (2, R): row i
     bitwise ``potts_energy`` of labeling i, from one launch that reads the
     mask and the weights once."""
-    if unary_k.device.type == "cpu":
+    if plain or unary_k.device.type == "cpu":
         return potts_energy_pair_plain(unary_k, mask_i, labels_a, labels_b,
                                        wmaps, beta)
     return _energy_launch(unary_k, mask_i, (labels_a, labels_b), wmaps, beta)
 
 
-def finish_stats_plain(lp_k, img_f, mask_i, labels, wpp, beta, small_eps,
-                       negate: bool = False, float64: bool = False):
-    """Plain version of K4 (same outputs as `finish_stats`)."""
+def finish_rows(lp_k, img_f, mask_i, labels, wpp, beta, small_eps,
+                negate: bool = False):
+    """Per-row sums of K4's float64 outputs, (R, H, Q) with Q = 4 + K (1 +
+    F + F^2): [pp, log(ppn + eps), lp, n_valid, post, obs, obs2] of each
+    row, summed over the columns by `row_sums`, the softmax over the states
+    in a fixed order. `finish_from_rows` folds them."""
     R, K, H, W = lp_k.shape
-    Fd = img_f.shape[1]
     logprob = -lp_k if negate else lp_k
+    pp = _pairwise_kmajor(labels, wpp, K, beta)
+    z1 = logprob - pp
+    e1 = torch.exp(z1 - seq_max(z1, 1, keepdim=True))
+    g = e1 / seq_sum(e1, 1, keepdim=True)
+    z2 = -pp - seq_max(-pp, 1, keepdim=True)
+    e2 = torch.exp(z2)
+    ppn = e2 / seq_sum(e2, 1, keepdim=True)
     ks = torch.arange(K, device=labels.device).view(1, K, 1, 1)
-    agree = torch.zeros_like(logprob)
-    wsum = torch.zeros_like(logprob[:, 0])
+    onehot = (labels[:, None] == ks).to(logprob.dtype)
+    valid = mask_i != 0
+
+    def at(v):
+        return torch.where(valid, torch.sum(v * onehot, dim=1), 0.0)
+    sums = row_sums(torch.stack([
+        at(pp), torch.where(valid, torch.log(torch.sum(ppn * onehot, dim=1)
+                                             + small_eps), 0.0),
+        at(logprob), valid.to(logprob.dtype)], dim=1))       # (R, 4, H)
+    p, o, o2 = stats_rows(torch.where(valid[:, None], g, 0.0), img_f)
+    return torch.cat([sums, p, o.reshape(R, -1, H), o2.reshape(R, -1, H)],
+                     dim=1).transpose(1, 2)
+
+
+def finish_from_rows(rows, K: int, Fd: int):
+    """K4's outputs (post, obs, obs2, sums (R, 8)) from the `finish_rows`
+    of all a region's rows, folded in row order."""
+    tot = fold_rows(rows, dim=1)
+    R = tot.shape[0]
+    zero = tot.new_zeros(R, 4)
+    post = tot[:, 4:4 + K]
+    obs = tot[:, 4 + K:4 + K + K * Fd].reshape(R, K, Fd)
+    obs2 = tot[:, 4 + K + K * Fd:].reshape(R, K, Fd, Fd)
+    return post, obs, obs2, torch.cat([tot[:, :4], zero], dim=1)
+
+
+def _pairwise_kmajor(labels, wpp, K: int, beta):
+    """pp (R, K, H, W) = beta * (incident weight - agreeing weight)."""
+    ks = torch.arange(K, device=labels.device).view(1, K, 1, 1)
+    agree = torch.zeros((labels.shape[0], K) + tuple(labels.shape[1:]),
+                        dtype=wpp.dtype, device=wpp.device)
+    wsum = torch.zeros_like(agree[:, 0])
     for d, (dr, dc) in enumerate(DIRS):
         w = wpp[:, d]
         nb = _shift2(labels, dr, dc, -1)[:, None]
@@ -133,7 +211,22 @@ def finish_stats_plain(lp_k, img_f, mask_i, labels, wpp, beta, small_eps,
         nbm = _shift2(labels, -dr, -dc, -1)[:, None]
         agree = agree + w_bwd[:, None] * (nbm == ks).to(w.dtype)
         wsum = wsum + w_bwd
-    pp = beta * (wsum[:, None] - agree)
+    return beta * (wsum[:, None] - agree)
+
+
+def finish_stats_plain(lp_k, img_f, mask_i, labels, wpp, beta, small_eps,
+                       negate: bool = False, float64: bool = False):
+    """Plain version of K4 (same outputs as `finish_stats`; float64
+    operands give float64 outputs in the pinned order)."""
+    R, K, H, W = lp_k.shape
+    if pinned(lp_k.dtype):
+        return finish_from_rows(finish_rows(
+            lp_k, img_f, mask_i, labels, wpp, beta, small_eps, negate),
+            K, img_f.shape[1])
+    Fd = img_f.shape[1]
+    logprob = -lp_k if negate else lp_k
+    ks = torch.arange(K, device=labels.device).view(1, K, 1, 1)
+    pp = _pairwise_kmajor(labels, wpp, K, beta)
 
     z1 = logprob - pp
     e1 = torch.exp(z1 - torch.amax(z1, dim=1, keepdim=True))
@@ -179,7 +272,8 @@ def cost_vec_from_sums(sums):
 
 
 def finish_stats(lp_k, img_f, mask_i, labels, wpp, beta, small_eps, *,
-                 negate: bool = False, float64: bool = False):
+                 negate: bool = False, float64: bool = False,
+                 plain: bool = False):
     """Fused posterior / cost / stats pass over a region batch.
 
     lp_k (R, K, H, W) log-densities, or with ``negate`` the unary
@@ -190,7 +284,7 @@ def finish_stats(lp_k, img_f, mask_i, labels, wpp, beta, small_eps, *,
     sums (R, 8) = [pp_sum, ppn_sum, lp_sum, n_valid, 0, 0, 0, 0]), float32,
     or with ``float64`` the float64 sums before their one rounding (for
     adding up the row shards of a region)."""
-    if lp_k.device.type == "cpu":
+    if plain or lp_k.device.type == "cpu":
         return finish_stats_plain(lp_k, img_f, mask_i, labels, wpp, beta,
                                   small_eps, negate, float64)
     R, K, H, W = lp_k.shape

@@ -14,10 +14,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from phylo_hmrf_tpu_torch.ops.potts import (
-    neighbor_sums, neighbor_sums_soft, potts_energy)
+    neighbor_sums, neighbor_sums_soft, potts_energy, softmax)
 
 MF_TEMPS = (4.0, 2.0, 1.0, 0.5, 0.25)
 
@@ -35,9 +34,9 @@ def icm(unary: torch.Tensor, wmaps: torch.Tensor, mask: torch.Tensor,
     ``max_sweeps`` sweeps ran; returns labels (H, W) int32.
 
     unary (H, W, K); wmaps (4, H, W); mask (H, W) bool. ``beta_ramp > 0``
-    first runs that many sweeps at the float32 strength
-    beta * min(1, (t + 1) / beta_ramp), t = 0, 1, ... (a deterministic
-    anneal for cold starts)."""
+    first runs that many sweeps at the strength
+    beta * min(1, (t + 1) / beta_ramp), t = 0, 1, ..., computed in the
+    unary's float32 or float64 (a deterministic anneal for cold starts)."""
     H, W, K = unary.shape
     phases = _phase_masks(H, W, unary.device)
     labels = torch.where(mask, init_labels, 0).to(torch.int32)
@@ -53,10 +52,12 @@ def icm(unary: torch.Tensor, wmaps: torch.Tensor, mask: torch.Tensor,
             labels = new
         return labels, changed
 
+    # the ramp in the unary's precision, as the JAX loop computes it (in
+    # float64 under the strict-parity mode's x64)
+    ft = np.float64 if unary.dtype == torch.float64 else np.float32
     for t in range(beta_ramp):
-        ramp = np.minimum(np.float32(1.0),
-                          np.float32(t + 1.0) / np.float32(beta_ramp))
-        labels, _ = one_sweep(labels, float(np.float32(beta) * ramp))
+        ramp = np.minimum(ft(1.0), ft(t + 1.0) / ft(beta_ramp))
+        labels, _ = one_sweep(labels, float(ft(beta) * ramp))
     changed, sweep = 1, 0
     while changed > 0 and sweep < max_sweeps:
         labels, changed = one_sweep(labels, beta)
@@ -77,12 +78,12 @@ def mean_field(unary: torch.Tensor, wmaps: torch.Tensor, beta: float,
                damping: float = 0.5) -> torch.Tensor:
     """Annealed, damped mean-field relaxation; returns the hardened labels
     (H, W) int32 (argmin of the expected field after the last sweep)."""
-    q = F.softmax(-unary, dim=-1)
+    q = softmax(-unary, dim=-1)
     for T in temps:
         for _ in range(iters_per_temp):
             agree, wsum = neighbor_sums_soft(q, wmaps)
             field = unary + beta * (wsum[..., None] - agree)
-            q = damping * q + (1.0 - damping) * F.softmax(-field / T, dim=-1)
+            q = damping * q + (1.0 - damping) * softmax(-field / T, dim=-1)
     agree, wsum = neighbor_sums_soft(q, wmaps)
     field = unary + beta * (wsum[..., None] - agree)
     return torch.argmin(field, dim=-1).to(torch.int32)

@@ -12,8 +12,9 @@ on the card, ``icm_sweep_halo_chained`` (it per phase and shard on the
 exchanged slabs) that of K8. Layout: labels, mask (R, H, W) int32; unary_k
 (R, K, H, W) and wmaps (R, 4, H, W) float32.
 
-On a CPU tensor the wrappers run their plain versions; on a CUDA tensor
-they launch the kernel or raise.
+On a CPU tensor, or with ``plain=True``, the wrappers run their plain
+versions (in their operands' dtype); on a CUDA tensor they launch the
+kernel or raise.
 """
 
 from __future__ import annotations
@@ -107,10 +108,11 @@ def icm_phase_halo_plain(lab_ext, unary_k, w_ext, mask_i, beta, a: int,
     return out
 
 
-def icm_phase_(labels, unary_k, wmaps, mask_i, beta, a: int, b: int):
+def icm_phase_(labels, unary_k, wmaps, mask_i, beta, a: int, b: int, *,
+               plain: bool = False):
     """One checkerboard phase, updating ``labels`` in place (safe: pixels
     of one colour are never neighbours); returns ``labels``."""
-    if labels.device.type == "cpu":
+    if plain or labels.device.type == "cpu":
         return labels.copy_(icm_phase_plain(labels, unary_k, wmaps, mask_i,
                                             beta, a, b))
     R, K, H, W = unary_k.shape
@@ -151,7 +153,8 @@ def icm_sweep_halo_plain(labels, unary_k, w_ext, mask_i, beta, changed, *,
 
 
 def icm_sweep_halo_(labels, unary_k, w_ext, mask_i, beta, changed, *, row0,
-                    sources, phase0: int = 0, n_phases: int = 4):
+                    sources, phase0: int = 0, n_phases: int = 4,
+                    plain: bool = False):
     """Checkerboard phases ``phase0 .. phase0 + n_phases - 1`` (of (0,0),
     (0,1), (1,0), (1,1); default one whole sweep) of row shards (K8),
     updating ``labels`` in place.
@@ -165,7 +168,7 @@ def icm_sweep_halo_(labels, unary_k, w_ext, mask_i, beta, changed, *, row0,
     remote source, one launch a device runs the phases behind a grid
     barrier; otherwise each phase copies the remote rows, then launches
     once a device."""
-    if labels[0].device.type == "cpu":
+    if plain or labels[0].device.type == "cpu":
         return icm_sweep_halo_plain(labels, unary_k, w_ext, mask_i, beta,
                                     changed, row0=row0, phase0=phase0,
                                     n_phases=n_phases)

@@ -15,20 +15,23 @@ Layouts carry a leading region-batch axis, as the JAX batched entry points
 do: labels, mask (R, H, W); unary_k (R, K, H, W) K-major; wmaps
 (R, 4, H, W); caps (R, 8, H, W) with the directions of ``ALL_DIRS``.
 ``plain=True`` runs the kernels' plain versions on any device (the
-reference the kernel path is checked against on the card); otherwise the
-kernels run exactly when the tensors are on a CUDA device.
+reference the kernel path is checked against on the card, and the model's
+float64 mode); otherwise the kernels run exactly when the tensors are on a
+CUDA device. Everything keeps the unary's dtype: in float64 the cut
+capacities and beta stay float64 (the JAX ``maxflow_tpu`` is
+dtype-preserving too), and the energies reduce in the pinned order of
+``ops/potts.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch.ops.finish_kernels import (
-    _f32, potts_energy_pair, potts_energy_pair_plain)
+    _f32, energy_from_rows, energy_rows, potts_energy_pair)
 from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
 from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2, mean_field_kmajor
 from phylo_hmrf_tpu_torch.ops.mincut_kernels import (
@@ -124,10 +127,11 @@ def grid_mincut(excess0, cap_t0, caps0, max_sweeps: int = 3000, *,
     the kernels' device flag. The plain path tests with ``torch.any``."""
     R, H, W = excess0.shape
     n = H * W + 2
-    state = (excess0.to(torch.float32).clone().contiguous(),
+    dt = excess0.dtype if excess0.is_floating_point() else torch.float32
+    state = (excess0.to(dt).clone().contiguous(),
              torch.zeros((R, H, W), dtype=torch.int32, device=excess0.device),
-             cap_t0.to(torch.float32).clone().contiguous(),
-             caps0.to(torch.float32).clone().contiguous())
+             cap_t0.to(dt).clone().contiguous(),
+             caps0.to(dt).clone().contiguous())
     spare = flag = spare_d = None
     if not plain:
         spare = tuple(torch.empty_like(t) for t in state)
@@ -316,13 +320,17 @@ def _expansion_move_batch(labels, unary_k, wmaps, mask, alpha: int,
 def _energy_hist(labels, unary_k, wmaps, mask, beta: float, n_states: int):
     """Per-region MRF energy (R,) float64 and the label histogram
     (n_states,) over the batch's valid pixels. Float32 terms, summed in
-    float64; invalid edges weigh 0, so border fills never contribute."""
+    float64 (float64 terms in the pinned order); invalid edges weigh 0, so
+    border fills never contribute."""
+    hist = torch.bincount(labels[mask].long(), minlength=n_states)
+    if unary_k.dtype == torch.float64:
+        return energy_from_rows(energy_rows(unary_k, mask, labels, wmaps),
+                                beta), hist
     u_cur = torch.gather(unary_k, 1, labels[:, None].long())[:, 0]
     e = torch.where(mask, u_cur, 0.0).double().sum(dim=(1, 2))
     for d, (di, dj) in enumerate(DIRS):
         diff = (labels != _shift2(labels, di, dj, -1)).to(wmaps.dtype)
         e = e + beta * (wmaps[:, d] * diff).double().sum(dim=(1, 2))
-    hist = torch.bincount(labels[mask].long(), minlength=n_states)
     return e, hist
 
 
@@ -338,7 +346,9 @@ def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
     counts, energies and the histogram come back to the host once per
     cycle; a cycle with no change, or an energy drop within ``tol``
     (relative), ends the pass."""
-    beta = _f32(beta)       # the cut capacities see beta at float32
+    # beta at the unary's precision: the cut capacities see it at float32,
+    # or unrounded in float64
+    beta = _f32(beta) if unary_k.dtype == torch.float32 else float(beta)
     wsum = _incident_wsum(wmaps, beta)
     labels = torch.where(mask, init_labels, 0).to(torch.int32)
     e, hist_t = _energy_hist(labels, unary_k, wmaps, mask, beta, n_states)
@@ -418,9 +428,8 @@ def _icm_pick(unary_k, wmaps, mask, proposal, warm, beta: float,
                         plain=plain)
     cand_b = icm_kmajor(unary_k, wmaps, mask, warm, beta, icm_max_sweeps,
                         plain=plain)
-    energy = potts_energy_pair_plain if plain else potts_energy_pair
-    e_a, e_b = energy(unary_k, mask.to(torch.int32), cand_a, cand_b, wmaps,
-                      beta)
+    e_a, e_b = potts_energy_pair(unary_k, mask.to(torch.int32), cand_a,
+                                 cand_b, wmaps, beta, plain=plain)
     return torch.where((e_a <= e_b)[:, None, None], cand_a, cand_b)
 
 

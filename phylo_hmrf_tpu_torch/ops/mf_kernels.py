@@ -13,10 +13,14 @@ card; ``mf_sweeps_halo_chained`` runs it per sweep and shard on the
 exchanged slabs, the reference of K7. Layout: q, base, unary_k
 (R, K, H, W); wmaps (R, 4, H, W); float32.
 
-On a CPU tensor the wrappers run their plain versions
-(``mf_sweeps_plain``, ``mf_sweeps_halo_plain``); on a CUDA tensor they
-launch the kernel or raise. The per-E-step ``base`` and the final argmin
-stay plain tensor code, as they stay XLA code in the JAX package.
+On a CPU tensor, or with ``plain=True``, the wrappers run their plain
+versions (``mf_sweeps_plain``, ``mf_sweeps_halo_plain``); on a CUDA tensor
+they launch the kernel or raise. The per-E-step ``base`` and the final
+argmin stay plain tensor code, as they stay XLA code in the JAX package.
+The plain versions keep their operands' dtype; in float64 the softmax
+over the states and the incident weight sum take a fixed order
+(``ops/potts.py``), so a pixel's sweep is bitwise the same on a row
+shard's slab and on the whole grid.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from phylo_hmrf_tpu_torch.ops.halo_rows import (
     barrier_for, device_groups, extend_rows, fill_remote_rows, is_chained,
     neighbour_columns, remote_row_buffers, table)
 from phylo_hmrf_tpu_torch.ops.icm import MF_TEMPS
+from phylo_hmrf_tpu_torch.ops.potts import pinned, softmax
 
 
 def _shift2(x: torch.Tensor, dr: int, dc: int, fill=0) -> torch.Tensor:
@@ -57,6 +62,8 @@ def _sweep_plain(q, q_c, base, wmaps, w_bwd, T, damp, beta, rows):
         agree = agree + w_bwd[d][:, None] * _shift2(q, -dr, -dc)
     field = base - beta * agree[..., rows, :]
     z = -field / T
+    if pinned(z.dtype):
+        return damp * q_c + (1.0 - damp) * softmax(z, dim=1)
     z = z - torch.amax(z, dim=1, keepdim=True)
     e = torch.exp(z)
     return damp * q_c + (1.0 - damp) * (e / torch.sum(e, dim=1, keepdim=True))
@@ -140,14 +147,14 @@ def mf_tile_plan(K: int, n_inner: int) -> MFTilePlan:
 
 
 def mf_sweeps(q, base, wmaps, T, damp, beta, *, n_inner: int,
-              plan: MFTilePlan | None = None):
+              plan: MFTilePlan | None = None, plain: bool = False):
     """``n_inner`` damped mean-field sweeps at temperature ``T``.
 
     q, base (R, K, H, W); wmaps (R, 4, H, W). Returns the new q (a new
     tensor; q is never written). On CUDA: the K1 tile kernel, one launch
     per ``plan.depth`` sweeps (``mf_tile_plan`` unless given), over two
     buffers when it takes several."""
-    if q.device.type == "cpu":
+    if plain or q.device.type == "cpu":
         return mf_sweeps_plain(q, base, wmaps, T, damp, beta, n_inner)
     R, K, H, W = q.shape
     _build.check_tensors("mf_sweeps", q=(q, torch.float32, (R, K, H, W)),
@@ -221,7 +228,7 @@ def mf_sweeps_halo_plain(q, base, w_ext, T, damp, beta, n_sweeps: int):
 
 
 def mf_sweeps_halo(q, base, w_ext, T, damp, beta, *, n_sweeps: int,
-                   sources):
+                   sources, plain: bool = False):
     """``n_sweeps`` damped mean-field sweeps of row shards (K7).
 
     Lists per shard: q, base (1, K, Hl, W); w_ext (1, 4, Hl+2, W), the
@@ -233,7 +240,7 @@ def mf_sweeps_halo(q, base, w_ext, T, damp, beta, *, n_sweeps: int,
     remote rows, then launches once a device."""
     if n_sweeps < 1:
         return list(q)
-    if q[0].device.type == "cpu":
+    if plain or q[0].device.type == "cpu":
         return mf_sweeps_halo_plain(q, base, w_ext, T, damp, beta, n_sweeps)
     K, W = q[0].shape[1], q[0].shape[-1]
     heights = [x.shape[-2] for x in q]
@@ -304,6 +311,16 @@ def mf_sweeps_halo_chained(q, base, w_ext, T, damp, beta, *, n_sweeps: int):
     return q
 
 
+def incident_weight_sum(wmaps):
+    """(R, H, W): the weights of the edges at each pixel, forward and
+    backward, added direction by direction: the order ``parallel/halo.py``
+    adds them on a row shard's halo-extended weights."""
+    wsum = torch.zeros_like(wmaps[:, 0])
+    for d, (dr, dc) in enumerate(DIRS):
+        wsum = wsum + wmaps[:, d] + _shift2(wmaps[:, d], -dr, -dc)
+    return wsum
+
+
 def expected_field_sums(qk, wmaps):
     """(agree (R, K, H, W), wsum (R, H, W)) of the expected field, with the
     adds in `neighbor_sums_soft`'s order: the final hard assignment of the
@@ -326,15 +343,18 @@ def mean_field_kmajor(unary_k: torch.Tensor, wmaps: torch.Tensor,
     """Annealed mean field on a K-major unary (R, K, H, W); returns labels
     (R, H, W) int32. ``plain`` runs the sweeps' plain version on any
     device (the reference the kernel path is checked against)."""
-    sweeps = mf_sweeps_plain if plain else mf_sweeps
-    qk = F.softmax(-unary_k, dim=1)
+    qk = softmax(-unary_k, dim=1)
     # wsum[p] = sum_d (w_d[p] + w_d[p - (dr, dc)]): constant per E-step
-    wsum = torch.sum(wmaps, dim=1)
-    for d, (dr, dc) in enumerate(DIRS):
-        wsum = wsum + _shift2(wmaps[:, d], -dr, -dc)
+    if pinned(unary_k.dtype):
+        wsum = incident_weight_sum(wmaps)
+    else:
+        wsum = torch.sum(wmaps, dim=1)
+        for d, (dr, dc) in enumerate(DIRS):
+            wsum = wsum + _shift2(wmaps[:, d], -dr, -dc)
     base = unary_k + beta * wsum[:, None]
     for T in temps:
-        qk = sweeps(qk, base, wmaps, T, damping, beta, n_inner=iters_per_temp)
+        qk = mf_sweeps(qk, base, wmaps, T, damping, beta,
+                       n_inner=iters_per_temp, plain=plain)
     # final hard assignment: argmin of the expected field
     agree, wsum = expected_field_sums(qk, wmaps)
     field = unary_k + beta * (wsum[:, None] - agree)

@@ -13,8 +13,9 @@ state and write the new state to ``out`` (buffers the caller owns; new
 tensors when it gives none), and set a device word ``flag`` to ``tag``
 when the host loop must go on. A call with a fresh tag needs no clearing
 of the word, so the loop in ``maxflow.grid_mincut`` allocates nothing per
-call. On a CPU tensor they run the plain version; on a CUDA tensor they
-launch the kernel or raise.
+call. On a CPU tensor, or with ``plain=True``, they run the plain
+version (in the operands' dtype: float64 capacities in the model's
+strict-parity mode); on a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ def bfs_sweeps_plain(d, caps, n: int, n_inner: int):
 
 
 def bfs_sweeps(d, caps, n: int, *, n_inner: int = 8, out=None, flag=None,
-               tag: int = 1):
+               tag: int = 1, plain: bool = False):
     """``n_inner`` (<= 8) BFS sweeps from ``d`` (not written) into ``out``,
     in one K6 launch. Returns (new d, flag): the 0-d int32 ``flag`` holds
     ``tag`` iff some distance changed (a new flag starts at 0)."""
@@ -66,7 +67,7 @@ def bfs_sweeps(d, caps, n: int, *, n_inner: int = 8, out=None, flag=None,
         raise ValueError(f"bfs_sweeps: n_inner {n_inner} not in 1..8")
     out = torch.empty_like(d) if out is None else out
     flag = _new_flag(d.device) if flag is None else flag
-    if d.device.type == "cpu":
+    if plain or d.device.type == "cpu":
         new = bfs_sweeps_plain(d, caps, n, n_inner)
         if torch.any(new != d):
             flag.fill_(tag)
@@ -124,7 +125,7 @@ def pr_iterations_plain(e, h, cap_t, caps, n: int, n_inner: int):
 
 
 def pr_iterations(e, h, cap_t, caps, n: int, *, n_inner: int = 4, out=None,
-                  flag=None, tag: int = 1):
+                  flag=None, tag: int = 1, plain: bool = False):
     """``n_inner`` (<= 4) push-relabel iterations in one K5 launch, from
     (e, h, cap_t, caps) (not written) into ``out``, a 4-tuple of buffers
     of the same shapes. Returns (new (e, h, cap_t, caps), flag): the 0-d
@@ -135,7 +136,7 @@ def pr_iterations(e, h, cap_t, caps, n: int, *, n_inner: int = 4, out=None,
     state = (e, h, cap_t, caps)
     out = tuple(torch.empty_like(t) for t in state) if out is None else out
     flag = _new_flag(e.device) if flag is None else flag
-    if e.device.type == "cpu":
+    if plain or e.device.type == "cpu":
         new = pr_iterations_plain(e, h, cap_t, caps, n, n_inner)
         if torch.any((new[0] > EPS) & (new[1] < n)):
             flag.fill_(tag)

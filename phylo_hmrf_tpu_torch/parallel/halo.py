@@ -42,25 +42,31 @@ The JAX package takes its kernel branch only for TPU tile shapes (Hl % 8 ==
 for every shard. The energies of both ICM candidates (K3's pair entry, one
 launch) and the finishing statistics (K4) run on each shard's 1-row
 halo-extended slab with the halo rows masked out.
+
+``plain=True`` runs the kernels' plain versions on any device (the
+model's float64 mode). In float64 the shards' energies and statistics
+are not summed per shard: each shard gives its rows' sums
+(``finish_kernels.energy_rows`` / ``finish_rows``), and the rows of all
+the shards, in row order, fold into bitwise the single-device numbers.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from phylo_hmrf_tpu_torch.config import SMALL_EPS
-from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
 from phylo_hmrf_tpu_torch.ops.finish_kernels import (
-    cost_vec_from_sums, finish_stats, potts_energy_pair)
+    cost_vec_from_sums, energy_from_rows, energy_rows, finish_from_rows,
+    finish_rows, finish_stats, potts_energy_pair)
 from phylo_hmrf_tpu_torch.ops.icm import MF_TEMPS
 from phylo_hmrf_tpu_torch.ops.halo_rows import extend_rows, row_sources
 from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_sweep_halo_,
                                                   icm_sweep_pair)
 from phylo_hmrf_tpu_torch.ops.mf_kernels import (
-    _shift2, expected_field_sums, mf_sweeps, mf_sweeps_halo)
-from phylo_hmrf_tpu_torch.ops.potts import valid_maps, weight_maps
+    expected_field_sums, incident_weight_sum, mf_sweeps, mf_sweeps_halo)
+from phylo_hmrf_tpu_torch.ops.potts import (pinned, softmax, valid_maps,
+                                            weight_maps)
 
 HALO = 8   # deep-halo depth: K1 sweeps / K2 phases per exchange
 
@@ -93,19 +99,16 @@ def _zero_rows(x):
 def _mf_base(unary_k, w_ext, beta):
     """base = unary + beta * wsum with the cross-shard backward weights.
     unary_k (1, K, Hl, W); w_ext (1, 4, Hl+2, W) halo-extended."""
-    wsum_ext = torch.zeros_like(w_ext[:, 0])
-    for d, (dr, dc) in enumerate(DIRS):
-        wsum_ext = wsum_ext + w_ext[:, d] + _shift2(w_ext[:, d], -dr, -dc)
-    return unary_k + beta * wsum_ext[:, None, 1:-1]
+    return unary_k + beta * incident_weight_sum(w_ext)[:, None, 1:-1]
 
 
 def _mean_field_halo_kernels(unary_k, w_ext, beta, temps, iters_per_temp,
-                             damping):
+                             damping, plain: bool = False):
     """Annealed mean field on the row shards; returns labels per shard
     (1, Hl, W) int32. K1 on 8-row-extended slabs, or K7 per temperature
     (module docstring)."""
     base = [_mf_base(u, w, beta) for u, w in zip(unary_k, w_ext)]
-    q = [F.softmax(-u, dim=1) for u in unary_k]
+    q = [softmax(-u, dim=1) for u in unary_k]
     if 1 <= iters_per_temp <= HALO and q[0].shape[-2] >= HALO:
         # the per-E-step constant slabs are exchanged once
         base_ext = extend_rows(base, HALO)
@@ -113,13 +116,15 @@ def _mean_field_halo_kernels(unary_k, w_ext, beta, temps, iters_per_temp,
         for T in temps:
             q_ext = extend_rows(q, HALO)
             q = [_center(mf_sweeps(qe, be, we, T, damping, beta,
-                                   n_inner=iters_per_temp), HALO)
+                                   n_inner=iters_per_temp, plain=plain),
+                         HALO)
                  for qe, be, we in zip(q_ext, base_ext, w_ext8)]
     else:
         sources = _row_sources(q)
         for T in temps:
             q = mf_sweeps_halo(q, base, w_ext, T, damping, beta,
-                               n_sweeps=iters_per_temp, sources=sources)
+                               n_sweeps=iters_per_temp, sources=sources,
+                               plain=plain)
     # final hard assignment at T -> 0, as `mean_field_kmajor` does
     labels = []
     for qe, w, u in zip(extend_rows(q, 1), w_ext, unary_k):
@@ -130,7 +135,7 @@ def _mean_field_halo_kernels(unary_k, w_ext, beta, temps, iters_per_temp,
 
 
 def _icm_halo_kernels(unary_k, w_ext, mask, init_labels, beta,
-                      max_sweeps: int):
+                      max_sweeps: int, plain: bool = False):
     """Checkerboard ICM on the row shards from ``init_labels``; returns
     labels per shard (1, Hl, W) int32. The colour parity is that of the
     global row (a shard starts at row shard * Hl). Runs while any label of
@@ -150,7 +155,7 @@ def _icm_halo_kernels(unary_k, w_ext, mask, init_labels, beta,
         maskp = extend_rows(mask_i, HALO)
         while changed > 0 and sweep < max_sweeps:
             labp = extend_rows(labels, HALO)
-            new = [_center(icm_sweep_pair(lp, u, w, m, beta,
+            new = [_center(icm_sweep_pair(lp, u, w, m, beta, plain=plain,
                                           row_offset=r0 - HALO), HALO)
                    for lp, u, w, m, r0 in zip(labp, unp, wp, maskp, row0)]
             changed = int(psum([torch.count_nonzero(a != b)
@@ -166,21 +171,31 @@ def _icm_halo_kernels(unary_k, w_ext, mask, init_labels, beta,
     while changed > 0 and sweep < max_sweeps:
         icm_sweep_halo_(labels, unary_k, w_ext, mask_i, beta,
                         {d: c[sweep] for d, c in counts.items()}, row0=row0,
-                        sources=sources)
+                        sources=sources, plain=plain)
         changed = sum(int(c[sweep]) for c in counts.values())
         sweep += 1
     return labels
 
 
-def _energy_halo_pair(labels_a, labels_b, unary_z, w_z, mask_z, beta):
+def _energy_halo_pair(labels_a, labels_b, unary_z, w_z, mask_z, beta,
+                      plain: bool = False):
     """The region's MRF energies of two labelings, (2, 1): K3's pair entry
     (one launch a shard, each row bitwise the single K3 of its labeling)
     on each shard's slabs of exchanged labels with one halo row on each
     side, where unary, mask and weights are zero (``*_z``). So each shard
     counts its own pixels and the forward edges whose weights it stores,
     into the next shard's first row. Summed over the shards in shard
-    order, float64."""
-    return psum([potts_energy_pair(u, m, la, lb, w, beta).double()
+    order, float64. In float64: the energies folded from the rows of all
+    the shards (the halo rows dropped, their terms are zero)."""
+    if pinned(unary_z[0].dtype):
+        dev0 = unary_z[0].device
+        return torch.stack([energy_from_rows(torch.cat([
+            energy_rows(u, m, lab, w)[..., 1:-1].to(dev0)
+            for lab, u, w, m in zip(extend_rows(labels, 1), unary_z, w_z,
+                                    mask_z)], dim=-1), beta)
+            for labels in (labels_a, labels_b)])
+    return psum([potts_energy_pair(u, m, la, lb, w, beta,
+                                   plain=plain).double()
                  for la, lb, u, w, m in zip(extend_rows(labels_a, 1),
                                             extend_rows(labels_b, 1),
                                             unary_z, w_z, mask_z)])
@@ -189,7 +204,7 @@ def _energy_halo_pair(labels_a, labels_b, unary_z, w_z, mask_z, beta):
 def estep_region_rowsharded(img, mask, dmaps, warm, means, covars, beta,
                             beta1, *, weighted_pp: bool, max_sweeps: int,
                             temps=MF_TEMPS, iters_per_temp: int = 8,
-                            damping: float = 0.5):
+                            damping: float = 0.5, plain: bool = False):
     """The E-step of one region whose rows are split over shards. Lists
     per shard, each on its shard's device: img (Hl, W, F), mask (Hl, W)
     bool, dmaps (4, Hl, W), warm (Hl, W); means (K, F) and covars
@@ -198,7 +213,8 @@ def estep_region_rowsharded(img, mask, dmaps, warm, means, covars, beta,
     Returns (labels per shard (Hl, W) int32, stats (post (K,), obs (K, F),
     obs2 (K, F, F)), cost_vec (4,), n_valid ()), the last three summed over
     the shards in shard order (float64, then float32) on the first
-    shard's device."""
+    shard's device; for float64 operands, folded from the shards' rows in
+    row order (float64). ``plain`` runs the kernels' plain versions."""
     unary_k, w_cut, mask_b = [], [], []
     for x, m, dm in zip(img, mask, dmaps):
         dev = x.device
@@ -210,27 +226,38 @@ def estep_region_rowsharded(img, mask, dmaps, warm, means, covars, beta,
     warm_b = [w[None].to(torch.int32) for w in warm]
 
     mf = _mean_field_halo_kernels(unary_k, w_ext, beta, temps,
-                                  iters_per_temp, damping)
-    cand_a = _icm_halo_kernels(unary_k, w_ext, mask_b, mf, beta, max_sweeps)
+                                  iters_per_temp, damping, plain)
+    cand_a = _icm_halo_kernels(unary_k, w_ext, mask_b, mf, beta, max_sweeps,
+                               plain)
     cand_b = _icm_halo_kernels(unary_k, w_ext, mask_b, warm_b, beta,
-                               max_sweeps)
+                               max_sweeps, plain)
     # K3 and K4 on the halo-extended slabs: the halo rows have mask 0, so
     # only the center pixels count
     unary_z = [_zero_rows(u) for u in unary_k]
     mask_z = [_zero_rows(m.to(torch.int32)) for m in mask_b]
     w_z = [_zero_rows(w) for w in w_cut]
-    e = _energy_halo_pair(cand_a, cand_b, unary_z, w_z, mask_z, beta)
+    e = _energy_halo_pair(cand_a, cand_b, unary_z, w_z, mask_z, beta, plain)
     labels = cand_a if bool(e[0] <= e[1]) else cand_b
 
     # K4's pairwise potential at a center pixel reads the labels and the
     # backward-edge weights of the exchanged rows
     w_pp = w_cut if weighted_pp else [valid_maps(dm[None]) for dm in dmaps]
-    parts = [finish_stats(u, _zero_rows(x[None].permute(0, 3, 1, 2)), m, le,
-                          we, beta, SMALL_EPS, negate=True, float64=True)
-             for le, we, u, x, m in zip(extend_rows(labels, 1),
-                                        extend_rows(w_pp, 1), unary_z, img,
-                                        mask_z)]
-    post, obs, obs2, sums = (psum(list(ts)).float() for ts in zip(*parts))
+    slabs = list(zip(extend_rows(labels, 1), extend_rows(w_pp, 1), unary_z,
+                     [_zero_rows(x[None].permute(0, 3, 1, 2)) for x in img],
+                     mask_z))
+    if pinned(img[0].dtype):
+        dev0 = img[0].device
+        rows = torch.cat([finish_rows(u, xz, m, le, we, beta, SMALL_EPS,
+                                      negate=True)[:, 1:-1].to(dev0)
+                          for le, we, u, xz, m in slabs], dim=1)
+        post, obs, obs2, sums = finish_from_rows(rows, unary_k[0].shape[1],
+                                                 img[0].shape[-1])
+    else:
+        parts = [finish_stats(u, xz, m, le, we, beta, SMALL_EPS, negate=True,
+                              float64=True, plain=plain)
+                 for le, we, u, xz, m in slabs]
+        post, obs, obs2, sums = (psum(list(ts)).float()
+                                 for ts in zip(*parts))
     cost_vec, n_valid = cost_vec_from_sums(sums)
     return ([lab[0] for lab in labels], (post[0], obs[0], obs2[0]),
             cost_vec[0], n_valid[0])
@@ -254,7 +281,7 @@ def gather_rows(xs, device) -> torch.Tensor:
 
 
 def make_rowsharded_estep(mesh, *, weighted_pp: bool, max_sweeps: int,
-                          iters_per_temp: int = 8):
+                          iters_per_temp: int = 8, plain: bool = False):
     """The row-sharded E-step on global tensors: img (H, W, F), mask
     (H, W), dmaps (4, H, W), warm (H, W) with H divisible by the mesh size
     (pad rows with mask=False). Returns (labels (H, W) on the first
@@ -264,7 +291,8 @@ def make_rowsharded_estep(mesh, *, weighted_pp: bool, max_sweeps: int,
             shard_rows(mesh, img), shard_rows(mesh, mask),
             shard_rows(mesh, dmaps, 1), shard_rows(mesh, warm), means,
             covars, beta, beta1, weighted_pp=weighted_pp,
-            max_sweeps=max_sweeps, iters_per_temp=iters_per_temp)
+            max_sweeps=max_sweeps, iters_per_temp=iters_per_temp,
+            plain=plain)
         return (gather_rows(labels, mesh.devices[0]), stats, cost_vec,
                 n_valid)
     return run

@@ -50,12 +50,12 @@ def device_put_bucket(mesh, img, mask, dmaps):
 
 
 def make_sharded_estep(mesh, *, weighted_pp: bool, max_sweeps: int,
-                       labeler: str = "mf_icm"):
+                       labeler: str = "mf_icm", plain: bool = False):
     """The region-sharded E-step: `_estep_bucket` with ``labeler`` on every
     shard's block of regions. Takes per-shard lists img, mask, dmaps (`device_put_bucket`)
     and the padded warm labels (R_pad, H, W) on any device; returns the
     `_estep_bucket` outputs for all R_pad regions on the first shard's
-    device."""
+    device. ``plain`` runs the kernels' plain versions."""
     from phylo_hmrf_tpu_torch.models.hmrf import _estep_bucket
 
     def run(img, mask, dmaps, warm, means, covars, beta, beta1):
@@ -65,7 +65,7 @@ def make_sharded_estep(mesh, *, weighted_pp: bool, max_sweeps: int,
             outs.append(_estep_bucket(
                 x, m, dm, w, means.to(dev), covars.to(dev), beta, beta1,
                 weighted_pp=weighted_pp, max_sweeps=max_sweeps,
-                labeler=labeler))
+                labeler=labeler, plain=plain))
         dev0 = mesh.devices[0]
 
         def cat(ts):

@@ -1,6 +1,6 @@
 """Phylogenetic tree preprocessing — the port's own copy of
-``phylo_hmrf_tpu/tree.py`` (``PhyloTree``, ``build_tree``, ``load_tree``),
-numpy only.
+``phylo_hmrf_tpu/tree.py`` (``PhyloTree``, ``build_tree``, ``load_tree``,
+``save_debug_dumps``, ``base_matrices``), numpy only.
 
 Parses the reference's tree input files (``edge.1.txt``, ``branch_length.1.txt``,
 ``species_name.1.txt``) and precomputes the static index structures the OU
@@ -201,3 +201,48 @@ def load_tree(edge_file: str, branch_file: str | None = None,
 
     return build_tree(edges, branch_lengths, species)
 
+
+def save_debug_dumps(tree: PhyloTree, output_dir: str = ".") -> None:
+    """Write the golden-compatible debug dumps the reference emits
+    (``ou_A1.txt``, ``ou_A2.txt``, ``base_mtx_*`` — reference
+    phylo_hmrf.py:806-807, 914-917) so downstream tooling can diff them."""
+    import os
+
+    np.savetxt(os.path.join(output_dir, "ou_A1.txt"), tree.A1,
+               fmt="%d", delimiter="\t")
+    np.savetxt(os.path.join(output_dir, "ou_A2.txt"), tree.A2,
+               fmt="%d", delimiter="\t")
+    for i, mtx in enumerate(base_matrices(tree)):
+        np.savetxt(os.path.join(output_dir, f"base_mtx_{i}"), mtx,
+                   fmt="%d", delimiter="\t")
+
+
+def base_matrices(tree: PhyloTree) -> list:
+    """Per-node leaf-pair indicator matrices (reference `_compute_base_mtx`):
+    base[k][i, j] = 1 iff node k is the MRCA of leaf pair (i, j) (diagonal set
+    for the leaf's own ancestors chain membership). Root's matrix is all-ones."""
+    L = tree.n_leaves
+    out = [np.zeros((L, L)) for _ in range(tree.n_nodes)]
+    out[tree.root] = np.ones((L, L))
+    # reachable leaf sets per node
+    reach = [[] for _ in range(tree.n_nodes)]
+    for node in tree.topo_order[::-1]:
+        node = int(node)
+        kids = [c for c in range(tree.n_nodes)
+                if int(tree.parent[c]) == node and c != node]
+        if not kids:
+            reach[node] = [node]
+        else:
+            for c in kids:
+                reach[node].extend(reach[c])
+    leaf_pos = {int(n): i for i, n in enumerate(tree.leaf_nodes)}
+    for k in range(tree.n_nodes):
+        if k == tree.root:
+            continue
+        ls = reach[k]
+        for a in range(len(ls)):
+            for b in range(a, len(ls)):
+                i, j = leaf_pos[ls[a]], leaf_pos[ls[b]]
+                out[k][i, j] = 1
+                out[k][j, i] = 1
+    return out

@@ -555,6 +555,50 @@ def test_wrappers_check_operands(dev):
         potts_energy(x["unary_k"], x["mask_i"], x["warm"].cpu(), x["w"], 1.0)
 
 
+def test_wrappers_refuse_float64(dev):
+    """A kernel wrapper never picks its plain version because of a dtype:
+    float64 CUDA operands raise (the kernels are float32-only), unless
+    the caller asks for the plain version, which then keeps float64 (the
+    model's float64 mode)."""
+    from phylo_hmrf_tpu_torch.ops.finish_kernels import (
+        finish_stats, potts_energy, potts_energy_pair)
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_sweep_pair
+    from phylo_hmrf_tpu_torch.ops.mf_kernels import mf_sweeps
+    from phylo_hmrf_tpu_torch.ops.mincut_kernels import (bfs_sweeps,
+                                                         pr_iterations)
+
+    x = {k: (v.double() if v.is_floating_point() else v)
+         for k, v in _inputs(dev, "ragged").items()}
+    R, K, H, W = x["unary_k"].shape
+    img_f = torch.rand(R, 4, H, W, dtype=torch.float64, device=dev)
+    caps = torch.rand(R, 8, H, W, dtype=torch.float64, device=dev)
+    e = torch.rand(R, H, W, dtype=torch.float64, device=dev)
+    h = torch.zeros(R, H, W, dtype=torch.int32, device=dev)
+    n = H * W + 2
+    calls = [
+        lambda **kw: mf_sweeps(x["q0"], x["base"], x["w"], 1.0, 0.5, 1.0,
+                               n_inner=2, **kw),
+        lambda **kw: icm_sweep_pair(x["warm"], x["unary_k"], x["w"],
+                                    x["mask_i"], 1.0, **kw),
+        lambda **kw: potts_energy(x["unary_k"], x["mask_i"], x["warm"],
+                                  x["w"], 1.0, **kw),
+        lambda **kw: potts_energy_pair(x["unary_k"], x["mask_i"], x["warm"],
+                                       x["warm"], x["w"], 1.0, **kw),
+        lambda **kw: finish_stats(x["unary_k"], img_f, x["mask_i"],
+                                  x["warm"], x["w"], 1.0, SMALL_EPS,
+                                  negate=True, **kw)[0],
+        lambda **kw: bfs_sweeps(h + 1, caps, n, **kw)[0],
+        lambda **kw: pr_iterations(e, h, e, caps, n, **kw)[0][0],
+    ]
+    for call in calls:
+        with pytest.raises(TypeError, match="float"):
+            call()
+        out = call(plain=True)
+        assert out.device.type == "cuda"
+        if out.is_floating_point():
+            assert out.dtype == torch.float64
+
+
 def _halo_shards(x, n):
     """Each input of the halo kernels cut into n row shards (contiguous)."""
     def cut(t):

@@ -202,11 +202,11 @@ def test_cuda_device_raises_without_cuda():
                                                  n_states=3), device="cuda")
 
 
-@pytest.mark.parametrize("kw", [dict(dtype="float64"),
-                                dict(kmeans_backend="sklearn")])
+@pytest.mark.parametrize("kw", [dict(kmeans_backend="sklearn")])
 def test_unsupported_config_raises(kw):
-    """What the port does not run raises: the float64 mode and the
-    scikit-learn k-means (every labeler runs: tests/test_torch_labelers.py)."""
+    """What the port does not run raises: the scikit-learn k-means (every
+    labeler runs: tests/test_torch_labelers.py; the float64 mode runs:
+    tests/test_torch_f64.py)."""
     regions, _ = synth_problem(np.random.default_rng(0), H0=8)
     base = dict(n_states=3)
     base.update(kw)

@@ -478,13 +478,15 @@ def test_icm_tile_plan(K):
 def test_port_imports_no_jax():
     """In a fresh interpreter whose import system refuses jax and every
     module of the JAX package (``phylo_hmrf_tpu`` and
-    ``phylo_hmrf_tpu.*``), as well as scikit-learn and pandas (absent on
-    the GPU machine), every port module and ``chip_smoke`` import; and no
+    ``phylo_hmrf_tpu.*``), as well as scikit-learn, pandas and matplotlib
+    (absent on the GPU machine), every port module and ``chip_smoke``
+    import; and no
     import statement in their sources, lazy ones inside functions
     included, names a refused module."""
     code = (
         "import ast, importlib, pathlib, pkgutil, sys\n"
-        "REFUSED = ('jax', 'jaxlib', 'phylo_hmrf_tpu', 'sklearn', 'pandas')\n"
+        "REFUSED = ('jax', 'jaxlib', 'phylo_hmrf_tpu', 'sklearn', 'pandas',"
+        " 'matplotlib')\n"
         "class Refuse:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in REFUSED:\n"
@@ -506,7 +508,13 @@ def test_port_imports_no_jax():
         "'phylo_hmrf_tpu_torch.data.contacts', "
         "'phylo_hmrf_tpu_torch.data.filters', "
         "'phylo_hmrf_tpu_torch.data.synteny', "
-        "'phylo_hmrf_tpu_torch.utils.checkpoint'} <= set(names)\n"
+        "'phylo_hmrf_tpu_torch.utils.checkpoint', "
+        "'phylo_hmrf_tpu_torch.compare', "
+        "'phylo_hmrf_tpu_torch.postprocess.smooth', "
+        "'phylo_hmrf_tpu_torch.utils.bedio', "
+        "'phylo_hmrf_tpu_torch.utils.simulate', "
+        "'phylo_hmrf_tpu_torch.utils.metrics', "
+        "'phylo_hmrf_tpu_torch.data.reconstruct'} <= set(names)\n"
         "for m in mods:\n"
         "    tree = ast.parse(pathlib.Path(m.__file__).read_text())\n"
         "    for node in ast.walk(tree):\n"
@@ -526,9 +534,29 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+_COPIED_FUNCTIONS = {
+    "data.pipeline": ["write_matrix_image_v1_mask",
+                      "load_region_with_positions"],
+    "data.regions": ["save_edge_dump", "pack_regions"],
+    "tree": ["save_debug_dumps", "base_matrices"],
+    "utils.metrics": ["best_match_accuracy", "cnt_estimate",
+                      "meanvalue_state"],
+    "postprocess.smooth": ["states_to_grid", "grid_to_states",
+                           "smooth_states", "smooth_state_vec",
+                           "write_state_files", "default_palette",
+                           "states_to_rgb", "load_color_vec",
+                           "symmetric_idx", "symmetric_idx1",
+                           "symmetric_state", "symmetric_state1",
+                           "symmetric_state1_vec"],
+    "compare": ["compare_results", "main"],
+    "data.reconstruct": ["main"],
+}
+
+
 @pytest.mark.parametrize("part", ["dirs", "regions", "tree", "config",
                                   "mat_roundtrip", "oracle", "synteny",
-                                  "checkpoint", "gridops"])
+                                  "checkpoint", "gridops", "simulate",
+                                  *_COPIED_FUNCTIONS])
 def test_port_copies_match_jax_package(tmp_path, part):
     """The port's own copies of the JAX package's jax-free modules give
     what the originals give on the same inputs: ``DIRS``; the
@@ -540,9 +568,36 @@ def test_port_copies_match_jax_package(tmp_path, part):
     and energy). The byte copies are byte for byte the originals:
     ``data/synteny.py`` (and its region pairs with a centromere split),
     ``utils/checkpoint.py`` (and a checkpoint written by one copy restores
-    in the other) and ``native/gridops.cc`` (and the hole fills agree)."""
+    in the other) and ``native/gridops.cc`` (and the hole fills agree).
+    ``utils/simulate.py`` is the original with the port's package name in
+    its imports; the functions the port copies unchanged into its
+    ``data/pipeline.py``, ``data/regions.py``, ``tree.py``,
+    ``utils/metrics.py``, ``postprocess/smooth.py``, ``compare.py`` and
+    ``data/reconstruct.py`` have the originals' source lines (the
+    reconstruction's ``--reference`` has no default in the port); their
+    outputs are compared in tests/test_torch_postprocess.py."""
     rng = np.random.default_rng(5)
-    if part == "dirs":
+    if part in _COPIED_FUNCTIONS:
+        import importlib
+        import inspect
+        j = importlib.import_module(f"phylo_hmrf_tpu.{part}")
+        t = importlib.import_module(f"phylo_hmrf_tpu_torch.{part}")
+        for n in _COPIED_FUNCTIONS[part]:
+            want = inspect.getsource(getattr(j, n))
+            if part == "data.reconstruct":
+                want = want.replace(
+                    'ap.add_argument("--reference", default=REFERENCE_INPUT)',
+                    'ap.add_argument("--reference", required=True,\n'
+                    '                    help="the reference\'s example_input '
+                    'directory")')
+            assert inspect.getsource(getattr(t, n)) == want, (part, n)
+    elif part == "simulate":
+        from phylo_hmrf_tpu.utils import simulate as js
+        from phylo_hmrf_tpu_torch.utils import simulate as ts
+        with open(js.__file__) as a, open(ts.__file__) as b:
+            assert (b.read().replace("phylo_hmrf_tpu_torch", "phylo_hmrf_tpu")
+                    == a.read())
+    elif part == "dirs":
         from phylo_hmrf_tpu.data import regions as jr
         from phylo_hmrf_tpu_torch.data import regions as tr
         assert tr.DIRS == jr.DIRS
