@@ -61,7 +61,20 @@ backend and card. Then (``[resume]``) garbage is appended to the
 checkpoint's ``.hist`` and ``python -m phylo_hmrf_tpu_torch.cli`` reruns
 with the same flags and ``--reload 1`` in a subprocess: it resumes from
 iteration 4 and writes bitwise the first run's ``cost_vec`` and
-``state_vec``.
+``state_vec``. ``[multiproc]`` writes the chr21+chr22 input (two 653 x
+653 regions, 427,062 samples) and runs the command line on it
+(``-n 10 --chromvec 21,22 --miter 5 --seed 0``) once as one process and
+once as two processes sharing the card (``--coordinator 127.0.0.1:<free
+port> --num_processes 2``, gloo, ``PHMRF_COLLECTIVE_TIMEOUT_S=300``),
+each process a fresh ``python3 chip_smoke.py --cli-rank <flags>`` that
+prints its launches, walls, collective calls and peak memory: both ranks
+launch K1-K6, process 0 writes the one merged ``.mat``, whose
+``len_vec`` and ``state_vec`` equal the single run's and whose costs and
+params are within rtol 1e-7 / 1e-6 (bitwise equality reported).
+``[bucket]`` holds one kernel E-step of a bucket of two chr21 regions
+(seeds 0 and 1) bitwise against each region's own E-step, what the
+multi-process parity rests on; ``[oracle] K=20`` holds the expansion
+polish at K=20 on the ``[host_swap]`` region against the C++ expansion.
 
 The multi-device paths run over a mesh of 4 shards (all on the one card
 when it is the only one): the row-shard kernels K7 (mean-field sweeps)
@@ -1958,6 +1971,243 @@ def check_cli():
     return launches
 
 
+def check_bucket(dev, seeds=(0, 1)):
+    """``[bucket]``: on the kernel route, one E-step of a bucket of two
+    chr21 regions (seeds 0 and 1 of ``chr21_problem``, seed 0's moments)
+    against each region's own one-region E-step: labels, per-region
+    statistics, cost rows and valid counts bitwise — what the
+    multi-process fit's parity with one process rests on."""
+    import numpy as np
+    import torch
+
+    from phylo_hmrf_tpu_torch.models.hmrf import _estep_bucket
+    from phylo_hmrf_tpu_torch.synth import chr21_problem
+
+    probs = [chr21_problem(s) for s in seeds]
+    means, covs = probs[0][2], probs[0][3]
+    regions = [p[1] for p in probs]
+
+    def stack(arrays, dtype):
+        return torch.as_tensor(np.stack(arrays), dtype=dtype, device=dev)
+
+    img = stack([r.img for r in regions], torch.float32)
+    mask = stack([r.mask for r in regions], torch.bool)
+    dmaps = stack([r.dmaps for r in regions], torch.float32)
+    warm = stack([r.labels_to_grid(p[4]) for r, p in zip(regions, probs)],
+                 torch.int32)
+    mt, ct = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+              for a in (means, covs))
+    counters = _counters()
+
+    def run(sl):
+        before = {k: fn.launches for k, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _estep_bucket(img[sl], mask[sl], dmaps[sl], warm[sl], mt, ct,
+                            1.0, 0.5, weighted_pp=False, max_sweeps=60)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {
+            k: fn.launches - before[k] for k, fn in counters.items()
+            if fn.launches > before[k]}
+
+    (lab2, st2, c2, n2), bucket_s, launches = run(slice(None))
+    for name in list(KERNELS)[:4]:
+        _check(launches.get(name, 0) > 0,
+               f"[bucket]: {name} not launched by the bucket's E-step")
+    single_s = []
+    for i in range(len(seeds)):
+        (lab1, st1, c1, n1), t, _ = run(slice(i, i + 1))
+        single_s.append(t)
+        _check(torch.equal(lab2[i], lab1[0]),
+               f"[bucket]: region {i}'s labels differ in the bucket")
+        _check(all(torch.equal(a[i], b[0]) for a, b in zip(st2, st1)),
+               f"[bucket]: region {i}'s statistics differ in the bucket")
+        _check(torch.equal(c2[i], c1[0]) and torch.equal(n2[i], n1[0]),
+               f"[bucket]: region {i}'s cost row differs in the bucket")
+    return dict(regions=len(seeds), shape=list(regions[0].shape),
+                samples=[r.n_samples for r in regions], bitwise=True,
+                bucket_s=bucket_s, single_s=single_s, launches=launches)
+
+
+# the [multiproc] command line: the chr21+chr22 input, 5 iterations
+MULTIPROC_FLAGS = ["-n", "10", "--chromvec", "21,22", "--miter", "5",
+                   "--seed", "0", "--output", "out", "--run_json",
+                   "run.json"]
+MULTIPROC_NAME = "estimate_ou_0_1.00_10.mat"
+
+
+def cli_rank_main(argv) -> int:
+    """The body of ``--cli-rank ARGS``: one process of ``[multiproc]``.
+    Sets the launch counters to 0, runs ``cli.main(ARGS)`` and prints one
+    ``[rank]`` JSON line: the launches, the wall, the fit's wall and phase
+    timings (its ``PhyloHMRF.fit`` wrapped here), the collective calls of
+    ``parallel/multiproc.py`` and their seconds (its ``_collective``
+    wrapped here), the regions and samples and the peak device memory."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from phylo_hmrf_tpu_torch import cli
+    from phylo_hmrf_tpu_torch.models.hmrf import PhyloHMRF
+    from phylo_hmrf_tpu_torch.parallel import multiproc
+
+    calls = []
+    collective = multiproc._collective
+
+    def counted(fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return collective(fn, *args)
+        finally:
+            calls.append(time.perf_counter() - t0)
+    multiproc._collective = counted
+    rec = {}
+    fit = PhyloHMRF.fit
+
+    def timed_fit(self, *args, **kw):
+        t0 = time.perf_counter()
+        res = fit(self, *args, **kw)
+        rec.update(fit_s=time.perf_counter() - t0,
+                   phases=self.timer.summary(),
+                   n_regions=len(self.regions), n_samples=self.n_samples)
+        return res
+    PhyloHMRF.fit = timed_fit
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out_file = cli.main(argv)
+    rec.update(wall_s=time.perf_counter() - t0, out_file=out_file,
+               launches={k: fn.launches for k, fn in counters.items()},
+               collective_calls=len(calls), collective_s=sum(calls),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"[rank] {json.dumps(rec)}")
+    return 0
+
+
+def _rank_record(what, proc_out):
+    """The ``[rank]`` JSON of a ``--cli-rank`` process, or a failure."""
+    rc, out, err = proc_out
+    _check(rc == 0, f"{what} exited {rc}:\n{out[-2000:]}{err[-3000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("[rank] ")]
+    _check(len(lines) == 1, f"{what} printed no [rank] line:\n{out[-2000:]}")
+    return json.loads(lines[0][len("[rank] "):])
+
+
+def check_multiproc(timeout=600):
+    """``[multiproc]``: the command line on the chr21+chr22 input (two
+    653 x 653 regions, 427,062 samples) once as one process, then as two
+    processes sharing the card (gloo on localhost,
+    PHMRF_COLLECTIVE_TIMEOUT_S=300), each a fresh ``--cli-rank``
+    process. Checks: every process exits 0, each rank launches K1-K6,
+    one merged .mat at the top level, len_vec and state_vec equal to the
+    single run's, cost_vec within rtol 1e-7 / atol 1e-9, params_vec1
+    within rtol 1e-6, cost1 == pairwise + unary in each row; bitwise
+    equality is reported."""
+    import socket
+
+    import numpy as np
+    import scipy.io
+
+    from phylo_hmrf_tpu_torch.synth import CHR21_H0, write_example
+
+    work = tempfile.mkdtemp(prefix="phmrf_mp_")
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        write_example(os.path.join(work, "input"), n_bins=CHR21_H0 + 4,
+                      n_states=10, chroms=(21, 22), seed=0)
+        write_s = time.perf_counter() - t0
+        base = [sys.executable, os.path.abspath(__file__), "--cli-rank",
+                "-p", os.path.join(work, "input"), *MULTIPROC_FLAGS]
+        env = dict(os.environ, PHMRF_COLLECTIVE_TIMEOUT_S="300")
+        runs = {}
+        for name, n in (("single", 1), ("multi", 2)):
+            cwd = os.path.join(work, name)
+            os.makedirs(cwd)
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            extra = [] if n == 1 else [
+                "--coordinator", f"127.0.0.1:{port}", "--num_processes",
+                str(n)]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                base + extra + ([] if n == 1 else ["--process_id", str(i)]),
+                cwd=cwd, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True) for i in range(n)]
+            outs = []
+            for p in procs:
+                out, err = p.communicate(timeout=timeout)
+                outs.append((p.returncode, out, err))
+            wall = time.perf_counter() - t0
+            ranks = [_rank_record(f"{name} process {i}", o)
+                     for i, o in enumerate(outs)]
+            runs[name] = dict(wall_s=wall, ranks=ranks)
+        for i, rank in enumerate(runs["multi"]["ranks"]):
+            for k in list(KERNELS)[:6]:
+                _check(rank["launches"][k] > 0,
+                       f"[multiproc]: rank {i} never launched {k}")
+            _check(rank["collective_calls"] > 0,
+                   f"[multiproc]: rank {i} made no collective call")
+        _check(runs["multi"]["ranks"][1]["out_file"] == "",
+               "[multiproc]: rank 1 wrote a result")
+        mats = sorted(os.path.relpath(os.path.join(d, f), work)
+                      for d, _, fs in os.walk(os.path.join(work, "multi"))
+                      for f in fs if f.endswith(".mat"))
+        _check(mats == [os.path.join("multi", "out", MULTIPROC_NAME)],
+               f"[multiproc]: merged .mat files {mats}")
+        s, m = (scipy.io.loadmat(os.path.join(work, name, "out",
+                                              MULTIPROC_NAME))
+                for name in ("single", "multi"))
+        _check(np.array_equal(m["len_vec"], s["len_vec"]),
+               "[multiproc]: len_vec differs from the single run's")
+        n_samples = int(s["len_vec"][:, 0].sum())
+        _check(n_samples == 2 * CHR21_H0 * (CHR21_H0 + 1) // 2,
+               f"[multiproc]: {n_samples} samples")
+        _check(np.array_equal(m["state_vec"], s["state_vec"]),
+               f"[multiproc]: state_vec differs from the single run's in "
+               f"{int((m['state_vec'] != s['state_vec']).sum())} samples")
+        _check(np.allclose(m["cost_vec"], s["cost_vec"], rtol=1e-7,
+                           atol=1e-9),
+               f"[multiproc]: cost_vec {m['cost_vec']} vs {s['cost_vec']}")
+        _check(np.allclose(m["params_vec1"], s["params_vec1"], rtol=1e-6,
+                           atol=0),
+               "[multiproc]: params_vec1 differs beyond rtol 1e-6")
+        for mat in (s, m):
+            cv = mat["cost_vec"]
+            _check(cv.shape == (5, 4) and np.isfinite(cv).all(),
+                   f"[multiproc]: cost_vec {cv.shape}")
+            _check(np.allclose(cv[:, 3], cv[:, 1] + cv[:, 2], rtol=1e-6,
+                               atol=0), "[multiproc]: cost1 != pairwise + "
+                                        "unary")
+        with open(os.path.join(work, "multi", "run.json")) as f:
+            doc = json.load(f)
+        _check(doc["config"]["num_processes"] == 2,
+               f"[multiproc]: run.json {doc['config']}")
+        for name in ("single", "multi"):
+            with open(os.path.join(work, name, "run.json")) as f:
+                runs[name]["walls_s"] = json.load(f)["walls_s"]
+        rel = {k: float(np.max(np.abs(m[k] - s[k])
+                               / np.maximum(np.abs(s[k]), 1e-300)))
+               for k in ("cost_vec", "params_vec1")}
+        rec = dict(write_input_s=write_s, samples=n_samples,
+                   bitwise={k: bool(np.array_equal(m[k], s[k])) for k in (
+                       "cost_vec", "params_vec1", "params_vec2",
+                       "state_vec", "len_vec")},
+                   max_rel=rel, cost_vec=m["cost_vec"].tolist(), **runs)
+        print(f"[multiproc] {json.dumps(rec)}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1966,6 +2216,7 @@ def main() -> int:
         return 1
     from phylo_hmrf_tpu_torch import PhyloHMRFConfig, _build
     from phylo_hmrf_tpu_torch.parallel.mesh import make_mesh
+    from phylo_hmrf_tpu_torch.ops.maxflow import _start_batch
     from phylo_hmrf_tpu_torch.ops.mf_kernels import mean_field_kmajor
     from phylo_hmrf_tpu_torch.synth import chr21_problem, kernel_inputs
 
@@ -2018,10 +2269,19 @@ def main() -> int:
               for a in (means, covs))
     est = check_estep(x, dmaps, mt, ct)
     print(f"[estep] {json.dumps(est)}")
+    print(f"[bucket] {json.dumps(check_bucket(dev))}")
 
     cycles = PhyloHMRFConfig().swap_tpu_cycles     # the fit's polish
     oracle = check_oracle(x, region, start, K, cycles)
     print(f"[oracle] {json.dumps(oracle)}")
+    # K = 20 on the [host_swap] region (the C++ side stays at seconds)
+    _, r20, m20, c20, w20, _ = chr21_problem(0, K=20, h0=HOST_SWAP_H0)
+    x20 = kernel_inputs(r20, m20, c20, w20, dev)
+    start20 = _start_batch(x20["unary_k"], x20["w"], x20["mask"],
+                           x20["warm"], 1.0, 60)
+    oracle20 = check_oracle(x20, r20, start20, 20, cycles)
+    print(f"[oracle] K=20 {json.dumps(oracle20)}")
+    del x20, start20
     print(f"[polish_paths] {json.dumps(check_polish_paths(x, start, K))}")
 
     # the main path: the default single-device fit
@@ -2056,6 +2316,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the command line's path: the same fit from files, then its resume
     cli_launches = check_cli()
+    # the same command line as one process and as two sharing the card
+    check_multiproc()
     # after the fit: a profiler run can leave host overhead on later
     # launches, and the fit's host-bound phases would pay it
     print(f"[polish_profile] "
@@ -2182,5 +2444,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-rank"]:
+        sys.exit(cli_rank_main(sys.argv[2:]))
     sys.exit(count_launches_main() if "--count-launches" in sys.argv[1:]
              else main())

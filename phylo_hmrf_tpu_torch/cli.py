@@ -15,13 +15,23 @@ path resumes from it; ``--reload 1`` reads the preprocessing cache.
 
 One flag is the port's own: ``--device`` (default ``cuda``; ``cpu`` runs
 every kernel's plain PyTorch version). ``--device cuda`` without CUDA
-raises. Multi-process runs (``--num_processes > 1``, ``--coordinator``)
-are not ported and raise.
+raises.
+
+Multi-process runs (``parallel/multiproc.py``): start one process per
+rank with ``--coordinator host:port --num_processes N --process_id i``
+(or the JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID env
+vars). The chromosomes (or, with more processes than chromosomes, the
+regions) are dealt over the processes before any contact file is read;
+each process loads, caches, checkpoints and fits its own share on the
+devices it sees, the statistics and costs cross processes over gloo as
+host tensors, and process 0 writes the one merged ``.mat`` (the others
+return ``""``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -84,9 +94,12 @@ def parse_args(argv=None):
       help="shards of the mesh; 0 = every visible CUDA device (1 with "
            "--device cpu)")
     a("--coordinator", default="",
-      help="multi-host coordinator address (not ported: raises)")
+      help="multi-process: the gloo coordinator address host:port (or set "
+           "JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID); "
+           "regions are partitioned across processes and stats/costs are "
+           "summed over all of them (parallel/multiproc.py)")
     a("--num_processes", default="0",
-      help="multi-host: total process count (> 1 is not ported: raises)")
+      help="multi-process: total process count")
     a("--process_id", default="-1", help="multi-host: this process's id")
     a("--checkpoint", default="", help="EM checkpoint file; enables resume")
     a("--checkpoint_every", default="5",
@@ -105,7 +118,7 @@ def parse_args(argv=None):
 
 
 def _write_run_json(path, *, opts, cfg, x_max, walls, model, result,
-                    out_file):
+                    out_file, dist):
     """The run artifact, in the JAX command line's schema
     (``phylo_hmrf_tpu.run/1``), with the environment read from torch."""
     import torch
@@ -122,7 +135,7 @@ def _write_run_json(path, *, opts, cfg, x_max, walls, model, result,
             "labeler": cfg.labeler, "final_polish": cfg.final_polish,
             "polish_method": cfg.polish_method, "seed": cfg.seed,
             "dtype": cfg.dtype, "chromvec": opts.chromvec,
-            "num_processes": 1,
+            "num_processes": dist["process_count"],
         },
         "environment": {
             "backend": "cuda" if on_cuda else "cpu",
@@ -201,30 +214,45 @@ def _resolve_paths(data_path: str) -> list:
 def run(opts) -> str:
     import torch
 
-    from phylo_hmrf_tpu_torch.data.contacts import (quantile_contact_vec,
-                                                    x_max_from_quantiles)
-    from phylo_hmrf_tpu_torch.data.pipeline import (load_cache, load_dataset,
-                                                    save_cache)
-    from phylo_hmrf_tpu_torch.models.hmrf import PhyloHMRF, _check_config
-    from phylo_hmrf_tpu_torch.parallel.mesh import make_mesh
-    from phylo_hmrf_tpu_torch.tree import load_tree
-    from phylo_hmrf_tpu_torch.utils.io import save_estimate
-    from phylo_hmrf_tpu_torch.utils.profiling import torch_trace
+    from phylo_hmrf_tpu_torch.models.hmrf import _check_config
+    from phylo_hmrf_tpu_torch.parallel.distributed import (
+        initialize_distributed)
 
     t_start = time.perf_counter()
-    walls = {}
-    # refuse what the port does not run before any data is read
-    if int(opts.num_processes) > 1 or opts.coordinator:
-        raise NotImplementedError(
-            "multi-process runs (--num_processes > 1, --coordinator) are "
-            "not ported yet")
     device = torch.device(opts.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {opts.device} requested but CUDA is "
                            f"not available (pass --device cpu)")
     cfg = _config(opts)
     _check_config(cfg, None)
+    # join the process group before any data is read, so each process
+    # reads only its own chromosomes
+    dist = initialize_distributed(
+        opts.coordinator or None, int(opts.num_processes) or None,
+        None if int(opts.process_id) < 0 else int(opts.process_id))
+    try:
+        return _run(opts, cfg, device, dist, t_start)
+    finally:
+        if dist["distributed"]:
+            torch.distributed.destroy_process_group()
 
+
+def _run(opts, cfg, device, dist, t_start) -> str:
+    import torch
+
+    from phylo_hmrf_tpu_torch.data.contacts import (quantile_contact_vec,
+                                                    x_max_from_quantiles)
+    from phylo_hmrf_tpu_torch.data.pipeline import (load_cache, load_dataset,
+                                                    save_cache)
+    from phylo_hmrf_tpu_torch.models.hmrf import PhyloHMRF
+    from phylo_hmrf_tpu_torch.parallel import multiproc as mp
+    from phylo_hmrf_tpu_torch.parallel.mesh import make_mesh
+    from phylo_hmrf_tpu_torch.tree import load_tree
+    from phylo_hmrf_tpu_torch.utils.io import save_estimate
+    from phylo_hmrf_tpu_torch.utils.profiling import torch_trace
+
+    walls = {}
+    multi = dist["process_count"] > 1
     data_path = opts.root_path
     tree = load_tree(os.path.join(data_path, "edge.1.txt"),
                      os.path.join(data_path, "branch_length.1.txt"),
@@ -237,17 +265,72 @@ def run(opts) -> str:
         chrom_vec = [int(c) for c in opts.chromvec.split(",")]
     ref_filename = os.path.join(data_path, f"{opts.ref_species}.chrom.sizes")
 
-    # quantile normalization constant (reference phylo_hmrf.py:1648-1664);
-    # the per-chromosome rows are kept in the working directory
+    local_chroms = chrom_vec
+    region_filters = None
+    cache_scope = opts.output
+    if multi:
+        if dist["process_count"] > len(chrom_vec):
+            # more processes than chromosomes: deal REGIONS (the
+            # reference's finer per-region worker boundary,
+            # utility.py:422-435); processes beyond the region count get
+            # an empty share and still join every collective
+            local_chroms, region_filters = mp.partition_chromosome_regions(
+                chrom_vec, data_path, cfg, dist["process_count"],
+                dist["process_index"])
+        else:
+            local_chroms = mp.partition_chromosomes(
+                chrom_vec, data_path, cfg, dist["process_count"],
+                dist["process_index"])
+        # preprocessing caches are per-process AND per-partition: the dir
+        # name carries the local chromosome set (plus a region-filter hash)
+        # so a --reload 1 rerun with another --num_processes misses the
+        # cache instead of loading another partition's regions
+        chrom_tag = "-".join(str(c) for c in local_chroms) or "none"
+        if region_filters is not None:
+            import hashlib
+            h = hashlib.sha1(repr(sorted(
+                (c, tuple(v)) for c, v in region_filters.items()))
+                .encode()).hexdigest()[:8]
+            chrom_tag += f"_r{h}"
+        cache_scope = os.path.join(
+            opts.output, f"proc{dist['process_index']}_c{chrom_tag}")
+
+    # quantile normalization constant (reference phylo_hmrf.py:1648-1664),
+    # the per-chromosome rows kept in the working directory; multi-process
+    # runs scan only their own chromosomes and gather the rows
     qfile = "chrom_quantile_test.txt"
-    if int(opts.quantile) == 0 and os.path.exists(qfile):
-        m_vec = np.loadtxt(qfile, delimiter="\t")
-        x_max = float(np.median(np.atleast_2d(m_vec)[:, 6]))
+    use_qfile = int(opts.quantile) == 0 and os.path.exists(qfile)
+    if multi and int(opts.quantile) == 0:
+        # a COLLECTIVE decision: a process that reads the file while
+        # another scans would run a different sequence of collectives and
+        # hang; the file is used only when every process has it, and its
+        # rows then come from process 0
+        n_have = int(mp._allreduce_sum(np.asarray([float(use_qfile)]))[0])
+        use_qfile = n_have == dist["process_count"]
+    if use_qfile:
+        m_vec = np.atleast_2d(np.loadtxt(qfile, delimiter="\t"))
+        if multi:
+            m_vec = mp._broadcast_from_zero(
+                np.ascontiguousarray(m_vec, np.float64))
+        x_max = float(np.median(m_vec[:, 6]))
     else:
-        m_vec = quantile_contact_vec(chrom_vec, cfg.resolution,
+        # under a region partition several processes may hold regions of
+        # one chromosome; exactly one (the owner of its lowest region_id)
+        # scans it, or the gathered rows would repeat chromosomes unevenly
+        # and move the median
+        scan_chroms = local_chroms
+        if region_filters is not None:
+            scan_chroms = mp.quantile_scan_chromosomes(
+                chrom_vec, data_path, cfg, region_filters)
+        m_vec = quantile_contact_vec(scan_chroms, cfg.resolution,
                                      ref_filename, paths, species,
                                      cfg.legacy_bin_count)
-        np.savetxt(qfile, m_vec, fmt="%.4f", delimiter="\t")
+        if multi:
+            m_vec = mp.gather_quantile_rows(
+                m_vec, scan_chroms if region_filters is not None else None,
+                chrom_vec)
+        if dist["process_index"] == 0:
+            np.savetxt(qfile, m_vec, fmt="%.4f", delimiter="\t")
         x_max = x_max_from_quantiles(m_vec)
     print(f"x_max = {x_max}")
     walls["quantile_s"] = time.perf_counter() - t_start
@@ -255,17 +338,20 @@ def run(opts) -> str:
     t_load = time.perf_counter()
     regions = None
     if int(opts.reload_mode) == 1:
-        regions = load_cache(opts.output, cfg)
+        regions = load_cache(cache_scope, cfg)
         if regions is None:
             print("cache missing, recomputing")
     if regions is None:
-        regions, _ = load_dataset(chrom_vec, cfg, ref_filename, paths,
+        regions, _ = load_dataset(local_chroms, cfg, ref_filename, paths,
                                   species, data_path, x_max,
-                                  n_workers=int(opts.n_workers))
+                                  n_workers=int(opts.n_workers),
+                                  region_filters=region_filters)
         if regions:
-            save_cache(regions, opts.output, cfg)
+            save_cache(regions, cache_scope, cfg)
     walls["load_s"] = time.perf_counter() - t_load
 
+    # a process meshes the devices it sees: a multi-process run is data
+    # parallel across processes, each on its own cards (or sharing one)
     n_dev = int(opts.n_devices) or (
         torch.cuda.device_count() if device.type == "cuda" else 1)
     mesh = None
@@ -274,9 +360,24 @@ def run(opts) -> str:
         # is the only one), or over the CPU
         mesh = make_mesh((n_dev,), devices=(
             None if device.type == "cuda" else [device]))
-    model = PhyloHMRF(tree, regions, cfg, mesh=mesh,
-                      device=None if mesh is not None else device)
+    model_device = None if mesh is not None else device
+    if multi:
+        n_local = int(sum(r.n_samples for r in regions))
+        total = int(mp._allreduce_sum(np.asarray([float(n_local)]))[0])
+        print(f"[distributed] process {dist['process_index']}/"
+              f"{dist['process_count']}: chroms {local_chroms}, "
+              f"{len(regions)} regions, {n_local}/{total} samples")
+        model = mp.MultiProcessPhyloHMRF(
+            tree, regions, cfg, n_samples_total=total, mesh=mesh,
+            device=model_device, chrom_order=chrom_vec)
+    else:
+        model = PhyloHMRF(tree, regions, cfg, mesh=mesh, device=model_device)
     ckpt_path = opts.checkpoint or None
+    if ckpt_path is not None and multi:
+        # each process checkpoints its OWN regions' labels and history; the
+        # chromosome tag (like the cache dir's) makes a resume under
+        # another partition a clean miss, not a shape mismatch
+        ckpt_path = f"{ckpt_path}.proc{dist['process_index']}_c{chrom_tag}"
     t_fit = time.perf_counter()
     with torch_trace(opts.profile_dir):
         result = model.fit(checkpoint_path=ckpt_path,
@@ -286,20 +387,33 @@ def run(opts) -> str:
     walls["fit_s"] = time.perf_counter() - t_fit
     print("phase timings:", model.timer.report())
 
-    out_file = save_estimate(result, model.len_vec, opts.output,
+    len_vec = model.len_vec
+    if multi:
+        # every process contributes its label shards; process 0 writes the
+        # ONE reference-schema .mat a single-process run would
+        # (phylo_hmrf.py:1743-1748)
+        state_vec, len_vec = mp.gather_global_result(model, result,
+                                                     chrom_vec)
+        if dist["process_index"] != 0:
+            return ""
+        result = dataclasses.replace(result, labels=state_vec,
+                                     state_list=None)
+    out_file = save_estimate(result, len_vec, opts.output,
                              cfg.run_id, cfg.lambda_0, cfg.n_states)
-    print(f"saved {out_file}")
+    print(f"saved {out_file}" + (f" (merged from {dist['process_count']} "
+                                 f"processes)" if multi else ""))
     if opts.run_json:
         walls["total_s"] = time.perf_counter() - t_start
         _write_run_json(opts.run_json, opts=opts, cfg=cfg, x_max=x_max,
                         walls=walls, model=model, result=result,
-                        out_file=out_file)
+                        out_file=out_file, dist=dist)
     return out_file
 
 
 def main(argv=None) -> str:
     """Parse ``argv`` (default: the process's arguments) and run; returns
-    the ``.mat`` path."""
+    the ``.mat`` path (``""`` on the processes of a multi-process run
+    other than process 0)."""
     return run(parse_args(argv))
 
 

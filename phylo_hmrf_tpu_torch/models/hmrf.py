@@ -449,8 +449,25 @@ class PhyloHMRF:
 
     def flat_values(self) -> np.ndarray:
         if not self.regions:
+            # a multi-process run can deal this process an EMPTY region
+            # share; the (0, F) shape keeps the init gather and the
+            # reductions well-formed
             return np.zeros((0, self.n_features), np.float32)
         return np.concatenate([r.flat_values() for r in self.regions], axis=0)
+
+    def _init_arrays(self):
+        """(X, per-region [start, stop) slices into X) consumed by
+        `initialize`. ``parallel/multiproc.py`` returns the GLOBAL sample
+        matrix here, so k-means and the per-cluster OU fits are a
+        single-process run's."""
+        slices = [(int(self.offsets[i]), int(self.offsets[i + 1]))
+                  for i in range(len(self.regions))]
+        return self.flat_values(), slices
+
+    def _sync_init(self, centers, labels):
+        """Identity hook; ``parallel/multiproc.py`` broadcasts process 0's
+        k-means result so every process warm-starts identically."""
+        return centers, labels
 
     def initialize(self):
         """k-means, per-cluster stats, tree-propagated guesses and the
@@ -458,7 +475,7 @@ class PhyloHMRF:
         k-means runs on the float32 samples, as the JAX engine's does in
         both modes; the stats, guesses and solve in the model dtype."""
         cfg = self.cfg
-        X = self.flat_values()
+        X, init_slices = self._init_arrays()
         K, P = self.n_states, self.n_params
         X_dev = self._dev(X, torch.float32)
         centers_d, labels_d, _ = kmeans(self._gen, X_dev, K)
@@ -478,6 +495,10 @@ class PhyloHMRF:
             _to_numpy(t) for t in (centers_d, labels_d, xbar_d, xxT_d, cnt_d,
                                    guesses_d, solved_d))
         centers = np.asarray(centers, np.float64)
+        # the k-means labels seed the warm-start grids; the multi-process
+        # hook makes them process 0's on every process (the OU init params
+        # from the pre-sync stats are broadcast after `initialize`)
+        centers, labels = self._sync_init(centers, labels)
         pre = dict(xbar=np.asarray(xbar, np.float64),
                    xxT=np.asarray(xxT, np.float64), occupied=cnt > 0,
                    params=np.asarray(params_draw, np.float64),
@@ -489,9 +510,9 @@ class PhyloHMRF:
         self.covars_ = np.tile(cv, (K, 1, 1))
         self.init_ou_params = self._fit_init_params(centers, pre)
         self.params_vec = self.init_ou_params.copy()
-        self.labels_local = [
-            r.labels_to_grid(labels[self.offsets[i]:self.offsets[i + 1]])
-            for i, r in enumerate(self.regions)]
+        self.labels_local = [r.labels_to_grid(labels[s0:s1])
+                             for r, (s0, s1) in zip(self.regions,
+                                                    init_slices)]
         self.init_labels = labels.copy()
 
     def _fit_init_params(self, centers, pre) -> np.ndarray:
@@ -637,7 +658,8 @@ class PhyloHMRF:
                                      cv[:Rb].reshape(Rb, -1),
                                      nv[:Rb].reshape(Rb, 1)],
                                     dim=1).flatten())
-        host = _to_numpy(torch.cat(packed)).astype(np.float64)
+        host = (_to_numpy(torch.cat(packed)).astype(np.float64) if packed
+                else np.zeros(0))   # no regions: an empty share
         cols = [K, K * F, K * F * F, 4, 1]
         at = 0
         for idxs, *_ in done:
@@ -736,13 +758,15 @@ class PhyloHMRF:
                 + (1.0 - a1 - a2) * rand)
 
     def _global_stats(self, stats):
-        """Per-region stats -> global sums, in region order (float64)."""
+        """Per-region stats -> global sums, in region order (float64);
+        ``parallel/multiproc.py`` sums every process's rows here."""
         post_r, obs_r, obs2_r = stats
         return post_r.sum(0), obs_r.sum(0), obs2_r.sum(0)
 
     def _global_costs(self, costs: np.ndarray,
                       ratio_vec: np.ndarray) -> np.ndarray:
-        """Per-region cost rows -> sample-weighted global costs."""
+        """Per-region cost rows -> sample-weighted global costs (over
+        every process's rows in ``parallel/multiproc.py``)."""
         return costs.T @ ratio_vec
 
     def _solve_full_dev(self, guess, post, obs, obs2):

@@ -217,8 +217,10 @@ def test_unsupported_config_raises(kw):
 def test_unsupported_run_options_raise(tmp_path):
     """A mesh that is not the port's `Mesh` raises (meshes from
     `parallel.mesh.make_mesh` run: tests/test_torch_halo.py), and the
-    command line refuses what the port does not run, before it reads any
-    input: multi-process runs (checkpoint/resume runs:
+    command line refuses an incomplete multi-process run before it reads
+    any input: a process count without a coordinator, a coordinator
+    without a process count (multi-process runs:
+    tests/test_torch_multiproc.py; checkpoint/resume runs:
     tests/test_torch_cli.py; every labeler runs:
     tests/test_torch_labelers.py)."""
     from phylo_hmrf_tpu_torch.cli import main
@@ -229,7 +231,7 @@ def test_unsupported_run_options_raise(tmp_path):
         PhyloHMRF(TREE, regions, cfg, mesh=object(), device="cpu")
     base = ["-p", str(tmp_path / "absent"), "--output", str(tmp_path),
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    with pytest.raises(ValueError, match="--coordinator"):
         main(base + ["--num_processes", "2"])
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    with pytest.raises(ValueError, match="--num_processes"):
         main(base + ["--coordinator", "localhost:1234"])
