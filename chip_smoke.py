@@ -98,7 +98,14 @@ a bucket of two chr21 regions (``[mesh_exact]``), its labels equal to each
 region's own on one device; and a default-config spatial fit of the
 chr21 region with a 20 x 653 off-diagonal block (its 24 rows give 6-row
 shards, the K7/K8 branch), whose first E-step is held against the
-single-device one region by region. The fresh process that counts
+single-device one region by region. ``[xmesh]`` then runs that 10 kb
+E-step and that spatial fit (from the same inputs and state) over a mesh
+whose 4 shards live in two processes sharing the card, 2 each
+(``make_mesh((4,), processes=True)`` after ``initialize_distributed``,
+gloo on localhost, each a fresh ``python3 chip_smoke.py --xmesh-rank``
+process): every output's SHA-256 equal to the one-process mesh's on both
+ranks, K1-K8 launched (K7/K8 on the remote route: a launch a sweep /
+phase after each exchange), the exchanges counted. The fresh process that counts
 launches with ``torch.profiler`` (K3/K4 a call, K7/K8 a unit) first
 profiles that block's spatial E-step alone (``[thin_estep]``: walls,
 device busy, idle share, kernel launches and host ops per E-step). Every
@@ -842,6 +849,54 @@ def _counters():
             "K6_bfs_sweeps": mincut_kernels.bfs_sweeps,
             "K7_mf_sweeps_halo": mf_kernels.mf_sweeps_halo,
             "K8_icm_sweep_halo": icm_kernels.icm_sweep_halo_}
+
+
+def _sha(a):
+    """SHA-256 of the bytes of a tensor (any device) or array."""
+    import hashlib
+
+    import numpy as np
+
+    if hasattr(a, "detach"):
+        a = a.detach().cpu().numpy()
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _estep_digests(out):
+    """Digests of a row-sharded E-step's labels, statistics and costs."""
+    labels, (post, obs, obs2), cost_vec, n_valid = out
+    return {k: _sha(v) for k, v in (
+        ("labels", labels), ("post", post), ("obs", obs), ("obs2", obs2),
+        ("cost_vec", cost_vec), ("n_valid", n_valid))}
+
+
+def _fit_digests(res, grids):
+    """Digests of a fit's cost rows, every iteration's label grids, the
+    polished labels and the params."""
+    import numpy as np
+
+    return dict(cost_vec=_sha(res.cost_vec), labels=_sha(res.labels),
+                iter_labels=_sha(np.concatenate([
+                    g.cpu().numpy().ravel() for it in grids for g in it])),
+                params_vec=_sha(res.params_vec),
+                params_list=_sha(res.params_list))
+
+
+def _traffic():
+    """The cross-process calls of ``parallel/distributed.py`` so far:
+    point-to-point exchanges and all-gathers, their calls, bytes sent and
+    seconds."""
+    from phylo_hmrf_tpu_torch.parallel import distributed
+
+    return {name: dict(calls=fn.calls, bytes=fn.bytes, seconds=fn.seconds)
+            for name, fn in (("exchange", distributed.exchange_tensors),
+                             ("gather", distributed.all_gather_tensors))}
+
+
+def _traffic_since(before):
+    now = _traffic()
+    return {name: {k: now[name][k] - before[name][k] for k in now[name]}
+            for name in now}
 
 
 def fit_model(tree, regions, cfg, device=None, mesh=None, state=None,
@@ -1754,7 +1809,7 @@ def check_spatial_estep(x, img, dmaps, means, covs, mesh):
            "the spatial E-step is not bitwise repeatable")
     rec.update(single_s=t_single, spatial_s=min(t_spatial, t_again),
                spatial_first_s=t_spatial, bitwise_repeat=True,
-               shape=list(img.shape))
+               shape=list(img.shape), digests=_estep_digests(spatial))
     # device busy time under the profiler; the idle share is taken
     # against the unprofiled wall (the profiler inflates host time)
     for name, f, wall in (
@@ -1831,26 +1886,35 @@ def offdiag_block():
     return synteny_problem(0, 20, 653, False, pad_h=8)
 
 
-def spatial_fit(mesh, device, max_iter=3):
-    """The default config over the mesh in ``shard_mode="spatial"`` on the
-    chr21 region (672 rows: 168-row shards, the deep-halo K1/K2 branch)
-    and a 20 x 653 off-diagonal block of the same seed (24 rows: 6-row
-    shards, the K7/K8 branch). Its first E-step is held against the
-    single-device E-step from the same state, then it fits. Returns
-    (result, model, launches, grids, E-step record, truth)."""
+def spatial_problem(max_iter=3):
+    """The spatial fit's problem: the chr21 region (672 rows: 168-row
+    shards over 4, the deep-halo K1/K2 branch) and a 20 x 653 off-diagonal
+    block of the same seed (24 rows: 6-row shards, the K7/K8 branch), the
+    default config in ``shard_mode="spatial"``. Returns (tree, regions,
+    config, truth)."""
     import numpy as np
 
-    from phylo_hmrf_tpu_torch import PhyloHMRF, PhyloHMRFConfig
-    from phylo_hmrf_tpu_torch.convert import export_state, import_state
+    from phylo_hmrf_tpu_torch import PhyloHMRFConfig
     from phylo_hmrf_tpu_torch.synth import chr21_problem
 
     tree, diag, _, _, _, true_d = chr21_problem(0)
     _, off, _, _, _, true_o = offdiag_block()
-    regions = [diag, off]
     cfg = PhyloHMRFConfig(n_states=10, max_iter=max_iter, seed=0,
                           shard_mode="spatial")
     _check(cfg.final_polish and cfg.polish_method == "expansion",
            "the default config no longer polishes with expansion moves")
+    return tree, [diag, off], cfg, np.concatenate([true_d, true_o])
+
+
+def spatial_fit(mesh, device, max_iter=3):
+    """The default config over the mesh in ``shard_mode="spatial"`` on
+    `spatial_problem`. Its first E-step is held against the single-device
+    E-step from the same state, then it fits. Returns (result, model,
+    launches, grids, E-step record, truth, the state it started from)."""
+    from phylo_hmrf_tpu_torch import PhyloHMRF
+    from phylo_hmrf_tpu_torch.convert import export_state, import_state
+
+    tree, regions, cfg, truth = spatial_problem(max_iter)
     probe = PhyloHMRF(tree, regions, cfg, mesh=mesh)
     _check(probe._spatial, "the meshed model is not in spatial mode")
     probe.initialize()
@@ -1863,8 +1927,7 @@ def spatial_fit(mesh, device, max_iter=3):
                          "spatial fit's first E-step")
     rec["shard_rows"] = [r.shape[0] // mesh.size for r in regions]
     run = fit_model(tree, regions, cfg, mesh=mesh, state=state)
-    return (run.res, run.model, run.launches, run.grids, rec,
-            np.concatenate([true_d, true_o]))
+    return (run.res, run.model, run.launches, run.grids, rec, truth, state)
 
 
 CLI_FLAGS = ["-n", "10", "-p", "input", "--chromvec", "21", "--miter", "5",
@@ -2087,13 +2150,14 @@ def cli_rank_main(argv) -> int:
     return 0
 
 
-def _rank_record(what, proc_out):
-    """The ``[rank]`` JSON of a ``--cli-rank`` process, or a failure."""
+def _rank_record(what, proc_out, tag="[rank]"):
+    """The ``tag`` JSON line of a rank process (``--cli-rank``:
+    ``[rank]``, ``--xmesh-rank``: ``[xrank]``), or a failure."""
     rc, out, err = proc_out
     _check(rc == 0, f"{what} exited {rc}:\n{out[-2000:]}{err[-3000:]}")
-    lines = [ln for ln in out.splitlines() if ln.startswith("[rank] ")]
-    _check(len(lines) == 1, f"{what} printed no [rank] line:\n{out[-2000:]}")
-    return json.loads(lines[0][len("[rank] "):])
+    lines = [ln for ln in out.splitlines() if ln.startswith(tag + " ")]
+    _check(len(lines) == 1, f"{what} printed no {tag} line:\n{out[-2000:]}")
+    return json.loads(lines[0][len(tag) + 1:])
 
 
 def check_multiproc(timeout=600):
@@ -2199,6 +2263,184 @@ def check_multiproc(timeout=600):
                        "state_vec", "len_vec")},
                    max_rel=rel, cost_vec=m["cost_vec"].tolist(), **runs)
         print(f"[multiproc] {json.dumps(rec)}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def xmesh_rank_main(argv) -> int:
+    """The body of ``--xmesh-rank PORT PID STATE``: one of the two
+    processes of ``[xmesh]``. Joins the gloo group on localhost, meshes
+    SHARDS shards over both processes (``make_mesh(..., processes=True)``,
+    2 a process, all on the card), then runs the 10 kb spatial E-step of
+    ``[spatial_estep]`` three times (the launches and the exchanges of the
+    first) and the spatial fit of ``[spatial_fit]`` from its state (the
+    pickle STATE), with the launch counters set to 0 just before it and
+    read just after. Prints one ``[xrank]`` JSON line: the digests of
+    both, walls, phase walls, exchanges and all-gathers per E-step (calls,
+    bytes, seconds), launches and peak device memory."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from phylo_hmrf_tpu_torch.models.hmrf import PhyloHMRF
+    from phylo_hmrf_tpu_torch.parallel.distributed import (
+        initialize_distributed)
+    from phylo_hmrf_tpu_torch.parallel.halo import make_rowsharded_estep
+    from phylo_hmrf_tpu_torch.parallel.mesh import make_mesh
+    from phylo_hmrf_tpu_torch.synth import chr21_problem, kernel_inputs
+
+    port, pid, state_path = argv
+    t_start = time.perf_counter()
+    initialize_distributed(f"127.0.0.1:{port}", 2, int(pid))
+    try:
+        mesh = make_mesh((SHARDS,), processes=True)
+        dev = mesh.first_device
+        counters = _counters()
+        torch.cuda.reset_peak_memory_stats()
+        rec = dict(rank=mesh.rank, mesh=mesh.describe(),
+                   join_s=time.perf_counter() - t_start)
+
+        # the 10 kb spatial E-step on the inputs of [spatial_estep]
+        t0 = time.perf_counter()
+        _, r10, m10, c10, w10, _ = chr21_problem(0, h0=3264)
+        x10 = kernel_inputs(r10, m10, c10, w10, dev)
+        img10 = torch.as_tensor(r10.img, device=dev)
+        dmaps10 = torch.as_tensor(r10.dmaps, device=dev)
+        m10t, c10t = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                      for a in (m10, c10))
+        args = (img10, x10["mask"][0], dmaps10, x10["warm"][0], m10t, c10t,
+                1.0, 0.5)
+        inputs_s = time.perf_counter() - t0
+        fn = make_rowsharded_estep(mesh, weighted_pp=False, max_sweeps=60)
+        walls, digests = [], []
+        for rep in range(3):
+            for c in counters.values():
+                c.launches = 0
+            before = _traffic()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            digests.append(_estep_digests(out))
+            if rep == 0:
+                traffic = _traffic_since(before)
+                launches = {k: c.launches for k, c in counters.items()}
+        _check(all(d == digests[0] for d in digests),
+               f"[xmesh] rank {mesh.rank}: the 10 kb E-step is not bitwise "
+               f"repeatable")
+        rec["estep"] = dict(inputs_s=inputs_s, walls_s=walls,
+                            launches=launches, traffic=traffic,
+                            digests=digests[0], shape=list(img10.shape))
+        del x10, img10, dmaps10, args, out
+        torch.cuda.empty_cache()
+
+        # the spatial fit of [spatial_fit], from its state
+        with open(state_path, "rb") as f:
+            state = pickle.load(f)
+        tree, regions, cfg, _ = spatial_problem()
+        estep = PhyloHMRF.estep
+        per_estep = []
+
+        def counted(self, *a, **kw):
+            before = _traffic()
+            try:
+                return estep(self, *a, **kw)
+            finally:
+                per_estep.append(_traffic_since(before))
+        PhyloHMRF.estep = counted
+        t0 = time.perf_counter()
+        run = fit_model(tree, regions, cfg, mesh=mesh, state=state)
+        fit_s = time.perf_counter() - t0
+        PhyloHMRF.estep = estep
+        for e, t in zip(run.esteps, per_estep):
+            e["traffic"] = t
+        rec["fit"] = dict(fit_s=fit_s, n_iters=run.res.n_iters,
+                          phases=run.model.timer.summary(),
+                          launches=run.launches, esteps=run.esteps,
+                          digests=_fit_digests(run.res, run.grids))
+        total = _traffic()
+        rec.update(traffic=total, collective_s=sum(
+            t["seconds"] for t in total.values()),
+            wall_s=time.perf_counter() - t_start,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"[xrank] {json.dumps(rec)}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def check_xmesh(estep_rec, fit_res, fit_grids, state, one_process,
+                timeout=600):
+    """``[xmesh]``: the mesh that spans processes. Two fresh
+    ``--xmesh-rank`` processes share the card (gloo on localhost,
+    PHMRF_COLLECTIVE_TIMEOUT_S=300), SHARDS / 2 shards each, and run the
+    10 kb spatial E-step and the spatial fit of this process's
+    ``[spatial_estep]`` and ``[spatial_fit]`` (the one-process mesh of
+    SHARDS shards). Checks: both exit 0; each one's E-step labels,
+    statistics and costs and its fit's cost rows, iteration labels,
+    polished labels and params have the SHA-256 of the one-process run's
+    (``estep_rec["digests"]``, ``fit_res`` / ``fit_grids``), so both
+    ranks are identical too; each rank's E-step launched K1-K4 and its
+    fit K1-K8, and both exchanged rows. Prints the ranks' records beside
+    ``one_process`` (its walls)."""
+    import pickle
+    import socket
+
+    work = tempfile.mkdtemp(prefix="phmrf_xmesh_")
+    procs = []
+    try:
+        state_path = os.path.join(work, "state.pkl")
+        with open(state_path, "wb") as f:
+            pickle.dump(state, f)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, PHMRF_COLLECTIVE_TIMEOUT_S="300")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--xmesh-rank",
+             str(port), str(i), state_path], cwd=work, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(2)]
+        outs = [p.communicate(timeout=timeout) for p in procs]
+        wall = time.perf_counter() - t0
+        ranks = [_rank_record(f"[xmesh] process {i}",
+                              (p.returncode, *o), tag="[xrank]")
+                 for i, (p, o) in enumerate(zip(procs, outs))]
+        want_fit = _fit_digests(fit_res, fit_grids)
+        for i, r in enumerate(ranks):
+            for what, got, want in (
+                    ("10 kb E-step", r["estep"]["digests"],
+                     estep_rec["digests"]),
+                    ("spatial fit", r["fit"]["digests"], want_fit)):
+                bad = sorted(k for k in want if got.get(k) != want[k])
+                _check(not bad, f"[xmesh] rank {i}: {what} differs from "
+                                f"the one-process mesh's in {bad}")
+            for k in list(KERNELS)[:4]:
+                _check(r["estep"]["launches"][k] > 0,
+                       f"[xmesh] rank {i}: the 10 kb E-step never "
+                       f"launched {k}")
+            for k in KERNELS:
+                _check(r["fit"]["launches"][k] > 0,
+                       f"[xmesh] rank {i}: the spatial fit never launched "
+                       f"{k}")
+            _check(r["estep"]["traffic"]["exchange"]["calls"] > 0
+                   and r["traffic"]["exchange"]["calls"]
+                   > r["estep"]["traffic"]["exchange"]["calls"],
+                   f"[xmesh] rank {i}: no rows exchanged")
+        rec = dict(wall_s=wall, bitwise=True, ranks=ranks,
+                   one_process=one_process)
+        print(f"[xmesh] {json.dumps(rec)}")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2372,7 +2614,8 @@ def main() -> int:
     print(f"[mesh_exact] {json.dumps(check_mesh_exact(mesh, dev))}")
 
     t0 = time.perf_counter()
-    sres, smodel, slaunches, sgrids, sest, strue = spatial_fit(mesh, dev)
+    sres, smodel, slaunches, sgrids, sest, strue, sstate = spatial_fit(
+        mesh, dev)
     sfit_s = time.perf_counter() - t0
     for name in KERNELS:
         _check(slaunches[name] > 0,
@@ -2385,6 +2628,11 @@ def main() -> int:
                 polish=spolish, phases=ssumm, launches=slaunches,
                 best_match_accuracy=sacc, cost_vec=sres.cost_vec.tolist())
     print(f"[spatial_fit] {json.dumps(sfit)}")
+    # the same 10 kb E-step and spatial fit over a mesh whose shards live
+    # in two processes sharing the card
+    check_xmesh(sp, sres, sgrids, sstate, dict(
+        estep_s=sp["spatial_s"], estep_first_s=sp["spatial_first_s"],
+        fit_s=sfit_s, phases=ssumm))
 
     # one kernel launch a call for K3 (both entries) and K4, by the
     # profiler in a fresh process
@@ -2446,5 +2694,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli-rank"]:
         sys.exit(cli_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--xmesh-rank"]:
+        sys.exit(xmesh_rank_main(sys.argv[2:]))
     sys.exit(count_launches_main() if "--count-launches" in sys.argv[1:]
              else main())

@@ -45,6 +45,18 @@ run on the mesh's first device, which also keeps each whole region bucket.
 There the exact moves label each region alone, as the JAX engine does on
 a mesh (batched regions share one move schedule and one stopping test).
 
+A spatial mesh may span processes (``make_mesh(..., processes=True)``
+after ``initialize_distributed``): every process builds the same model on
+the same regions and runs the same fit (SPMD). It places only its own row
+blocks; the row-sharded E-step exchanges the rows at a process boundary
+and all-gathers the shard sums and the label rows
+(``parallel/halo.py``). What the paragraph above puts on the mesh's
+first device runs on this process's first device, replicated on every
+process from identical inputs, so every process holds the same fit: that
+of the one-process mesh with the same shard count, bitwise. Region
+sharding across processes raises (the JAX engine fails there too); its
+counterpart is ``parallel/multiproc.py``.
+
 ``dtype="float64"`` runs every step above in float64 on the plain
 PyTorch versions of the kernels, as the JAX engine runs its jnp paths
 there (its fused kernels are float32-only): the kernels are chosen once,
@@ -321,7 +333,8 @@ class PhyloHMRF:
     (in float32) and raises when CUDA is absent; ``device="cpu"``, and
     ``dtype="float64"`` anywhere, run every kernel's plain PyTorch
     version. With a mesh, each shard runs on its own device and the
-    model's ``device`` is the mesh's first."""
+    model's ``device`` is the mesh's first (this process's first, when
+    the mesh spans processes)."""
 
     def __init__(self, tree: PhyloTree, regions: Sequence[RegionGrid],
                  config: PhyloHMRFConfig | None = None, mesh=None, *,
@@ -349,10 +362,18 @@ class PhyloHMRF:
                         f"{r.region_id} has H={r.shape[0]} — raise pad_h")
         _check_config(cfg, mesh)
         if mesh is not None:
-            if device is not None and torch.device(device) != mesh.devices[0]:
+            if mesh.spans_processes and not self._spatial:
+                raise ValueError(
+                    f"a mesh that spans processes ({mesh.describe()}) "
+                    f"needs shard_mode='spatial'; region sharding across "
+                    f"processes is MultiProcessPhyloHMRF "
+                    f"(parallel/multiproc.py), got shard_mode="
+                    f"{cfg.shard_mode!r}")
+            if device is not None \
+                    and torch.device(device) != mesh.first_device:
                 raise ValueError(f"device={device!r} is not the mesh's first "
-                                 f"device {mesh.devices[0]}")
-            device = mesh.devices[0]
+                                 f"device {mesh.first_device}")
+            device = mesh.first_device
         self.device = torch.device("cuda" if device is None else device)
         for dev in (mesh.devices if mesh is not None else [self.device]):
             if dev.type == "cuda" and not torch.cuda.is_available():
@@ -603,12 +624,13 @@ class PhyloHMRF:
                             else "swap")
         done = []   # (region indices, post, obs, obs2, costs, n_valid)
         if self._spatial:
+            owners = self.mesh.owners
             for ri, (img, mask, dmaps) in enumerate(self._spatial_arrays):
                 labels, (p, o, o2), cv, nv = estep_region_rowsharded(
                     img, mask, dmaps, shard_rows(self.mesh, warm_of([ri])[0]),
                     means_t, covars_t, cfg.beta, cfg.beta1,
-                    plain=not self._use_kernels, **kw)
-                label_grids[ri] = gather_rows(labels, self.device)
+                    plain=not self._use_kernels, owners=owners, **kw)
+                label_grids[ri] = gather_rows(labels, self.device, owners)
                 done.append(([ri], p[None], o[None], o2[None], cv[None],
                              nv[None]))
         elif exact_method is not None or cfg.labeler in ("swap", "expansion"):

@@ -27,8 +27,8 @@ import torch.nn.functional as F
 from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch import _build
 from phylo_hmrf_tpu_torch.ops.halo_rows import (
-    barrier_for, device_groups, extend_rows, fill_remote_rows, is_chained,
-    neighbour_columns, remote_row_buffers, table)
+    barrier_for, device_groups, extend_rows, fill_remote_rows, first_local,
+    is_chained, neighbour_columns, remote_row_buffers, source_peers, table)
 from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2
 
 # the four colours of a sweep; two sweeps, in the TPU kernel's order
@@ -135,15 +135,19 @@ icm_phase_.launches = 0
 
 
 def icm_sweep_halo_plain(labels, unary_k, w_ext, mask_i, beta, changed, *,
-                         row0, phase0: int = 0, n_phases: int = 4):
+                         row0, phase0: int = 0, n_phases: int = 4,
+                         owners=None):
     """Plain version of K8: for each phase, an exchange of one label row a
     side (``extend_rows``), then ``icm_phase_halo_plain`` on every shard
     with the colour parity of its global rows; labels updated in place,
-    the changed labels counted into ``changed[device]``."""
+    the changed labels counted into ``changed[device]``. A shard of
+    another process (whose process ``owners`` names) is ``None``."""
     for a, b in _SWEEP_PHASES[phase0:phase0 + n_phases]:
-        lab_ext = extend_rows(labels, 1)
+        lab_ext = extend_rows(labels, 1, owners)
         for i, (le, u, w, m) in enumerate(zip(lab_ext, unary_k, w_ext,
                                               mask_i)):
+            if le is None:
+                continue
             new = icm_phase_halo_plain(le, u, w, m, beta, (a + row0[i]) % 2,
                                        b)[:, 1:-1]
             count = changed[labels[i].device]
@@ -164,18 +168,23 @@ def icm_sweep_halo_(labels, unary_k, w_ext, mask_i, beta, changed, *, row0,
     ``row0`` each shard's first global row (its colour parity);
     ``sources`` the (above, below) ``RowSource`` of each shard. The number
     of labels changed on each device's shards is added to
-    ``changed[device]`` (one int32). Returns ``labels``. On CUDA: with no
-    remote source, one launch a device runs the phases behind a grid
-    barrier; otherwise each phase copies the remote rows, then launches
-    once a device."""
-    if plain or labels[0].device.type == "cpu":
+    ``changed[device]`` (one int32). Returns ``labels``. A shard of
+    another process is ``None`` in every list. On CUDA: with no remote
+    source, one launch a device runs the phases behind a grid barrier;
+    otherwise each phase copies the remote rows (exchanges them with the
+    other processes), then launches once a device."""
+    if plain or first_local(labels).device.type == "cpu":
         return icm_sweep_halo_plain(labels, unary_k, w_ext, mask_i, beta,
                                     changed, row0=row0, phase0=phase0,
-                                    n_phases=n_phases)
+                                    n_phases=n_phases,
+                                    owners=source_peers(sources))
     if not (0 <= phase0 and n_phases >= 1 and phase0 + n_phases <= 4):
         raise ValueError(f"icm_sweep_halo_: phases {phase0} + {n_phases}")
-    K, W = unary_k[0].shape[1], unary_k[0].shape[-1]
+    u0 = first_local(unary_k)
+    K, W = u0.shape[1], u0.shape[-1]
     for i, (lab, u, w, m) in enumerate(zip(labels, unary_k, w_ext, mask_i)):
+        if lab is None:
+            continue
         Hl = lab.shape[-2]
         _build.check_tensors(
             f"icm_sweep_halo_ shard {i}", labels=(lab, torch.int32, (1, Hl, W)),

@@ -34,8 +34,8 @@ import torch.nn.functional as F
 from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch import _build
 from phylo_hmrf_tpu_torch.ops.halo_rows import (
-    barrier_for, device_groups, extend_rows, fill_remote_rows, is_chained,
-    neighbour_columns, remote_row_buffers, table)
+    barrier_for, device_groups, extend_rows, fill_remote_rows, first_local,
+    is_chained, neighbour_columns, remote_row_buffers, source_peers, table)
 from phylo_hmrf_tpu_torch.ops.icm import MF_TEMPS
 from phylo_hmrf_tpu_torch.ops.potts import pinned, softmax
 
@@ -216,14 +216,17 @@ def mf_halo_rows(heights) -> int:
     return max(1, min(MF_HALO_MAX_ROWS, max(heights)))
 
 
-def mf_sweeps_halo_plain(q, base, w_ext, T, damp, beta, n_sweeps: int):
+def mf_sweeps_halo_plain(q, base, w_ext, T, damp, beta, n_sweeps: int,
+                         owners=None):
     """Plain version of K7: ``n_sweeps`` sweeps of the row shards, each an
     exchange of one row a side (``extend_rows``) and ``mf_sweep_halo_plain``
-    on every shard. Returns the new q per shard."""
+    on every shard. Returns the new q per shard (``None`` for a shard of
+    another process, whose process ``owners`` names)."""
     q = list(q)
     for _ in range(n_sweeps):
-        q = [mf_sweep_halo_plain(qe, b, w, T, damp, beta) for qe, b, w in
-             zip(extend_rows(q, 1), base, w_ext)]
+        q = [None if qe is None else mf_sweep_halo_plain(qe, b, w, T, damp,
+                                                         beta)
+             for qe, b, w in zip(extend_rows(q, 1, owners), base, w_ext)]
     return q
 
 
@@ -235,16 +238,22 @@ def mf_sweeps_halo(q, base, w_ext, T, damp, beta, *, n_sweeps: int,
     weights with one exchanged row a side (zeros at the mesh ends);
     ``sources`` the (above, below) ``RowSource`` of each shard
     (``row_sources``). Returns the new q per shard (new tensors; q is never
-    written). On CUDA: with no remote source, one launch a device runs
-    all the sweeps behind a grid barrier; otherwise each sweep copies the
-    remote rows, then launches once a device."""
+    written). A shard of another process is ``None`` in every list. On
+    CUDA: with no remote source, one launch a device runs all the sweeps
+    behind a grid barrier; otherwise each sweep copies the remote rows
+    (exchanges them with the other processes), then launches once a
+    device."""
     if n_sweeps < 1:
         return list(q)
-    if plain or q[0].device.type == "cpu":
-        return mf_sweeps_halo_plain(q, base, w_ext, T, damp, beta, n_sweeps)
-    K, W = q[0].shape[1], q[0].shape[-1]
-    heights = [x.shape[-2] for x in q]
+    q0 = first_local(q)
+    if plain or q0.device.type == "cpu":
+        return mf_sweeps_halo_plain(q, base, w_ext, T, damp, beta, n_sweeps,
+                                    source_peers(sources))
+    K, W = q0.shape[1], q0.shape[-1]
+    heights = [None if x is None else x.shape[-2] for x in q]
     for i, (x, b, w) in enumerate(zip(q, base, w_ext)):
+        if x is None:
+            continue
         Hl = heights[i]
         _build.check_tensors(
             f"mf_sweeps_halo shard {i}", q=(x, torch.float32, (1, K, Hl, W)),
@@ -252,10 +261,11 @@ def mf_sweeps_halo(q, base, w_ext, T, damp, beta, *, n_sweeps: int,
             w_ext=(w, torch.float32, (1, 4, Hl + 2, W)))
     groups = device_groups(q, sources)
     chained = is_chained(sources)
-    th = mf_halo_rows(heights)
+    th = mf_halo_rows([h for h in heights if h is not None])
     lib = _build.load()
-    bufs = [(torch.empty_like(x),
-             torch.empty_like(x) if n_sweeps > 1 else None) for x in q]
+    bufs = [(None, None) if x is None else
+            (torch.empty_like(x), torch.empty_like(x) if n_sweeps > 1
+             else None) for x in q]
     rows = None if chained else remote_row_buffers(q, sources)
 
     def ptr(t):

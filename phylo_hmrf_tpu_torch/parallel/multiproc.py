@@ -35,7 +35,8 @@ import os
 import numpy as np
 
 from phylo_hmrf_tpu_torch.models.hmrf import PhyloHMRF
-from phylo_hmrf_tpu_torch.parallel.distributed import (process_count,
+from phylo_hmrf_tpu_torch.parallel.distributed import (_collective,
+                                                       process_count,
                                                        process_index)
 
 
@@ -52,45 +53,6 @@ def partition_regions(regions, n_processes: int, process_id: int):
     local = [r for i, r in enumerate(regions) if owner[i] == process_id]
     total = int(sum(r.n_samples for r in regions))
     return local, total
-
-
-def _collective(fn, *args):
-    """Run a cross-process collective with an optional watchdog
-    (PHMRF_COLLECTIVE_TIMEOUT_S > 0): a live-but-stuck peer otherwise
-    stalls the gather until gloo's own timeout (30 minutes) with no
-    diagnostic. On timeout the process prints a restart hint and
-    HARD-exits (os._exit): recovery is restart-based (resume from the last
-    checkpoint), so a fast loud death IS the detection mechanism — a gloo
-    collective cannot be cancelled, and a plain raise would leave the
-    process waiting on it."""
-    t = float(os.environ.get("PHMRF_COLLECTIVE_TIMEOUT_S", "0"))
-    if t <= 0:
-        return fn(*args)
-    import queue
-    import sys
-    import threading
-
-    q = queue.Queue()
-
-    def run():
-        try:
-            q.put((True, fn(*args)))
-        except BaseException as e:   # noqa: BLE001 — relayed to caller
-            q.put((False, e))
-
-    th = threading.Thread(target=run, daemon=True)
-    th.start()
-    try:
-        ok, val = q.get(timeout=t)
-    except queue.Empty:
-        print(f"FATAL: cross-process collective timed out after "
-              f"{t:.0f}s — a peer is unresponsive; restart the job to "
-              f"resume from the last checkpoint", file=sys.stderr,
-              flush=True)
-        os._exit(17)
-    if not ok:
-        raise val
-    return val
 
 
 def _bytes_of(arr: np.ndarray) -> np.ndarray:
