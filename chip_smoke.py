@@ -26,6 +26,20 @@ time, host reads per move) and one pass of swap moves, those of a
 default config (``final_polish=True``, ``polish_method="expansion"``)
 through ``PhyloHMRF.fit`` and checks the result.
 
+``[pipeline]`` fits the chr21 problem again from the ``[fit]`` phase's
+init state with ``em_pipeline=True`` (the default: the next E-step is
+enqueued before the M-step's results are read) and ``False``, in this
+process: both fits' SHA-256 digests (cost rows, every iteration's labels,
+polished labels, params) equal ``[fit]``'s. It runs the first M-step
+solve and the first init solve of those runs again through the plain
+L-BFGS driver and through its captured CUDA graphs, in float32 and
+float64: byte for byte equal, with the walls, the graph replays and host
+reads a solve, the capture seconds and the memory the graphs hold; the
+init's graph with and without its read of the rows' flags a chunk; and
+``mstep_dispatch`` under ``torch.cuda.set_sync_debug_mode("error")``.
+The fresh launch-counting process profiles one chr21 M-step solve on
+both drivers (``[pipeline] mstep launches``: kernels, device busy time).
+
 From the ``[fit]`` phase's init state, ``[labelers]`` fits the chr21
 problem with every other E-step labeler: ``swap_tpu`` and
 ``expansion_tpu`` (3 iterations; K1-K6 launched, no final polish, every
@@ -443,8 +457,52 @@ def count_launches_main() -> int:
         fn()
     out["offdiag"] = {name: list(_kernel_launches(fn))
                       for name, fn in fns.items()}
+    out["mstep"] = mstep_launches(dev)
     print(json.dumps(out))
     return 0
+
+
+def mstep_launches(dev):
+    """Device kernels and busy seconds of one chr21 M-step solve (K=10,
+    the statistics of the true labels, params from a seed) through the
+    plain driver and through its captured graphs (after the capture), by
+    ``torch.profiler``; the graph's replays. A profiler that sees no
+    kernel of the graph replays records None there."""
+    import numpy as np
+    import torch
+
+    import phylo_hmrf_tpu_torch.models.hmrf as hm
+    from phylo_hmrf_tpu_torch import PhyloHMRFConfig
+    from phylo_hmrf_tpu_torch.models.ou import tree_tensors
+    from phylo_hmrf_tpu_torch.synth import chr21_problem
+
+    tree, region, _, _, _, true = chr21_problem(0)
+    X = region.flat_values().astype(np.float64)
+    K, cfg = 10, PhyloHMRFConfig()
+    g = np.eye(K)[true]
+    stats = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+        g.sum(0), g.T @ X, np.einsum("nk,nf,ng->kfg", g, X, X))]
+    p0 = np.random.default_rng(0).random((K, tree.n_params)) * 0.8 + 0.2
+    kw = dict(tt=tree_tensors(tree, dev), lo=cfg.param_lo, hi=cfg.param_hi,
+              iters=cfg.mstep_iters)
+    args = (torch.as_tensor(p0, dtype=torch.float32, device=dev), *stats,
+            float(X.shape[0]), cfg.lambda_0, cfg.min_covar)
+    graphs = {}
+    hm._mstep_solve_full(*args, graphs=graphs, **kw)   # the capture
+    (solve,) = graphs.values()
+    out = {}
+    for name, gr in (("plain", None), ("graph", graphs)):
+        r0 = solve.replays
+        try:
+            busy_s, n, _ = _device_busy_s(
+                lambda: hm._mstep_solve_full(*args, graphs=gr, **kw))
+        except AssertionError:
+            if gr is None:
+                raise
+            busy_s = n = None
+        out[name] = dict(kernels=n, device_busy_s=busy_s,
+                         replays=solve.replays - r0)
+    return out
 
 
 def _halo_units(x, n_sweeps, n_phases, n_shards=4):
@@ -934,10 +992,20 @@ def fit_model(tree, regions, cfg, device=None, mesh=None, state=None,
         before = {k: fn.launches for k, fn in counters.items()}
         t0 = time.perf_counter()
         out = estep(*args, **kw)
-        esteps.append(dict(wall_s=time.perf_counter() - t0, launches={
+        rec = dict(wall_s=time.perf_counter() - t0, launches={
             k: fn.launches - before[k] for k, fn in counters.items()
-            if fn.launches > before[k]}))
-        return out
+            if fn.launches > before[k]})
+        esteps.append(rec)
+        if not kw.get("defer"):
+            return out
+        grids, collect = out
+
+        def timed_collect():   # the wall: the enqueue and the read-back
+            t1 = time.perf_counter()
+            got = collect()
+            rec["wall_s"] += time.perf_counter() - t1
+            return got
+        return grids, timed_collect
     model.estep = logged
     if not count_init:
         for fn in counters.values():
@@ -1013,6 +1081,184 @@ def check_fit(res, model, true, grids):
         bfs_sweeps_per_move=st.bfs_sweeps / st.moves,
         moves_at_max_sweeps=st.capped)
     return float(best_match_accuracy(res.labels, true)), polish
+
+
+def _same_bits(a, b):
+    """Whether two tensors hold the same bytes (shape and dtype too)."""
+    import torch
+
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def _graph_stats(model):
+    """The model's captured L-BFGS solves (``ops/lbfgs.py::GraphSolve``):
+    step-graph replays, host reads, capture seconds and the device memory
+    each capture reserved, by solve."""
+    return {f"{key[0]}{list(key[1])}": dict(
+        replays=g.replays, host_reads=g.host_reads, chunk=g.chunk,
+        capture_s=g.capture_s, pool_bytes=g.pool_bytes)
+        for key, g in (model._graphs or {}).items()}
+
+
+def _spy_first_calls(module, names):
+    """Wrap ``module``'s functions ``names`` to keep the arguments of each
+    one's first call (tensors cloned). Returns (the record, undo)."""
+    import torch
+
+    seen, real = {}, {n: getattr(module, n) for n in names}
+
+    def wrap(name):
+        def spy(*args, **kw):
+            if name not in seen:
+                seen[name] = ([a.clone() if torch.is_tensor(a) else a
+                               for a in args], dict(kw))
+            return real[name](*args, **kw)
+        return spy
+    for n in names:
+        setattr(module, n, wrap(n))
+    return seen, lambda: [setattr(module, n, f) for n, f in real.items()]
+
+
+def _solve_pair(tree, fn, args, kw, dtype, device):
+    """One captured solve (``fn``: ``_mstep_solve_full`` or
+    ``_init_solve``) against the plain driver on the same inputs, in
+    ``dtype``, bitwise: the walls (host clock, synchronized) of the plain
+    solve, the first graph solve (the capture included) and a second one,
+    and the graph's replays, host reads, capture seconds and memory."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.models.ou import tree_tensors
+
+    args = [a.to(dtype) if torch.is_tensor(a) else a for a in args]
+    kw = dict(kw, tt=tree_tensors(tree, device, dtype))
+    walls, outs = {}, {}
+    graphs = {}
+    for name, g in (("plain", None), ("graph_first", graphs),
+                    ("graph", graphs)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = fn(*args, **dict(kw, graphs=g))
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        if name == "graph_first":
+            (solve,) = graphs.values()
+            replays, reads = solve.replays, solve.host_reads
+    bitwise = all(_same_bits(a, b) for name in ("graph_first", "graph")
+                  for a, b in zip(outs["plain"], outs[name]))
+    err = max(_max_abs(a, b) for a, b in zip(outs["plain"], outs["graph"])
+              if a.is_floating_point())
+    return solve, dict(
+        bitwise=bitwise, max_abs_err=err, plain_s=walls["plain"],
+        graph_first_s=walls["graph_first"], graph_s=walls["graph"],
+        replays_per_solve=solve.replays - replays,
+        host_reads_per_solve=solve.host_reads - reads, chunk=solve.chunk,
+        capture_s=solve.capture_s, pool_bytes=solve.pool_bytes)
+
+
+def check_pipeline(tree, region, run, fit_digests, device):
+    """``[pipeline]``: the chr21 default fit from the ``[fit]`` init state
+    with ``em_pipeline=True`` and ``False``, in this process, digests
+    equal to each other and to ``[fit]``'s; a fresh model's init; the
+    first M-step and init solves of those runs again through the plain
+    driver and the captured graphs, in float32 and float64, bitwise; the
+    init's graph with and without its read a chunk; ``mstep_dispatch``
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    import torch
+
+    import phylo_hmrf_tpu_torch.models.hmrf as hm
+    from phylo_hmrf_tpu_torch import PhyloHMRF, PhyloHMRFConfig
+
+    seen, undo = _spy_first_calls(hm, ("_mstep_solve_full", "_init_solve"))
+    try:
+        fits = {}
+        for pipe in (True, False):
+            cfg = PhyloHMRFConfig(n_states=10, max_iter=5, seed=0,
+                                  em_pipeline=pipe)
+            t0 = time.perf_counter()
+            f = fit_model(tree, [region], cfg, device=device,
+                          state=run.state)
+            fit_s = time.perf_counter() - t0
+            summ = f.model.timer.summary()
+            n = f.res.n_iters
+            fits[pipe] = f
+            f.rec = dict(
+                fit_s=fit_s, n_iters=n,
+                mstep_s_per_iter=summ["mstep"]["total_s"] / n,
+                estep_s_per_iter=summ["estep"]["total_s"] / n,
+                final_polish_s=summ["final_polish"]["total_s"],
+                phases=summ, rollbacks=f.model._mstep_rollbacks_,
+                launches=f.launches, graphs=_graph_stats(f.model),
+                digests=_fit_digests(f.res, f.grids))
+        # a fresh model's init: k-means and the captured init solve
+        model = PhyloHMRF(tree, [region],
+                          PhyloHMRFConfig(n_states=10, seed=0),
+                          device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.initialize()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+    finally:
+        undo()
+    for pipe, f in fits.items():
+        _check(f.rec["digests"] == fit_digests,
+               f"[pipeline] em_pipeline={pipe}: digests differ from "
+               f"[fit]'s: {f.rec['digests']} vs {fit_digests}")
+        for name in list(KERNELS)[:6]:
+            _check(f.launches[name] > 0,
+                   f"[pipeline] {name} never launched (em_pipeline={pipe})")
+    rec = dict(fits={str(p): f.rec for p, f in fits.items()},
+               init_s=init_s, init_graphs=_graph_stats(model),
+               fit_init_s=run.init_s)
+
+    solves = {}
+    for dtype in (torch.float32, torch.float64):
+        for name in ("_mstep_solve_full", "_init_solve"):
+            args, kw = seen[name]
+            solve, r = _solve_pair(tree, getattr(hm, name), args, kw, dtype,
+                                   device)
+            solves[f"{name.strip('_')}_{str(dtype)[6:]}"] = r
+            _check(r["bitwise"], f"[pipeline] {name} in {dtype}: the graph "
+                                 f"route differs from the plain driver "
+                                 f"(max abs err {r['max_abs_err']})")
+            if name == "_init_solve" and dtype == torch.float32:
+                init_solve, init_args = solve, args
+    rec["solves"] = solves
+    _check(solves["mstep_solve_full_float32"]["host_reads_per_solve"] == 0,
+           "[pipeline] the M-step graph read the device")
+    # the init's graph with and without a read of the rows' flags after
+    # each chunk: bitwise the same, replays and walls
+    p0, xbar, xxT = init_args[:3]
+    exits = {}
+    for early in (False, True, False, True):
+        r0, h0 = init_solve.replays, init_solve.host_reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = init_solve(p0, xbar, xxT, early_exit=early)
+        torch.cuda.synchronize()
+        e = exits.setdefault(str(early), dict(walls_s=[], out=out))
+        e["walls_s"].append(time.perf_counter() - t0)
+        e.update(replays=init_solve.replays - r0,
+                 host_reads=init_solve.host_reads - h0)
+    _check(all(_same_bits(a, b) for a, b in zip(exits["True"].pop("out"),
+                                                 exits["False"].pop("out"))),
+           "[pipeline] the init graph's early exit changed the result")
+    rec["init_early_exit"] = exits
+
+    # no host sync in mstep_dispatch (the model's graphs are captured)
+    m = fits[True].model
+    _, stats, _, _ = m.estep(m.means_, m.covars_, m.labels_local)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = m.mstep_dispatch(stats)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    m.mstep_finalize(handle)
+    rec["dispatch_without_sync"] = True
+    return rec
 
 
 # labeler -> EM iterations of its [labelers] fit
@@ -2544,8 +2790,15 @@ def main() -> int:
                final_polish_s=summ["final_polish"]["total_s"],
                polish=polish, phases=summ, launches=run.launches,
                best_match_accuracy=acc, cost_vec=res.cost_vec.tolist())
+    fit["rollbacks"] = model._mstep_rollbacks_
+    fit["graphs"] = _graph_stats(model)
+    fit_digests = _fit_digests(res, run.grids)
+    fit["digests"] = fit_digests
     print(f"[fit] {json.dumps(fit)}")
     print(f"[postprocess] {json.dumps(check_postprocess(res, model, true))}")
+    # the pipelined and the sequential EM loop, the captured solves
+    pipe = check_pipeline(tree, region, run, fit_digests, dev)
+    print(f"[pipeline] {json.dumps(pipe)}")
     # every labeler of the port from the [fit] phase's init state, and
     # the host C++ swap against the device swap on a reduced region
     check_labelers(tree, region, run.state, dev)
@@ -2658,6 +2911,7 @@ def main() -> int:
                 rec[field] = n
                 rec.setdefault("kernel_names", kernel_names)
     thin = counts.pop("thin_estep")
+    print(f"[pipeline] mstep launches {json.dumps(counts.pop('mstep'))}")
     thin["spatial_fit_estep_s"] = sfit["estep_s"]
     print(f"[launch_counts] {json.dumps(counts)}")
     print(f"[thin_estep] {json.dumps(thin)}")

@@ -25,9 +25,19 @@ strict-parity mode) in float64. Per EM iteration:
   those labels. The host ``swap`` / ``expansion`` labelers run the C++
   moves of ``native/`` on the float64 unary of the float64 moments, then
   K4.
-* M-step (`mstep`): one batched boxed L-BFGS solve of the OU parameters of
-  all K states on the device, the validity check and the OU moments, with
-  the reference's retry ladder and the fallback to the init params.
+* M-step (`mstep_dispatch`, then `mstep_finalize`): one batched boxed
+  L-BFGS solve of the OU parameters of all K states on the device, the
+  validity check and the OU moments, with the reference's retry ladder and
+  the fallback to the init params. On a CUDA device the solve is replayed
+  from CUDA graphs (``ops/lbfgs.py::GraphSolve``, one per solve shape,
+  kept by the model) and enqueued with no host read; on the CPU the plain
+  driver runs. The k-means init's OU fits take the same route.
+
+With ``em_pipeline=True`` (the default) `fit` runs the JAX engine's
+pipelined loop: iteration i+1's E-step is enqueued against the M-step's
+unverified device moments before the host reads the M-step's validity
+bits, and an invalid attempt-0 solve rolls that E-step back
+(``_mstep_rollbacks_``). Both loops give bitwise the same fit.
 
 After the loop, ``final_polish`` (the default) relabels the best
 iteration's labels once under the restored best moments with exact
@@ -82,6 +92,7 @@ counterpart here; each is noted where the JAX engine reads it (see
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import types
 from typing import Sequence
@@ -102,7 +113,7 @@ from phylo_hmrf_tpu_torch.ops.finish_kernels import (
     cost_vec_from_sums, finish_stats)
 from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
 from phylo_hmrf_tpu_torch.ops.kmeans import kmeans
-from phylo_hmrf_tpu_torch.ops.lbfgs import minimize_boxed
+from phylo_hmrf_tpu_torch.ops.lbfgs import GraphSolve, minimize_boxed
 from phylo_hmrf_tpu_torch.ops.lbp import lbp_labels
 from phylo_hmrf_tpu_torch.ops.maxflow import (
     CutStats, _icm_pick, _start_batch, exact_labels_batched)
@@ -243,27 +254,68 @@ def _check_params_device(solved: torch.Tensor, n_nodes: int, lo=0.0,
     return finite & in_box
 
 
-def _mstep_solve_full(p0, post, obs, obs2, n_samples, lambda_0, min_covar, *,
-                      tt: TreeTensors, lo, hi, iters):
-    """M-step solve for all K states, validity and OU moments, on the
-    device. The returned covariances carry the ``min_covar`` jitter, added
-    in the model dtype like the host mirror (`_moments_np`), so both are
-    equal."""
-    def fn(p):
-        return ou_nll_stats(p, post, obs, obs2, tt, n_samples, lambda_0,
-                            min_covar)
-    solved, _ = minimize_boxed(fn, p0, lo, hi, iters)
+def _mstep_finish(solved, f, post, obs, obs2, *, tt: TreeTensors,
+                  min_covar):
+    """Validity and OU moments of the solved params; the covariances carry
+    the ``min_covar`` jitter, added in the model dtype like the host
+    mirror (`_moments_np`), so both are equal."""
     valid = _check_params_device(solved, tt.tree.n_nodes)
     means, covars = ou_moments_batch(solved, tt)
     eye = torch.eye(covars.shape[-1], dtype=covars.dtype, device=covars.device)
     return solved, valid, means, covars + min_covar * eye
 
 
-def _init_solve(p0, xbar, xxT, min_covar, *, tt: TreeTensors, lo, hi, iters):
-    """Per-cluster OU init fits, all clusters in one batched solve."""
-    def fn(p):
-        return ou_nll_init(p, xbar, xxT, tt, min_covar)
-    return minimize_boxed(fn, p0, lo, hi, iters)
+def _graph_solve(graphs: dict, key, objective, p0, args, lo, hi, iters,
+                 finish=None, early_exit=False):
+    """A solve through the ``GraphSolve`` of ``key`` in ``graphs``,
+    captured at its first use."""
+    solve = graphs.get(key)
+    if solve is None:
+        solve = graphs[key] = GraphSolve(objective, p0, args, lo, hi, iters,
+                                         finish=finish)
+    return solve(p0, *args, early_exit=early_exit)
+
+
+def _solve_key(kind, p0, args, *scalars):
+    """What a captured solve bakes in: the objective, its host scalars,
+    the shapes, the dtype and the device (the model's tree is fixed per
+    cache)."""
+    return (kind, tuple(p0.shape), tuple(tuple(a.shape) for a in args),
+            p0.dtype, p0.device) + scalars
+
+
+def _mstep_solve_full(p0, post, obs, obs2, n_samples, lambda_0, min_covar, *,
+                      tt: TreeTensors, lo, hi, iters, graphs=None):
+    """M-step solve for all K states, validity and OU moments, on the
+    device: (solved, valid, means, covars + jitter). With ``graphs`` (a
+    dict the model keeps) the solve replays CUDA graphs, enqueued with no
+    host read; without, the plain driver runs."""
+    objective = functools.partial(ou_nll_stats, tt=tt, n_samples=n_samples,
+                                  lambda_0=lambda_0, min_covar=min_covar)
+    finish = functools.partial(_mstep_finish, tt=tt, min_covar=min_covar)
+    args = (post, obs, obs2)
+    if graphs is not None:
+        key = _solve_key("mstep", p0, args, n_samples, lambda_0, min_covar,
+                         lo, hi, iters)
+        return _graph_solve(graphs, key, objective, p0, args, lo, hi, iters,
+                            finish=finish)
+    solved, f = minimize_boxed(lambda p: objective(p, *args), p0, lo, hi,
+                               iters)
+    return finish(solved, f, *args)
+
+
+def _init_solve(p0, xbar, xxT, min_covar, *, tt: TreeTensors, lo, hi, iters,
+                graphs=None):
+    """Per-cluster OU init fits, all clusters in one batched solve:
+    (solved, f). With ``graphs`` the solve replays CUDA graphs and reads
+    the rows' flags once a chunk (the init reads its result at once)."""
+    objective = functools.partial(ou_nll_init, tt=tt, min_covar=min_covar)
+    args = (xbar, xxT)
+    if graphs is not None:
+        key = _solve_key("init", p0, args, min_covar, lo, hi, iters)
+        return _graph_solve(graphs, key, objective, p0, args, lo, hi, iters,
+                            early_exit=True)
+    return minimize_boxed(lambda p: objective(p, *args), p0, lo, hi, iters)
 
 
 def _init_cluster_stats(X: torch.Tensor, labels: torch.Tensor, k: int):
@@ -306,8 +358,7 @@ def _check_config(cfg: PhyloHMRFConfig, mesh) -> None:
     """Raise on what the port does not run yet.
 
     Fields of the JAX engine with no counterpart here, on purpose:
-    ``em_pipeline`` (its pipelined loop is bitwise the sequential loop, so
-    the port runs the sequential one); ``prewarm_compiles`` (warms XLA
+    ``prewarm_compiles`` (warms XLA
     compiles; the port has no compile step); ``use_pallas`` (the kernels
     run on a CUDA device in float32, `use_kernels`). The JAX engine's
     VMEM tile pickers and its ``_map_buckets`` compile-overlap threads and
@@ -458,6 +509,12 @@ class PhyloHMRF:
         self.polish_stats_ = None    # CutStats of the last fit's polish
         self.exact_stats_ = []       # CutStats of each exact E-step
         self.hybrid_exact_iters_ = []
+        self._mstep_rollbacks_ = 0
+        # device twins of (means_, covars_) published by `mstep_dispatch`
+        self._moments_dev = None
+        # the captured L-BFGS solves (ops/lbfgs.py::GraphSolve) by key, on
+        # a CUDA device; None: the plain driver
+        self._graphs = {} if self.device.type == "cuda" else None
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         """``a`` on the model's device, in the model dtype unless given."""
@@ -511,7 +568,8 @@ class PhyloHMRF:
                                 self._dev(rand_part), self.tree, P)
         solved_d, _ = _init_solve(
             guesses_d, xbar_d, xxT_d, cfg.min_covar, tt=self._tt,
-            lo=cfg.param_lo, hi=cfg.param_hi, iters=cfg.mstep_iters)
+            lo=cfg.param_lo, hi=cfg.param_hi, iters=cfg.mstep_iters,
+            graphs=self._graphs)
         centers, labels, xbar, xxT, cnt, guesses, solved0 = (
             _to_numpy(t) for t in (centers_d, labels_d, xbar_d, xxT_d, cnt_d,
                                    guesses_d, solved_d))
@@ -529,6 +587,7 @@ class PhyloHMRF:
         self.means_ = centers.copy()
         cv = np.cov(X.T) + cfg.min_covar * np.eye(self.n_features)
         self.covars_ = np.tile(cv, (K, 1, 1))
+        self._moments_dev = None    # iteration 0 reads the host init
         self.init_ou_params = self._fit_init_params(centers, pre)
         self.params_vec = self.init_ou_params.copy()
         self.labels_local = [r.labels_to_grid(labels[s0:s1])
@@ -550,7 +609,8 @@ class PhyloHMRF:
                 solved, _ = _init_solve(
                     self._dev(guesses), self._dev(xbar), self._dev(xxT),
                     cfg.min_covar, tt=self._tt, lo=cfg.param_lo,
-                    hi=cfg.param_hi, iters=cfg.mstep_iters)
+                    hi=cfg.param_hi, iters=cfg.mstep_iters,
+                    graphs=self._graphs)
                 solved = np.asarray(_to_numpy(solved), np.float64)
             bad = []
             for c in range(K):
@@ -576,12 +636,24 @@ class PhyloHMRF:
     # E-step
     # ------------------------------------------------------------------
 
-    def estep(self, means, covars, warm_grids, exact_method=None):
+    def estep(self, means, covars, warm_grids, exact_method=None,
+              defer=False):
         """E-step over all buckets (on a mesh: over the shards, in the
         config's ``shard_mode``). Returns (label grids per region, as
         device tensors; per-region stats (post (R, K), obs (R, K, F),
         obs2 (R, K, F, F)); costs (R, 4); n_valid (R,)), the numbers in
         float64 numpy after one read-back for the whole E-step.
+
+        ``defer=True`` returns ``(label grids, collect)`` instead: the
+        read-back starts as an asynchronous copy into pinned host memory
+        behind a CUDA event, and ``collect()`` waits for it and returns
+        (stats, costs, n_valid). The pipelined fit enqueues the next
+        E-step against the M-step's device moments (``means`` / ``covars``
+        may be the device tensors of `mstep_dispatch`: they equal the host
+        mirrors' casts) before collecting; the numbers are the same either
+        way. Branches whose host work syncs anyway (the exact moves, the
+        host labelers, the exchanges across processes) still sync while
+        they run.
 
         ``exact_method`` ("swap" / "expansion") labels this call with exact
         graph-cut moves (a hybrid labeler's exact pass); the ``swap_tpu`` /
@@ -680,21 +752,31 @@ class PhyloHMRF:
                                      cv[:Rb].reshape(Rb, -1),
                                      nv[:Rb].reshape(Rb, 1)],
                                     dim=1).flatten())
-        host = (_to_numpy(torch.cat(packed)).astype(np.float64) if packed
-                else np.zeros(0))   # no regions: an empty share
-        cols = [K, K * F, K * F * F, 4, 1]
-        at = 0
-        for idxs, *_ in done:
-            block = host[at:at + len(idxs) * sum(cols)].reshape(len(idxs), -1)
-            at += block.size
-            p, o, o2, cv, nv = np.split(block, np.cumsum(cols)[:-1], axis=1)
-            for bi, ri in enumerate(idxs):
-                post[ri] = p[bi]
-                obs[ri] = o[bi].reshape(K, F)
-                obs2[ri] = o2[bi].reshape(K, F, F)
-                costs[ri] = cv[bi]
-                nvalid[ri] = nv[bi, 0]
-        return label_grids, (post, obs, obs2), costs, nvalid
+        # no regions (an empty share): nothing to read back
+        fetch = _HostCopy([torch.cat(packed)] if packed else [])
+
+        def collect():
+            host = (fetch.get()[0].astype(np.float64) if packed
+                    else np.zeros(0))
+            cols = [K, K * F, K * F * F, 4, 1]
+            at = 0
+            for idxs, *_ in done:
+                block = host[at:at + len(idxs) * sum(cols)].reshape(
+                    len(idxs), -1)
+                at += block.size
+                p, o, o2, cv, nv = np.split(block, np.cumsum(cols)[:-1],
+                                            axis=1)
+                for bi, ri in enumerate(idxs):
+                    post[ri] = p[bi]
+                    obs[ri] = o[bi].reshape(K, F)
+                    obs2[ri] = o2[bi].reshape(K, F, F)
+                    costs[ri] = cv[bi]
+                    nvalid[ri] = nv[bi, 0]
+            return (post, obs, obs2), costs, nvalid
+
+        if defer:
+            return label_grids, collect
+        return (label_grids, *collect())
 
     def _exact_labels_all(self, means, covars, warm_grids,
                           method: str = "swap",
@@ -791,13 +873,21 @@ class PhyloHMRF:
         every process's rows in ``parallel/multiproc.py``)."""
         return costs.T @ ratio_vec
 
+    def _upload(self, a) -> torch.Tensor:
+        """Host array ``a`` on the model's device in the model dtype; on
+        CUDA an asynchronous copy from pinned memory (no host sync)."""
+        if self.device.type != "cuda":
+            return self._dev(a)
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=self._np_dtype))
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _solve_full_dev(self, guess, post, obs, obs2):
         cfg = self.cfg
         return _mstep_solve_full(
-            self._dev(guess), self._dev(post), self._dev(obs),
-            self._dev(obs2), float(self.n_samples_total), cfg.lambda_0,
+            self._upload(guess), self._upload(post), self._upload(obs),
+            self._upload(obs2), float(self.n_samples_total), cfg.lambda_0,
             cfg.min_covar, tt=self._tt, lo=cfg.param_lo, hi=cfg.param_hi,
-            iters=cfg.mstep_iters)
+            iters=cfg.mstep_iters, graphs=self._graphs)
 
     def _moments_np(self, params):
         """OU moments of ``params`` with the jitter added in the model
@@ -809,25 +899,52 @@ class PhyloHMRF:
         return (np.asarray(_to_numpy(means), np.float64),
                 np.asarray(_to_numpy(covars), np.float64))
 
-    def mstep(self, stats) -> np.ndarray:
-        """Solve all states, accept the valid ones, retry the others with a
-        fresh blended guess, and fall back to the init params."""
-        cfg = self.cfg
+    def mstep_dispatch(self, stats) -> dict:
+        """Enqueue the attempt-0 M-step solve and return a handle for
+        `mstep_finalize`, without waiting for the device: on CUDA the
+        inputs go up from pinned memory, the captured solve and the
+        moments are replayed, and the results start down into pinned
+        memory behind a CUDA event. The solve's device moments are
+        published at once in ``self._moments_dev``, so the caller may
+        enqueue the next E-step against them before their validity is
+        known (`mstep_finalize` rolls that back when a state failed)."""
         post, obs, obs2 = self._global_stats(stats)
+        out = self._solve_full_dev(self._blend_guess(), post, obs, obs2)
+        self._moments_dev = (out[2], out[3])
+        return {"fetch": _HostCopy(out), "stats": (post, obs, obs2)}
+
+    def mstep_finalize(self, handle) -> bool:
+        """Wait for the dispatched solve, accept the valid states, retry
+        the others with a fresh blended guess, and fall back to the init
+        params. Returns True when the speculation was rolled back (some
+        state failed attempt 0): ``_moments_dev``, ``means_``,
+        ``covars_`` and ``params_vec`` are then corrected, and an E-step
+        enqueued against the published moments must be enqueued again."""
+        cfg = self.cfg
+        post, obs, obs2 = handle["stats"]
         params = self.params_vec.copy()
         pending = np.ones(self.n_states, dtype=bool)
+        rolled_back = False
         fused_moments = None
         for attempt in range(cfg.mstep_retries):
-            out = self._solve_full_dev(self._blend_guess(), post, obs, obs2)
-            solved, valid, means_d, covars_d = (_to_numpy(t) for t in out)
+            if attempt == 0:
+                got = handle["fetch"].get()
+            else:
+                got = [_to_numpy(t) for t in self._solve_full_dev(
+                    self._blend_guess(), post, obs, obs2)]
+            solved, valid, means_d, covars_d = got
             solved = np.asarray(solved, np.float64)
             valid = np.asarray(valid, bool)
             take = pending & valid
             params[take] = solved[take]
-            if attempt == 0 and valid.all():
-                # every state accepted this very solve: its moments stand
-                fused_moments = (np.asarray(means_d, np.float64),
-                                 np.asarray(covars_d, np.float64))
+            if attempt == 0:
+                if valid.all():
+                    # every state accepted this very solve: its moments
+                    # stand
+                    fused_moments = (np.asarray(means_d, np.float64),
+                                     np.asarray(covars_d, np.float64))
+                else:
+                    rolled_back = True
             pending = pending & ~valid
             if not pending.any():
                 break
@@ -839,6 +956,16 @@ class PhyloHMRF:
             self.means_, self.covars_ = fused_moments
         else:
             self.means_, self.covars_ = self._moments_np(params)
+            # the model-dtype casts of the float64 mirrors are the device
+            # values exactly
+            self._moments_dev = (self._dev(self.means_),
+                                 self._dev(self.covars_))
+        return rolled_back
+
+    def mstep(self, stats) -> np.ndarray:
+        """`mstep_dispatch`, then `mstep_finalize`: the sequential
+        M-step."""
+        self.mstep_finalize(self.mstep_dispatch(stats))
         return self.params_vec
 
     # ------------------------------------------------------------------
@@ -850,7 +977,9 @@ class PhyloHMRF:
             resume: bool = False, patience: int | None = None,
             track_states: bool = False, monitor=None,
             cost_log: str | None = None) -> FitResult:
-        """The sequential EM loop of the JAX engine's ``fit``.
+        """The EM loop of the JAX engine's ``fit``: pipelined with
+        ``em_pipeline`` (the default), else sequential; both give the
+        same fit, bitwise.
 
         With ``checkpoint_path``, the EM state is saved after the M-step of
         every ``checkpoint_every``-th iteration: the per-iteration rows go
@@ -928,13 +1057,23 @@ class PhyloHMRF:
                            abs((last[2] - before[2]) / before[2]))
         self.hybrid_exact_iters_ = []
         self.exact_stats_ = []
+        self._mstep_rollbacks_ = 0
+        # the first E-step reads the host moments (the init's, a resumed
+        # or imported state's)
+        self._moments_dev = None
+        # the host labelers read the float64 host moments (the C++ moves on
+        # `_gauss_logpdf_np`); every other route casts to the model dtype,
+        # which the device twins of `mstep_dispatch` equal
+        use_dev_moments = cfg.labeler not in ("swap", "expansion")
 
         def _exact_for(it_n):
             """A hybrid labeler's exact pass at iteration ``it_n``: when the
             period comes up, when either stop rule is within 3x of its
             threshold (so the run cannot converge on the fast labeler's
             fixed point), or while cost1 still moves by more than
-            ``hybrid_exact_hi``. None: the fast labeler."""
+            ``hybrid_exact_hi``. None: the fast labeler. Pure in the loop
+            state, so the speculative dispatch of iteration ``it_n`` and
+            the top of that iteration decide alike."""
             if self._hybrid is None:
                 return None
             method, period = self._hybrid
@@ -944,15 +1083,56 @@ class PhyloHMRF:
                 return method
             return None
 
+        def _dispatch_estep(exact_method):
+            if use_dev_moments and self._moments_dev is not None:
+                means, covars = self._moments_dev
+            else:
+                means, covars = self.means_, self.covars_
+            n_exact = len(self.exact_stats_)
+            grids, collect = self.estep(means, covars, self.labels_local,
+                                        exact_method=exact_method,
+                                        defer=True)
+            return grids, collect, n_exact
+
+        # the E-step / M-step pipeline of the JAX engine: iteration i+1's
+        # E-step is enqueued against the M-step's unverified device
+        # moments before the host waits for the M-step's results, so that
+        # wait and the host's bookkeeping overlap device work. The values
+        # are the sequential loop's; an invalid attempt-0 solve rolls the
+        # speculative E-step back (`mstep_finalize`) and it is enqueued
+        # again.
+        pending_estep = None    # (it, exact_method, grids, collect, n_exact)
+        pending_mstep = None    # the handle of `mstep_dispatch`
+
+        def _finalize_pending_mstep():
+            nonlocal pending_mstep, pending_estep
+            if pending_mstep is None:
+                return
+            with self.timer.phase("mstep"):
+                rolled = self.mstep_finalize(pending_mstep)
+            pending_mstep = None
+            if rolled:
+                # the speculative E-step read stale moments: drop it (and
+                # the cut statistics it logged)
+                self._mstep_rollbacks_ += 1
+                if pending_estep is not None:
+                    del self.exact_stats_[pending_estep[4]:]
+                pending_estep = None
+
         for it in range(it_start, cfg.max_iter):
             exact_method = _exact_for(it)
             if exact_method is not None:
                 self.hybrid_exact_iters_.append(it)
+            _finalize_pending_mstep()
             t0 = time.time()
             with self.timer.phase("estep"):
-                label_grids, stats, costs, _ = self.estep(
-                    self.means_, self.covars_, self.labels_local,
-                    exact_method=exact_method)
+                if (pending_estep is not None
+                        and pending_estep[:2] == (it, exact_method)):
+                    label_grids, collect = pending_estep[2:4]
+                else:
+                    label_grids, collect, _ = _dispatch_estep(exact_method)
+                pending_estep = None
+                stats, costs, _ = collect()
             t1 = time.time()
 
             # the accumulated "pairwise_cost" that drives convergence and
@@ -1006,14 +1186,26 @@ class PhyloHMRF:
 
             t2 = time.time()
             with self.timer.phase("mstep"):
-                self.mstep(stats)
+                pending_mstep = self.mstep_dispatch(stats)
+            if cfg.em_pipeline and use_dev_moments and it + 1 < cfg.max_iter:
+                # the next E-step, enqueued behind the solve. The host
+                # labelers cannot speculate: they read the float64 host
+                # moments, which exist only after `mstep_finalize`
+                nxt_exact = _exact_for(it + 1)
+                with self.timer.phase("estep"):
+                    pending_estep = (it + 1, nxt_exact,
+                                     *_dispatch_estep(nxt_exact))
+            else:
+                _finalize_pending_mstep()
             if verbose:
                 print(f"[iter {it:3d}] mstep={time.time() - t2:.2f}s")
 
             if (checkpoint_path is not None
                     and (it + 1) % checkpoint_every == 0):
-                # the post-M-step state; only the rows added since the last
-                # save go to the sidecar, then the npz points at them
+                # the post-M-step state (params, moments, RNG): the pending
+                # M-step is finalized first. Only the rows added since the
+                # last save go to the sidecar, then the npz points at them
+                _finalize_pending_mstep()
                 hist_offset = ckpt.append_history(
                     checkpoint_path, hist_pending, truncate_to=hist_offset)
                 hist_pending = []
@@ -1030,9 +1222,14 @@ class PhyloHMRF:
                      "hist_states": bool(track_states)},
                     extra)
 
+        # a pending M-step still finalizes, so the model's state (params,
+        # moments, RNG stream) is the sequential loop's
+        _finalize_pending_mstep()
+
         # restore: params_vec1 = best-from-3; moments from the overall best
         self.params_vec = params_best1.copy()
         self.means_, self.covars_ = self._moments_np(params_best)
+        self._moments_dev = None
 
         if cfg.final_polish and cfg.labeler not in EXACT_LABELERS:
             # one exact graph-cut pass over the best-iteration labels under
@@ -1074,6 +1271,7 @@ class PhyloHMRF:
             self.cfg = cfg0
         self.params_vec = result.params_vec1.copy()
         self.means_, self.covars_ = self._moments_np(result.params_vec1)
+        self._moments_dev = None
         return dataclasses.replace(result, means=self.means_.copy(),
                                    covars=self.covars_.copy())
 
@@ -1152,6 +1350,31 @@ class PhyloHMRF:
             return np.zeros(0, np.int32)
         return np.concatenate([r.labels_to_flat(_to_numpy(g))
                                for r, g in zip(self.regions, grids)])
+
+
+class _HostCopy:
+    """A read-back of ``tensors`` under way: on CUDA the copies into fresh
+    pinned host buffers start at construction, behind one CUDA event, and
+    `get` waits for the event and returns numpy arrays (views of the
+    buffers, which nothing else reuses); on the CPU `get` copies."""
+
+    def __init__(self, tensors):
+        self._tensors = list(tensors)
+        self._event = None
+        if self._tensors and self._tensors[0].device.type == "cuda":
+            self._host = [torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True) for t in tensors]
+            for h, t in zip(self._host, self._tensors):
+                h.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(
+                torch.cuda.current_stream(self._tensors[0].device))
+
+    def get(self) -> list:
+        if self._event is None:
+            return [_to_numpy(t) for t in self._tensors]
+        self._event.synchronize()
+        return [h.numpy() for h in self._host]
 
 
 def _host_labels(grid) -> np.ndarray:

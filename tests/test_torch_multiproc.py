@@ -87,7 +87,7 @@ def fit_worker(args):
     cfg = PhyloHMRFConfig(n_states=K, seed=1, max_iter=args.miter,
                           min_iter=99, threshold=0, patience=99,
                           mstep_iters=25, pad_h=8, pad_w=8,
-                          final_polish=False,
+                          final_polish=False, em_pipeline=not args.sequential,
                           shard_mode="spatial" if args.spatial else "region")
     # with --spatial each process row-shards its own regions over its own
     # mesh: per-process halo sharding x cross-process data parallelism
@@ -215,6 +215,8 @@ def worker_main(argv=None):
                     help="PHMRF_COLLECTIVE_TIMEOUT_S for this worker")
     ap.add_argument("--init", choices=["fixed", "kmeans"], default="fixed")
     ap.add_argument("--spatial", action="store_true")
+    ap.add_argument("--sequential", action="store_true",
+                    help="em_pipeline=False: the sequential EM loop")
     ap.add_argument("--devices", type=int, default=1,
                     help="CPU shards of this process's mesh (--spatial)")
     ap.add_argument("--pkg", choices=["torch", "jax"], default="torch")
