@@ -309,26 +309,31 @@ def check_k1(x, beta=1.0):
 def check_k2(x, beta=1.0):
     """K2 (the tile kernel) on the operands ``x``: one sweep pair at row
     parities 0 and 1, labels identical to the 8 chained phase launches and
-    to the plain version, the changed flag that of the labels; the row of
+    to the plain version, the loop word's GO that of the labels, and a
+    pair whose loop has stopped passing the labels through; the row of
     one pair, timed beside the chained route and the plain version."""
     import torch
 
     from phylo_hmrf_tpu_torch.ops.icm_kernels import (
         icm_sweep_pair, icm_sweep_pair_chained, icm_tile_plan)
+    from phylo_hmrf_tpu_torch.ops.loops import LOOP_GO, new_loop
 
     R, K, H, W = x["unary_k"].shape
     lab0 = torch.where(x["mask"], x["warm"], 0).to(torch.int32).contiguous()
     k2 = (lab0, x["unary_k"], x["w"], x["mask_i"], beta)
-    flag = torch.zeros((), dtype=torch.int32, device=lab0.device)
     for ro in (0, 1):
-        got = icm_sweep_pair(*k2, row_offset=ro, flag=flag, tag=ro + 1)
+        loop = new_loop(lab0.device)
+        got = icm_sweep_pair(*k2, row_offset=ro, loop=loop)
         want = icm_sweep_pair_chained(*k2, row_offset=ro)
         _check(torch.equal(got, want),
                f"K2 at K={K}, row offset {ro}: "
                f"{int((got != want).sum())} labels differ from the chained "
                "phases")
-        _check((int(flag) == ro + 1) == bool(torch.any(want != lab0)),
-               "K2: the changed flag differs from the labels'")
+        _check(bool(loop[LOOP_GO]) == bool(torch.any(want != lab0)),
+               "K2: the loop word differs from the labels'")
+        loop[LOOP_GO] = 0
+        _check(torch.equal(icm_sweep_pair(*k2, row_offset=ro, loop=loop),
+                           lab0), "K2: a stopped pair changed the labels")
         ref = icm_sweep_pair(*k2, row_offset=ro, plain=True)
         _check(torch.equal(got, ref),
                f"K2 sweep pair: {int((got != ref).sum())} labels differ "
@@ -645,6 +650,19 @@ def _cut_cost(side, excess, cap_t, caps):
     return float(c)
 
 
+def _loop_ms(fn, device):
+    """The device time of one unit launched as a step of a loop (its loop
+    word updated by the last block), queued as ``ms`` is; the word must
+    still say the loop goes on after the timing (no launch passed its
+    input through)."""
+    from phylo_hmrf_tpu_torch.ops.loops import LOOP_GO, new_loop
+
+    word = new_loop(device)
+    ms = _time_ms(lambda: fn(word), queued=True)
+    _check(bool(word[LOOP_GO]), "a timed loop step found its loop stopped")
+    return ms
+
+
 def check_mincut(x, n_states, beta=1.0):
     """K5 and K6 against their plain versions on the graph of the chr21
     expansion move with the most pixels in play (from the K1-K3 start),
@@ -655,6 +673,7 @@ def check_mincut(x, n_states, beta=1.0):
     import torch
 
     from phylo_hmrf_tpu_torch.ops import maxflow as mf
+    from phylo_hmrf_tpu_torch.ops.loops import LOOP_GO, new_loop
     from phylo_hmrf_tpu_torch.ops.mincut_kernels import (
         EPS, bfs_sweeps, bfs_sweeps_plain, pr_iterations,
         pr_iterations_plain)
@@ -673,23 +692,30 @@ def check_mincut(x, n_states, beta=1.0):
     d0 = torch.where(cap_t0 > EPS, 1, n).to(torch.int32).contiguous()
     out = {}
 
-    # K6: 8 Jacobi sweeps in one launch, bitwise, with the plain result's
-    # changed flag; then the fixpoint: identical distances
-    flag = torch.zeros((), dtype=torch.int32, device=d0.device)
-    d8, _ = bfs_sweeps(d0, caps0, n, n_inner=8, flag=flag, tag=7)
+    # K6: 8 Jacobi sweeps in one launch, bitwise, the loop word's GO that
+    # of the plain result, a launch of a stopped loop passing d through;
+    # then the fixpoint (its graph, its host loop): identical distances
+    loop = new_loop(d0.device)
+    d8, _ = bfs_sweeps(d0, caps0, n, n_inner=8, loop=loop)
     want = bfs_sweeps_plain(d0, caps0, n, 8)
     _check(torch.equal(d8, want), "K6: 8 sweeps differ from the plain version")
-    _check((int(flag) == 7) == bool(torch.any(want != d0)),
-           "K6: the changed flag differs from the plain result's")
+    _check(bool(loop[LOOP_GO]) == bool(torch.any(want != d0)),
+           "K6: the loop word differs from the plain result's")
+    loop[LOOP_GO] = 0
+    _check(torch.equal(bfs_sweeps(d0, caps0, n, n_inner=8, loop=loop)[0], d0),
+           "K6: a stopped launch changed the distances")
     fix = mf._bfs_fixpoint(d0.clone(), caps0, n, False, None)
+    fix_h = mf._bfs_fixpoint(d0.clone(), caps0, n, False, None,
+                             host_loop=True)
     fix_p = mf._bfs_fixpoint(d0.clone(), caps0, n, True, None)
-    _check(torch.equal(fix, fix_p),
+    _check(torch.equal(fix, fix_p) and torch.equal(fix_h, fix_p),
            f"K6 fixpoint: {int((fix != fix_p).sum())} distances differ")
     out["K6_bfs_sweeps"] = dict(
         max_abs_err=float((d8 - want).abs().max()),
-        **_timed(lambda: bfs_sweeps(d0, caps0, n, n_inner=8, out=d8,
-                                    flag=flag),
+        **_timed(lambda: bfs_sweeps(d0, caps0, n, n_inner=8, out=d8),
                  lambda: bfs_sweeps_plain(d0, caps0, n, 8)),
+        loop_ms=_loop_ms(lambda w: bfs_sweeps(d0, caps0, n, n_inner=8,
+                                              out=d8, loop=w), d0.device),
         unit="8 BFS sweeps", launches_per_unit=1,
         tolerance="identical int32 distances",
         reachable=int((fix < n).sum()),
@@ -700,46 +726,62 @@ def check_mincut(x, n_states, beta=1.0):
     # with round-to-nearest intrinsics: bitwise, with the plain result's
     # active flag
     st = want = (excess0, fix, cap_t0, caps0)
-    for tag in (1, 2, 3):
-        st, _ = pr_iterations(*st, n, n_inner=4, flag=flag, tag=tag)
+    for call in (1, 2, 3):
+        loop = new_loop(d0.device)
+        st, _ = pr_iterations(*st, n, n_inner=4, loop=loop)
         want = pr_iterations_plain(*want, n, 4)
         diff = [int((a != b).sum()) for a, b in zip(st, want)]
-        _check(not any(diff), f"K5 call {tag}: values differ {diff}")
-        _check((int(flag) == tag) == bool(torch.any((want[0] > EPS)
-                                                    & (want[1] < n))),
-               "K5: the active flag differs from the plain result's")
+        _check(not any(diff), f"K5 call {call}: values differ {diff}")
+        _check(bool(loop[LOOP_GO]) == bool(torch.any((want[0] > EPS)
+                                                     & (want[1] < n))),
+               "K5: the loop word differs from the plain result's")
+    loop[LOOP_GO] = 0
+    _check(all(torch.equal(a, b) for a, b in zip(
+        pr_iterations(*st, n, n_inner=4, loop=loop)[0], st)),
+           "K5: a stopped launch changed the state")
     err = max(_max_abs(a, b) for a, b in zip(st, want))
     spare = tuple(torch.empty_like(t) for t in st)
     out["K5_pr_iterations"] = dict(
         max_abs_err=err, bitwise=True,
-        **_timed(lambda: pr_iterations(*st, n, n_inner=4, out=spare,
-                                       flag=flag),
+        **_timed(lambda: pr_iterations(*st, n, n_inner=4, out=spare),
                  lambda: pr_iterations_plain(excess0, fix, cap_t0, caps0, n,
                                              4)),
+        loop_ms=_loop_ms(lambda w: pr_iterations(*st, n, n_inner=4,
+                                                 out=spare, loop=w),
+                         d0.device),
         unit="4 push-relabel iterations", launches_per_unit=1,
         tolerance="bitwise e, h, cap_t, caps",
         nbytes=2 * _nbytes(excess0, fix, cap_t0, caps0),
         ops=4 * OPS_PR * R * H * W)
 
     # the whole min cut: with K5/K6 bitwise and the same schedule, the
-    # same cut and the same work on both paths
+    # same cut and the same work on the three routes (the graph reads the
+    # host once, for its counters; the host loop reads every test)
     runs = {}
-    for name, plain in (("kernel", False), ("plain", True)):
+    for name, kw in (("kernel", {}), ("host_loop", dict(host_loop=True)),
+                     ("plain", dict(plain=True))):
         stats = mf.CutStats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        side = mf.grid_mincut(excess0, cap_t0, caps0, plain=plain,
-                              stats=stats)
+        side = mf.grid_mincut(excess0, cap_t0, caps0, stats=stats, **kw)
         torch.cuda.synchronize()
         runs[name] = (side, time.perf_counter() - t0, stats)
-    _check(torch.equal(runs["kernel"][0], runs["plain"][0]),
-           "min cut: the kernel path's cut differs from the plain path's")
-    _check(runs["kernel"][2] == runs["plain"][2],
-           f"min cut: the paths did different work: {runs}")
+    for name in ("kernel", "host_loop"):
+        _check(torch.equal(runs[name][0], runs["plain"][0]),
+               f"min cut: the {name} route's cut differs from the plain "
+               "path's")
+        _check(dataclasses.replace(runs[name][2], host_reads=0)
+               == dataclasses.replace(runs["plain"][2], host_reads=0),
+               f"min cut: the routes did different work: {runs}")
+    _check(runs["kernel"][2].host_reads == 1
+           and runs["host_loop"][2].host_reads
+           == runs["plain"][2].host_reads, "min cut: host reads")
     cost = _cut_cost(runs["kernel"][0], excess0, cap_t0, caps0)
     cut = dict(alpha=alpha, in_play=in_play[alpha], cost=cost,
-               kernel_s=runs["kernel"][1], plain_s=runs["plain"][1],
-               stats=dataclasses.asdict(runs["kernel"][2]))
+               kernel_s=runs["kernel"][1], host_loop_s=runs["host_loop"][1],
+               plain_s=runs["plain"][1],
+               stats=dataclasses.asdict(runs["kernel"][2]),
+               host_loop_stats=dataclasses.asdict(runs["host_loop"][2]))
     return out, cut, start
 
 
@@ -767,7 +809,8 @@ def check_polish_paths(x, start, n_states, beta=1.0):
     _check(torch.equal(runs["kernel"][0], runs["plain"][0]),
            "polish: the kernel path's labels differ from the plain path's: "
            f"{int((runs['kernel'][0] != runs['plain'][0]).sum())} pixels")
-    _check(runs["kernel"][2] == runs["plain"][2],
+    _check(dataclasses.replace(runs["kernel"][2], host_reads=0)
+           == dataclasses.replace(runs["plain"][2], host_reads=0),
            "polish: the paths did different work")
     return dict(max_cycles=1, identical_labels=True,
                 relabeled=int((runs["kernel"][0] != start).sum()),
@@ -779,37 +822,225 @@ def profile_polish(x, start, n_states, max_cycles, beta=1.0,
                    method="expansion"):
     """One `_optimize_batched` pass of ``method`` moves from the chr21
     start (the fit's polish cycles; with "swap", a ``swap_tpu`` E-step's
-    moves) under ``torch.profiler``: device busy seconds, the idle share
-    against an unprofiled run's wall, K5 and K6 device ms by kernel name,
-    the kernel count, host reads per move."""
+    moves) under ``torch.profiler``, on the graph route and on the host
+    loop: device busy seconds, the idle share against an unprofiled run's
+    wall, K5 and K6 device ms and launches by kernel name (beside the
+    graph's own count of its K5 / K6 launches), the kernel count, host
+    reads a pass and a move."""
     import torch
 
+    from phylo_hmrf_tpu_torch.ops import loops
     from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, _optimize_batched
 
-    stats = CutStats()
+    out = {}
+    for route in ("graph", "host_loop"):
+        stats = CutStats()
 
-    def run(st=None):
-        return _optimize_batched(x["unary_k"], x["w"], x["mask"], start,
-                                 beta, n_states, method, max_cycles,
-                                 stats=st)
+        def run(st=None):
+            return _optimize_batched(x["unary_k"], x["w"], x["mask"], start,
+                                     beta, n_states, method, max_cycles,
+                                     host_loop=route == "host_loop",
+                                     stats=st)
+        run()     # the graphs are built (the first pass of a shape)
+        torch.cuda.synchronize()
+        with _graph_spans() as spans:
+            t0 = time.perf_counter()
+            run(stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        in_graphs = _graph_kernels()
+        busy, n, by_name = _device_busy_s(run)
+        now = _graph_kernels()
+        k5 = [v for k, v in by_name.items() if "pr_tile_kernel" in k]
+        k6 = [v for k, v in by_name.items() if "bfs_tile_kernel" in k]
+        # the profiler records some of the kernels a WHILE body runs, not
+        # all: the graphs' device time is their launches' event spans
+        graph_s = spans.seconds()
+        outside = sum(v[0] for k, v in by_name.items()
+                      if route == "host_loop"
+                      or not k.startswith(IN_GRAPH)) * 1e-6
+        busy_all = outside + graph_s
+        out[route] = dict(
+            wall_s=wall, device_busy_s=busy_all, kernels=n,
+            graph_span_s=graph_s, outside_graphs_busy_s=outside,
+            profiler_busy_s=busy,
+            idle_share=max(0.0, 1.0 - busy_all / wall),
+            k5_device_ms=sum(v[0] for v in k5) * 1e-3,
+            k5_launches=sum(v[1] for v in k5),
+            k6_device_ms=sum(v[0] for v in k6) * 1e-3,
+            k6_launches=sum(v[1] for v in k6),
+            graph_k5_launches=now["K5"] - in_graphs["K5"],
+            graph_k6_launches=now["K6"] - in_graphs["K6"],
+            moves=stats.moves, host_reads=stats.host_reads,
+            host_reads_per_move=stats.host_reads / stats.moves,
+            pr_iterations_per_move=stats.pr_iterations / stats.moves,
+            bfs_sweeps_per_move=stats.bfs_sweeps / stats.moves)
+    out["graph_builds"] = dict(loops.stats)
+    return out
+
+
+# kernels that run inside the loop graphs (csrc/loops.cu and the node
+# makers of mincut.cu / icm.cu), by the start of their names
+IN_GRAPH = ("void pr_tile_kernel", "void bfs_tile_kernel", "pr_tile_kernel",
+            "bfs_tile_kernel", "icm_pair_kernel", "cut_", "bfs_begin",
+            "bfs_cond", "icm_begin", "icm_cond")
+
+
+class _graph_spans:
+    """Context: CUDA events recorded around every loop-graph launch; then
+    ``seconds()`` sums their device spans (each launch's time on the card,
+    its nodes' launch latency included)."""
+
+    def __enter__(self):
+        import torch
+
+        from phylo_hmrf_tpu_torch.ops import loops
+
+        self._orig, self.pairs = loops._Graph.launch, []
+
+        def launch(graph, like):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            self._orig(graph, like)
+            b.record()
+            self.pairs.append((a, b))
+        loops._Graph.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        from phylo_hmrf_tpu_torch.ops import loops
+
+        loops._Graph.launch = self._orig
+
+    def seconds(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs) * 1e-3
+
+
+def _same_work(a, b):
+    import dataclasses
+
+    return dataclasses.replace(a, host_reads=0) == dataclasses.replace(
+        b, host_reads=0)
+
+
+def check_cut_loops(x, start, n_states, cycles, beta=1.0):
+    """``[cut_loops]``: the loops of the exact cut and of ICM as CUDA
+    graphs (``ops/loops.py``) against the host-read loops (``host_loop``)
+    on the chr21 problem: the polish's moves (expansion, ``cycles``
+    cycles from the K1-K3 start) and a ``swap_tpu`` E-step's moves
+    (swap), each run host, graph, graph, host in this process: labels
+    bitwise, the same ``CutStats`` but host reads, which the graph route
+    holds to 1 + cycles a pass and 0 inside a move; walls; then
+    ``icm_kmajor`` on the graph route under
+    ``torch.cuda.set_sync_debug_mode("error")``, bitwise its host loop,
+    timed in turns; the graphs built and their seconds; the CUDA
+    driver's version."""
+    import dataclasses
+
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops import loops
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
+    from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, _optimize_batched
+
+    rec = dict(driver_version=loops.driver_version(),
+               route="A: conditional WHILE nodes")
+    for what, method in (("polish", "expansion"), ("swap_tpu", "swap")):
+        runs = {"graph": [], "host_loop": []}
+        for route in ("host_loop", "graph", "graph", "host_loop"):
+            stats = CutStats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lab = _optimize_batched(
+                x["unary_k"], x["w"], x["mask"], start, beta, n_states,
+                method, cycles, host_loop=route == "host_loop", stats=stats)
+            torch.cuda.synchronize()
+            runs[route].append((lab, time.perf_counter() - t0, stats))
+        ref_lab, _, ref = runs["host_loop"][0]
+        for route, rs in runs.items():
+            for lab, _, st in rs:
+                _check(torch.equal(lab, ref_lab),
+                       f"[cut_loops] {what}: the {route} route's labels "
+                       f"differ in {int((lab != ref_lab).sum())} pixels")
+                _check(_same_work(st, ref), f"[cut_loops] {what}: the "
+                       f"{route} route did other work: {st} vs {ref}")
+        graph = runs["graph"][-1][2]
+        loop_reads = ref.moves + ref.pr_iterations // 4 \
+            + ref.bfs_sweeps // 8
+        n_cycles = ref.host_reads - loop_reads - 1
+        _check(graph.host_reads == 1 + n_cycles,
+               f"[cut_loops] {what}: {graph.host_reads} host reads on the "
+               f"graph route, {n_cycles} cycles")
+        rec[what] = dict(
+            method=method, cycles=n_cycles, bitwise=True,
+            graph_s=[r[1] for r in runs["graph"]],
+            host_loop_s=[r[1] for r in runs["host_loop"]],
+            host_reads_graph=graph.host_reads,
+            host_reads_host_loop=ref.host_reads,
+            host_reads_per_move_graph=0,
+            host_reads_per_move_host_loop=loop_reads / ref.moves,
+            stats=dataclasses.asdict(graph))
+
+    args = (x["unary_k"], x["w"], x["mask"], x["warm"], beta, 60)
+    want = icm_kmajor(*args, host_loop=True)
+    icm_kmajor(*args)        # the shape's graph, built
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = icm_kmajor(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _check(torch.equal(got, want), "[cut_loops] icm_kmajor: the graph's "
+           f"labels differ in {int((got != want).sum())} pixels")
+    walls = {"graph": [], "host_loop": []}
+    for route in ("host_loop", "graph", "graph", "host_loop"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        icm_kmajor(*args, host_loop=route == "host_loop")
+        torch.cuda.synchronize()
+        walls[route].append(time.perf_counter() - t0)
+    rec["icm"] = dict(bitwise=True, sync_debug_error_ok=True,
+                      graph_s=walls["graph"],
+                      host_loop_s=walls["host_loop"])
+    rec["graph_builds"] = dict(loops.stats)
+    return rec
+
+
+def estep_queues(model):
+    """Whether ``estep(..., defer=True)`` of the [fit] model (``mf_icm``)
+    enqueues its work with no synchronization (it runs under
+    ``set_sync_debug_mode("error")``), and the host seconds of the enqueue
+    beside those of the collect."""
+    import torch
+
+    means, covs = model._dev(model.means_), model._dev(model.covars_)
+    warm = [torch.as_tensor(g, device=model.device).clone()
+            for g in model.labels_local]
+    model.estep(means, covs, warm, defer=True)[1]()    # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run(stats)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, collect = model.estep(means, covs, warm, defer=True)
+        queued, err = True, None
+    except RuntimeError:    # a synchronizing call inside the E-step
+        import traceback
+
+        queued, collect = False, None
+        err = traceback.format_exc().splitlines()[-9:]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    enqueue_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if collect is not None:
+        collect()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    busy, n, by_name = _device_busy_s(run)
-    k5 = [v for k, v in by_name.items() if "pr_tile_kernel" in k]
-    k6 = [v for k, v in by_name.items() if "bfs_tile_kernel" in k]
-    return dict(
-        wall_s=wall, device_busy_s=busy, kernels=n,
-        idle_share=max(0.0, 1.0 - busy / wall),
-        k5_device_ms=sum(v[0] for v in k5) * 1e-3,
-        k5_launches=sum(v[1] for v in k5),
-        k6_device_ms=sum(v[0] for v in k6) * 1e-3,
-        k6_launches=sum(v[1] for v in k6),
-        moves=stats.moves, host_reads_per_move=stats.host_reads / stats.moves,
-        pr_iterations_per_move=stats.pr_iterations / stats.moves,
-        bfs_sweeps_per_move=stats.bfs_sweeps / stats.moves)
+    return dict(queued_without_sync=queued, error=err, enqueue_s=enqueue_s,
+                collect_s=time.perf_counter() - t0)
 
 
 def check_oracle(x, region, start, n_states, max_cycles, beta=1.0,
@@ -895,8 +1126,10 @@ def check_estep(x, dmaps, means, covs):
 
 
 def _counters():
-    """The launch counter of every kernel wrapper, by kernel name."""
-    from phylo_hmrf_tpu_torch.ops import finish_kernels, icm_kernels
+    """The launch counter of every kernel wrapper, by kernel name, and of
+    every loop graph (its launches, host side: the K2, K5 and K6 launches
+    inside a graph are counted on the card, `_graph_kernels`)."""
+    from phylo_hmrf_tpu_torch.ops import finish_kernels, icm_kernels, loops
     from phylo_hmrf_tpu_torch.ops import mf_kernels, mincut_kernels
 
     return {"K1_mf_sweep": mf_kernels.mf_sweeps,
@@ -906,7 +1139,42 @@ def _counters():
             "K5_pr_iterations": mincut_kernels.pr_iterations,
             "K6_bfs_sweeps": mincut_kernels.bfs_sweeps,
             "K7_mf_sweeps_halo": mf_kernels.mf_sweeps_halo,
-            "K8_icm_sweep_halo": icm_kernels.icm_sweep_halo_}
+            "K8_icm_sweep_halo": icm_kernels.icm_sweep_halo_,
+            "G_icm_loop": loops.run_icm, "G_cut_loop": loops.run_cut,
+            "G_bfs_loop": loops.run_bfs}
+
+
+# the loop graph that launches a kernel on the card, and the kernel's
+# name in loops.kernel_launches()
+GRAPH_OF = {"K2_icm_phase": ("G_icm_loop", "K2"),
+            "K5_pr_iterations": ("G_cut_loop", "K5"),
+            "K6_bfs_sweeps": ("G_cut_loop", "K6")}
+
+
+def _ran(launches, name):
+    """Whether kernel ``name`` ran: launched by its wrapper, or by a
+    launch of the loop graph that holds it."""
+    graph = GRAPH_OF.get(name, (None,))[0]
+    return launches.get(name, 0) + launches.get(graph, 0) > 0
+
+
+def _graph_kernels():
+    """The K2, K5 and K6 launches made inside loop graphs so far, read
+    from the graphs' counters on the card (a read per graph)."""
+    from phylo_hmrf_tpu_torch.ops import loops
+
+    return loops.kernel_launches()
+
+
+def _add_graph_kernels(launches, before):
+    """``launches`` (by kernel) with the K2 / K5 / K6 launches made inside
+    loop graphs since ``before`` (`_graph_kernels`) added."""
+    now = _graph_kernels()
+    out = dict(launches)
+    for name, (_, key) in GRAPH_OF.items():
+        out[name] = out.get(name, 0) + now[key] - before[key]
+        out[f"in_graphs:{name}"] = now[key] - before[key]
+    return out
 
 
 def _sha(a):
@@ -974,6 +1242,7 @@ def fit_model(tree, regions, cfg, device=None, mesh=None, state=None,
 
     model = PhyloHMRF(tree, regions, cfg, mesh=mesh, device=device)
     counters = _counters()
+    in_graphs = _graph_kernels()
     if count_init:
         for fn in counters.values():
             fn.launches = 0
@@ -1012,7 +1281,8 @@ def fit_model(tree, regions, cfg, device=None, mesh=None, state=None,
             fn.launches = 0
     res = model.fit(verbose=True, callback=lambda m, it, row, g: grids.append(
         [x.clone() for x in g]))
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _add_graph_kernels(
+        {k: fn.launches for k, fn in counters.items()}, in_graphs)
     return types.SimpleNamespace(res=res, model=model, launches=launches,
                                  grids=grids, state=state, init_s=init_s,
                                  esteps=esteps)
@@ -2206,11 +2476,13 @@ def check_cli():
         counters = _counters()
         for fn in counters.values():
             fn.launches = 0
+        in_graphs = _graph_kernels()
         fills = filters.hole_fill.calls
         t0 = time.perf_counter()
         out_file = cli.main(CLI_FLAGS)
         wall = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = _add_graph_kernels(
+            {k: fn.launches for k, fn in counters.items()}, in_graphs)
         fills = filters.hole_fill.calls - fills
         for name in list(KERNELS)[:6]:
             _check(launches[name] > 0,
@@ -2321,7 +2593,7 @@ def check_bucket(dev, seeds=(0, 1)):
 
     (lab2, st2, c2, n2), bucket_s, launches = run(slice(None))
     for name in list(KERNELS)[:4]:
-        _check(launches.get(name, 0) > 0,
+        _check(_ran(launches, name),
                f"[bucket]: {name} not launched by the bucket's E-step")
     single_s = []
     for i in range(len(seeds)):
@@ -2385,11 +2657,14 @@ def cli_rank_main(argv) -> int:
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    in_graphs = _graph_kernels()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out_file = cli.main(argv)
-    rec.update(wall_s=time.perf_counter() - t0, out_file=out_file,
-               launches={k: fn.launches for k, fn in counters.items()},
+    wall = time.perf_counter() - t0
+    rec.update(wall_s=wall, out_file=out_file,
+               launches=_add_graph_kernels(
+                   {k: fn.launches for k, fn in counters.items()}, in_graphs),
                collective_calls=len(calls), collective_s=sum(calls),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     print(f"[rank] {json.dumps(rec)}")
@@ -2771,6 +3046,9 @@ def main() -> int:
     print(f"[oracle] K=20 {json.dumps(oracle20)}")
     del x20, start20
     print(f"[polish_paths] {json.dumps(check_polish_paths(x, start, K))}")
+    # the loops of the cut and of ICM on the card against the host loops
+    print(f"[cut_loops] "
+          f"{json.dumps(check_cut_loops(x, start, K, cycles))}")
 
     # the main path: the default single-device fit
     t0 = time.perf_counter()
@@ -2798,6 +3076,7 @@ def main() -> int:
     print(f"[postprocess] {json.dumps(check_postprocess(res, model, true))}")
     # the pipelined and the sequential EM loop, the captured solves
     pipe = check_pipeline(tree, region, run, fit_digests, dev)
+    pipe["estep_defer"] = estep_queues(model)
     print(f"[pipeline] {json.dumps(pipe)}")
     # every labeler of the port from the [fit] phase's init state, and
     # the host C++ swap against the device swap on a reduced region
@@ -2929,6 +3208,10 @@ def main() -> int:
               f"{lost:.1f} ms lost per fit")
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=path_launches[name],
+                         graph_loop=("phylo_hmrf_tpu_torch/csrc/loops.cu"
+                                     if name in GRAPH_OF else None),
+                         in_graph_launches=path_launches.get(
+                             f"in_graphs:{name}", 0),
                          max_abs_err=k["max_abs_err"], ms=k["ms"],
                          plain_ms=k["plain_ms"], bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None,

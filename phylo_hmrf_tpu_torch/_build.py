@@ -145,9 +145,9 @@ _SIGNATURES = {
     "phmrf_mf_halo_grid": [_I, _I],
     "phmrf_icm_halo_grid": [],
     # K2: labels, out, unary, w, mask, R, K, H, W, beta, row_parity, tile
-    #     rows, tile cols, threads, flag (may be null), tag, stream
+    #     rows, tile cols, threads, loop word (may be null), stream
     "phmrf_icm_pair": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
-                       _I, _P, _I, _P],
+                       _I, _P, _P],
     # K3: unary, mask, labels_a, labels_b (null: one labeling), w, partial,
     #     tickets, out, R, K, H, W, beta, stream
     "phmrf_potts_energy": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -157,11 +157,29 @@ _SIGNATURES = {
     "phmrf_finish_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _F, _F, _I, _I, _P],
     # K5: e, h, cap_t, caps, e_out, h_out, cap_t_out, caps_out, R, H, W, n,
-    #     n_inner, flag, tag, stream
+    #     n_inner, loop word (may be null), stream
     "phmrf_pr_iterations": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _P, _I, _P],
-    # K6: d, d_out, caps, R, H, W, n, n_inner, flag, tag, stream
-    "phmrf_bfs_sweeps": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+                            _I, _P, _P],
+    # K6: d, d_out, caps, R, H, W, n, n_inner, loop word (may be null),
+    #     stream
+    "phmrf_bfs_sweeps": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # the loop graphs (loops.cu), each writing its executable graph to the
+    # last pointer. BFS fixpoint: d0, d1, caps, R, H, W, n, bfs word,
+    # counters
+    "phmrf_graph_bfs": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # min cut: e, h, cap_t, caps, the other set of four, d0, d1, R, H, W,
+    #     n, pr word, bfs word, counters
+    "phmrf_graph_cut": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _P, _P, _P, _P],
+    # ICM: l0, l1, unary, w, mask, R, K, H, W, beta, tile rows, tile cols,
+    #     threads, loop word, counters
+    "phmrf_graph_icm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                        _P, _P, _P],
+    # executable graph, stream
+    "phmrf_graph_launch": [_P, _P],
+    "phmrf_graph_destroy": [_P],
+    # out: the CUDA driver's version
+    "phmrf_driver_version": [_P],
     # doubles of K3's / K4's partial-sum buffer: (R, H, W), (R, K, F, H, W)
     "phmrf_energy_slots": [_I, _I, _I],
     "phmrf_finish_slots": [_I, _I, _I, _I, _I],

@@ -25,6 +25,7 @@
 // icm_phase_kernel touches a quarter of the pixels, reads K unary values
 // each, one pixel per thread with the K scores in registers.
 #include "common.cuh"
+#include "loops.cuh"
 
 __global__ void icm_phase_kernel(int* __restrict__ labels,
                                  const float* __restrict__ unary,
@@ -140,8 +141,9 @@ extern "C" int phmrf_icm_phase(int* labels, const float* unary,
 //
 // `row_parity` is the colour parity of row 0 (a row shard's slab starts at
 // an odd global row when its first row minus the halo depth is odd). When
-// `flag` is given, it is set to `tag` iff some label of the grid changed
-// over the pair.
+// `loop` is given, the pair is a step of that loop (loops.cuh): it goes on
+// while some label of the grid changed, and a pair whose loop has stopped
+// writes the labels as it loaded them.
 // ---------------------------------------------------------------------
 
 #define PHMRF_ICM_HALO 8   // 8 phases of radius 1
@@ -162,8 +164,7 @@ __global__ void __launch_bounds__(1024, 1)
 icm_pair_kernel(const int* __restrict__ lab_in, int* __restrict__ lab_out,
                 const float* __restrict__ unary, const float* __restrict__ w,
                 const int* __restrict__ mask, int K, int H, int W, int TH,
-                int TW, float beta, int row_parity, int* __restrict__ flag,
-                int tag) {
+                int TW, float beta, int row_parity, int* __restrict__ loop) {
   extern __shared__ float smem[];
   const int LH = TH + 2 * PHMRF_ICM_HALO, LW = TW + 2 * PHMRF_ICM_HALO;
   const int NPX = LH * LW, QW = LW / 2, NQ = (LH / 2) * QW;
@@ -178,6 +179,7 @@ icm_pair_kernel(const int* __restrict__ lab_in, int* __restrict__ lab_out,
   const int x0 = (int)blockIdx.x * TW - PHMRF_ICM_HALO;   // even
   const float* u_r = unary + r * K * HW;
   const bool beta_pos = beta > 0.0f && beta <= 3.402823466e38f;
+  const bool run = loop_runs(loop);   // else: no phase, labels as loaded
 
   // pixel of colour c (= 2a + b, phase (a, b)) of quad q: tile row, column
 #define ICM_LY(q, c) (2 * ((q) / QW) + ((((c) >> 1) + row_parity) & 1))
@@ -200,10 +202,10 @@ icm_pair_kernel(const int* __restrict__ lab_in, int* __restrict__ lab_out,
       const bool upd = in && mask[r * HW + p] != 0 &&
                        tile_margin(ly, lx, LH, LW) >= 1;
       lab[i] = in ? l0 : -1;
-      k0[i] = upd ? 0 : ICM_SKIP;
+      k0[i] = upd && run ? 0 : ICM_SKIP;
 #pragma unroll
       for (int d = 0; d < 4; ++d)
-        cp_async_f32(wf + d * NPX + i, w + (r * 4 + d) * HW + p, in);
+        cp_async_f32(wf + d * NPX + i, w + (r * 4 + d) * HW + p, in && run);
     }
   }
   cp_async_wait_all();
@@ -243,7 +245,7 @@ icm_pair_kernel(const int* __restrict__ lab_in, int* __restrict__ lab_out,
   }
 
 #pragma unroll 1
-  for (int ph = 0; ph < 8; ++ph) {
+  for (int ph = 0; ph < (run ? 8 : 0); ++ph) {
     const int c = ph & 3;   // (a, b) = (c >> 1, c & 1), the phase order
 #pragma unroll
     for (int j = 0; j < ICM_QP; ++j) {
@@ -327,36 +329,69 @@ icm_pair_kernel(const int* __restrict__ lab_in, int* __restrict__ lab_out,
   }
 #undef ICM_LY
 #undef ICM_LX
-  // every thread reaches the vote; one store per block that saw a change
-  if (__syncthreads_or(changed) && threadIdx.x == 0 && flag) *flag = tag;
+  loop_finish(loop, run, changed, 2);   // every thread reaches it
+}
+
+static cudaError_t icm_pair_plan(int K, int row_parity, int th, int tw,
+                                 int threads, size_t* smem) {
+  if (K < 1 || K > PHMRF_KMAX || (row_parity & ~1) || th < 2 || tw < 2 ||
+      ((th | tw) & 1) || threads < 32 || threads > 1024 || threads % 32)
+    return cudaErrorInvalidValue;
+  const int lh = th + 2 * PHMRF_ICM_HALO, lw = tw + 2 * PHMRF_ICM_HALO;
+  *smem = sizeof(float) * 7 * (size_t)lh * lw;
+  if (ceil_div((long)lh * lw / 4, threads) > ICM_QP || *smem > PHMRF_SMEM_MAX)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// The dynamic shared memory attribute of K2 for a th x tw interior, on the
+// current card: before every launch or node made here, never while a
+// stream captures.
+cudaError_t phmrf_prepare_icm_pair(int th, int tw) {
+  const int lh = th + 2 * PHMRF_ICM_HALO, lw = tw + 2 * PHMRF_ICM_HALO;
+  return cudaFuncSetAttribute(
+      icm_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(sizeof(float) * 7 * (size_t)lh * lw));
+}
+
+cudaError_t phmrf_icm_pair_node(cudaGraph_t g, cudaGraphNode_t* last,
+                                const int* labels, int* out,
+                                const float* unary, const float* w,
+                                const int* mask, int R, int K, int H, int W,
+                                float beta, int row_parity, int th, int tw,
+                                int threads, int* loop) {
+  size_t smem;
+  const cudaError_t err = icm_pair_plan(K, row_parity, th, tw, threads,
+                                        &smem);
+  if (err != cudaSuccess) return err;
+  if ((long)R * H * W == 0) return cudaErrorInvalidValue;
+  void* args[] = {&labels, &out, &unary, &w,    &mask,       &K,   &H,
+                  &W,      &th,  &tw,    &beta, &row_parity, &loop};
+  return graph_append_kernel(g, last, (const void*)&icm_pair_kernel,
+                             dim3(ceil_div(W, tw), ceil_div(H, th), R),
+                             dim3(threads), smem, args);
 }
 
 // One sweep pair from labels into out (labels is not written), on th x tw
 // interiors (even) with an 8-pixel border, `threads` threads a block
 // owning its 2 x 2 quads (the plan of ops/icm_kernels.py::icm_tile_plan);
-// an error for a plan the kernel cannot take. flag may be null.
+// an error for a plan the kernel cannot take. loop may be null (no loop).
 extern "C" int phmrf_icm_pair(const int* labels, int* out, const float* unary,
                               const float* w, const int* mask, int R, int K,
                               int H, int W, float beta, int row_parity,
-                              int th, int tw, int threads, int* flag, int tag,
+                              int th, int tw, int threads, int* loop,
                               void* stream) {
-  if (K < 1 || K > PHMRF_KMAX || (row_parity & ~1) || th < 2 || tw < 2 ||
-      ((th | tw) & 1) || threads < 32 || threads > 1024 || threads % 32)
-    return (int)cudaErrorInvalidValue;
-  const int lh = th + 2 * PHMRF_ICM_HALO, lw = tw + 2 * PHMRF_ICM_HALO;
-  const size_t smem = sizeof(float) * 7 * (size_t)lh * lw;
-  if (ceil_div((long)lh * lw / 4, threads) > ICM_QP || smem > PHMRF_SMEM_MAX)
-    return (int)cudaErrorInvalidValue;
+  size_t smem;
+  const cudaError_t plan = icm_pair_plan(K, row_parity, th, tw, threads,
+                                         &smem);
+  if (plan != cudaSuccess) return (int)plan;
   if ((long)R * H * W == 0) return 0;
   // per device: set it on every call (the card may change between calls)
-  const cudaError_t attr = cudaFuncSetAttribute(
-      icm_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const cudaError_t attr = phmrf_prepare_icm_pair(th, tw);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(ceil_div(W, tw), ceil_div(H, th), R);
   icm_pair_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      labels, out, unary, w, mask, K, H, W, th, tw, beta, row_parity, flag,
-      tag);
+      labels, out, unary, w, mask, K, H, W, th, tw, beta, row_parity, loop);
   return (int)cudaGetLastError();
 }
 

@@ -66,14 +66,15 @@
 // updated or read (every neighbour read is guarded), so a ragged tile at
 // the grid's edge needs nothing else. Both kernels write their interior to
 // a second set of buffers (a neighbouring block may still be loading its
-// halo from the input) and set a device word to the caller's tag when the
-// host loop must go on: K6 when some distance changed (distances only
-// fall, so that is "changed in some sweep"), K5 when a node is still active
-// after its last iteration. The tag changes with every call, so the word
-// is never cleared.
+// halo from the input) and take part in a loop through a loop word
+// (loops.cuh): it keeps going for K6 while some distance changed
+// (distances only fall, so that is "changed in some sweep"), for K5 while
+// a node is still active after its last iteration. A launch whose loop has
+// stopped runs 0 iterations / sweeps: it writes its interior as it loaded
+// it. The loops themselves are CUDA graphs (loops.cu) or a host loop
+// (ops/maxflow.py::grid_mincut_host).
 #include "common.cuh"
-
-#define PHMRF_CUT_EPS 1e-6f
+#include "loops.cuh"
 
 // Tile geometry: interior rows x columns, halo, threads per block (a
 // multiple of 32 that divides the tile's pixels), blocks an SM should hold.
@@ -119,11 +120,13 @@ template <int TH, int TW, int HALO, int NT, int MIN_BLOCKS>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 bfs_tile_kernel(const int* __restrict__ d_in, int* __restrict__ d_out,
                 const float* __restrict__ caps, int H, int W, int n,
-                int n_inner, int* __restrict__ flag, int tag) {
+                int n_inner, int* __restrict__ loop) {
   constexpr int LH = TH + 2 * HALO, LW = TW + 2 * HALO, NPX = LH * LW;
   constexpr int P = NPX / NT;              // pixels a thread owns
   static_assert(P * NT == NPX, "threads must divide the tile");
   extern __shared__ int smem[];
+  const bool run = loop_runs(loop);
+  const int sweeps = run ? n_inner : 0;    // 0: pass the input through
   int* src = smem;                   // d, ping
   int* dst = smem + NPX;             // d, pong
   const long HW = (long)H * W;
@@ -153,7 +156,7 @@ bfs_tile_kernel(const int* __restrict__ d_in, int* __restrict__ d_out,
   __syncthreads();
 
   bool moved = false;
-  for (int s = 1; s <= n_inner; ++s) {
+  for (int s = 1; s <= sweeps; ++s) {
 #pragma unroll
     for (int k = 0; k < P; ++k) {
       const int i = threadIdx.x + k * NT;
@@ -182,8 +185,7 @@ bfs_tile_kernel(const int* __restrict__ d_in, int* __restrict__ d_out,
       d_out[r * HW + (long)(y0 + ly) * W + (x0 + lx)] = src[i];
     }
   }
-  // one store per warp that saw a change (every lane reaches the vote)
-  if (__any_sync(0xffffffffu, moved) && (threadIdx.x & 31) == 0) *flag = tag;
+  loop_finish(loop, run, moved, n_inner);   // every thread reaches it
 }
 
 template <int TH, int TW, int HALO, int NT>
@@ -193,11 +195,13 @@ pr_tile_kernel(const float* __restrict__ e_in, const int* __restrict__ h_in,
                const float* __restrict__ caps_in, float* __restrict__ e_out,
                int* __restrict__ h_out, float* __restrict__ ct_out,
                float* __restrict__ caps_out, int H, int W, int n,
-               int n_inner, int* __restrict__ flag, int tag) {
+               int n_inner, int* __restrict__ loop) {
   constexpr int LH = TH + 2 * HALO, LW = TW + 2 * HALO, NPX = LH * LW;
   constexpr int P = NPX / NT;              // pixels a thread owns
   static_assert(P * NT == NPX, "threads must divide the tile");
   extern __shared__ int smem[];
+  const bool run = loop_runs(loop);
+  const int iters = run ? n_inner : 0;     // 0: pass the input through
   int* hc = smem;                                     // h, this iteration
   int* hn = smem + NPX;                               // h, the next
   float* out = reinterpret_cast<float*>(smem + 2 * NPX);   // (8, NPX)
@@ -231,7 +235,7 @@ pr_tile_kernel(const float* __restrict__ e_in, const int* __restrict__ h_in,
   }
   __syncthreads();
 
-  for (int it = 0; it < n_inner; ++it) {
+  for (int it = 0; it < iters; ++it) {
     // push: exact on pixels 2 it + 1 or more from the tile's edge
 #pragma unroll
     for (int k = 0; k < P; ++k) {
@@ -306,7 +310,7 @@ pr_tile_kernel(const float* __restrict__ e_in, const int* __restrict__ h_in,
     for (int a = 0; a < 8; ++a) c[a * HW] = cp[k][a];
     active = active || (ev[k] > PHMRF_CUT_EPS && hv < n);
   }
-  if (__any_sync(0xffffffffu, active) && (threadIdx.x & 31) == 0) *flag = tag;
+  loop_finish(loop, run, run && active, n_inner);   // every thread
 }
 
 #define BFS_KERNEL \
@@ -317,42 +321,91 @@ static size_t tile_pixels(int th, int tw, int halo) {
   return (size_t)(th + 2 * halo) * (tw + 2 * halo);
 }
 
-// n_inner (<= 8) sweeps from d into d_out (d is not written); *flag = tag
-// iff some distance changed.
+static size_t bfs_smem() {
+  return 2 * sizeof(int) * tile_pixels(BFS_TH, BFS_TW, BFS_HALO);
+}
+static size_t pr_smem() {
+  return 10 * sizeof(int) * tile_pixels(PR_TH, PR_TW, PR_HALO);
+}
+
+// The dynamic shared memory attribute of both kernels, on the current
+// card: before every launch or node made here, never while a stream
+// captures.
+cudaError_t phmrf_prepare_mincut() {
+  cudaError_t err = cudaFuncSetAttribute(
+      BFS_KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bfs_smem());
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      PR_KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)pr_smem());
+}
+
+static dim3 bfs_grid(int R, int H, int W) {
+  return dim3(ceil_div(W, BFS_TW), ceil_div(H, BFS_TH), R);
+}
+static dim3 pr_grid(int R, int H, int W) {
+  return dim3(ceil_div(W, PR_TW), ceil_div(H, PR_TH), R);
+}
+
+cudaError_t phmrf_bfs_node(cudaGraph_t g, cudaGraphNode_t* last,
+                           const int* d, int* d_out, const float* caps,
+                           int R, int H, int W, int n, int n_inner,
+                           int* loop) {
+  if (n_inner < 1 || n_inner > BFS_HALO || (long)R * H * W == 0)
+    return cudaErrorInvalidValue;
+  void* args[] = {&d, &d_out, &caps, &H, &W, &n, &n_inner, &loop};
+  return graph_append_kernel(g, last, (const void*)&BFS_KERNEL,
+                             bfs_grid(R, H, W), dim3(BFS_THREADS),
+                             bfs_smem(), args);
+}
+
+cudaError_t phmrf_pr_node(cudaGraph_t g, cudaGraphNode_t* last,
+                          const float* e, const int* h, const float* cap_t,
+                          const float* caps, float* e_out, int* h_out,
+                          float* ct_out, float* caps_out, int R, int H,
+                          int W, int n, int n_inner, int* loop) {
+  if (n_inner < 1 || 2 * n_inner > PR_HALO || (long)R * H * W == 0)
+    return cudaErrorInvalidValue;
+  void* args[] = {&e,  &h, &cap_t, &caps, &e_out, &h_out, &ct_out,
+                  &caps_out, &H, &W, &n, &n_inner, &loop};
+  return graph_append_kernel(g, last, (const void*)&PR_KERNEL,
+                             pr_grid(R, H, W), dim3(PR_THREADS), pr_smem(),
+                             args);
+}
+
+// n_inner (<= 8) sweeps from d into d_out (d is not written), a step of
+// the loop `loop` (may be null: no loop).
 extern "C" int phmrf_bfs_sweeps(const int* d, int* d_out, const float* caps,
                                 int R, int H, int W, int n, int n_inner,
-                                int* flag, int tag, void* stream) {
+                                int* loop, void* stream) {
   if (n_inner < 1 || n_inner > BFS_HALO) return (int)cudaErrorInvalidValue;
   if ((long)R * H * W == 0) return 0;
-  const size_t smem = 2 * sizeof(int) * tile_pixels(BFS_TH, BFS_TW, BFS_HALO);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      BFS_KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // per device: set it on every call (the card may change between calls)
+  const cudaError_t attr = phmrf_prepare_mincut();
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid(ceil_div(W, BFS_TW), ceil_div(H, BFS_TH), R);
-  BFS_KERNEL<<<grid, BFS_THREADS, smem, (cudaStream_t)stream>>>(
-      d, d_out, caps, H, W, n, n_inner, flag, tag);
+  BFS_KERNEL<<<bfs_grid(R, H, W), BFS_THREADS, bfs_smem(),
+               (cudaStream_t)stream>>>(d, d_out, caps, H, W, n, n_inner,
+                                       loop);
   return (int)cudaGetLastError();
 }
 
 // n_inner (<= 4) iterations from (e, h, cap_t, caps) into the *_out
-// buffers (the inputs are not written); *flag = tag iff some node is
-// active (e > eps, h < n) after them.
+// buffers (the inputs are not written), a step of the loop `loop` (may be
+// null).
 extern "C" int phmrf_pr_iterations(const float* e, const int* h,
                                    const float* cap_t, const float* caps,
                                    float* e_out, int* h_out, float* ct_out,
                                    float* caps_out, int R, int H, int W,
-                                   int n, int n_inner, int* flag, int tag,
+                                   int n, int n_inner, int* loop,
                                    void* stream) {
   if (n_inner < 1 || 2 * n_inner > PR_HALO) return (int)cudaErrorInvalidValue;
   if ((long)R * H * W == 0) return 0;
-  const size_t smem = 10 * sizeof(int) * tile_pixels(PR_TH, PR_TW, PR_HALO);
-  // per device: set it on every call (the card may change between calls)
-  const cudaError_t attr = cudaFuncSetAttribute(
-      PR_KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t attr = phmrf_prepare_mincut();
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid(ceil_div(W, PR_TW), ceil_div(H, PR_TH), R);
-  PR_KERNEL<<<grid, PR_THREADS, smem, (cudaStream_t)stream>>>(
-      e, h, cap_t, caps, e_out, h_out, ct_out, caps_out, H, W, n, n_inner,
-      flag, tag);
+  PR_KERNEL<<<pr_grid(R, H, W), PR_THREADS, pr_smem(),
+              (cudaStream_t)stream>>>(e, h, cap_t, caps, e_out, h_out,
+                                      ct_out, caps_out, H, W, n, n_inner,
+                                      loop);
   return (int)cudaGetLastError();
 }

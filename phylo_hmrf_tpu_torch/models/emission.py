@@ -21,8 +21,11 @@ _LOG_2PI = 1.8378770664093453
 
 
 def _chol_inv_and_logdet(covars: torch.Tensor):
-    """covars (K, F, F) -> (Linv (K, F, F) lower-triangular, logdet (K,))."""
-    chol = torch.linalg.cholesky(covars)
+    """covars (K, F, F) -> (Linv (K, F, F) lower-triangular, logdet (K,)).
+    A factor that fails gives NaNs, as ``jnp.linalg.cholesky`` does; its
+    error check is not read, so the E-step queues on the card without a
+    host synchronization."""
+    chol, _ = torch.linalg.cholesky_ex(covars, check_errors=False)
     K, F = covars.shape[0], covars.shape[-1]
     eye = torch.eye(F, dtype=covars.dtype, device=covars.device).expand(K, F, F)
     Linv = torch.linalg.solve_triangular(chol, eye, upper=False)

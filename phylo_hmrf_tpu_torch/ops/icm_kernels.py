@@ -6,7 +6,7 @@ in one launch, planned by ``icm_tile_plan``) replaces
 ``_icm_sweep_pair_padded``, ``icm_sweep_halo_`` (K8: the phases of a sweep
 over all the row shards of a device in one launch, ``ops/halo_rows.py``)
 replaces ``icm_phase_pallas(halo_extended=True)``, and ``icm_kmajor`` is
-the ``icm_pallas`` loop. ``icm_phase_`` (the phase kernel) and
+the ``icm_pallas`` loop (on the card a CUDA graph, ``ops/loops.py``). ``icm_phase_`` (the phase kernel) and
 ``icm_sweep_pair_chained`` (eight of it) are the reference K2 is held to
 on the card, ``icm_sweep_halo_chained`` (it per phase and shard on the
 exchanged slabs) that of K8. Layout: labels, mask (R, H, W) int32; unary_k
@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch import _build
+from phylo_hmrf_tpu_torch.ops import loops
 from phylo_hmrf_tpu_torch.ops.halo_rows import (
     barrier_for, device_groups, extend_rows, fill_remote_rows, first_local,
     is_chained, neighbour_columns, remote_row_buffers, source_peers, table)
@@ -259,22 +260,24 @@ def icm_sweep_halo_chained(labels, unary_k, w_ext, mask_i, beta, *, row0,
 
 
 def icm_sweep_pair(labels, unary_k, wmaps, mask_i, beta, *,
-                   plain: bool = False, row_offset: int = 0, flag=None,
-                   tag: int = 1, plan: ICMTilePlan | None = None):
+                   plain: bool = False, row_offset: int = 0, loop=None,
+                   plan: ICMTilePlan | None = None):
     """Two checkerboard sweeps (eight phases); returns new labels (labels
     is not written). Row r of the arrays has the colour parity of global
     row r + ``row_offset`` (a row shard's slab starts at its first row
     minus the halo depth). On CUDA: one launch of the K2 tile kernel
-    (``icm_tile_plan`` unless given). ``flag``, a 0-d int32 tensor, is set
-    to ``tag`` iff some label changed. ``plain`` runs the plain version on
-    any device."""
+    (``icm_tile_plan`` unless given). With a loop word ``loop``
+    (``ops/loops.py``) the pair is a step of that loop: it goes on while
+    some label changed, and a pair whose loop has stopped returns the
+    labels unchanged. ``plain`` runs the plain version on any device."""
     if plain or labels.device.type == "cpu":
         new = labels.clone()
         for a, b in _PAIR_PHASES:
             new = icm_phase_plain(new, unary_k, wmaps, mask_i, beta,
                                   (a + row_offset) % 2, b)
-        if flag is not None and bool(torch.any(new != labels)):
-            flag.fill_(tag)
+        if loop is not None:
+            new, = loops.loop_step(loop, (new,), (labels,),
+                                   torch.any(new != labels), 2)
         return new
     R, K, H, W = unary_k.shape
     plane = (R, H, W)
@@ -282,8 +285,8 @@ def icm_sweep_pair(labels, unary_k, wmaps, mask_i, beta, *,
                  unary_k=(unary_k, torch.float32, (R, K, H, W)),
                  wmaps=(wmaps, torch.float32, (R, 4, H, W)),
                  mask=(mask_i, torch.int32, plane))
-    if flag is not None:
-        specs["flag"] = (flag, torch.int32, ())
+    if loop is not None:
+        specs["loop"] = (loop, torch.int32, (loops.LOOP_WORDS,))
     _build.check_tensors("icm_sweep_pair", **specs)
     plan = icm_tile_plan(K) if plan is None else plan
     out = torch.empty_like(labels)
@@ -292,7 +295,7 @@ def icm_sweep_pair(labels, unary_k, wmaps, mask_i, beta, *,
             labels.data_ptr(), out.data_ptr(), unary_k.data_ptr(),
             wmaps.data_ptr(), mask_i.data_ptr(), R, K, H, W, float(beta),
             row_offset % 2, plan.th, plan.tw, plan.threads,
-            0 if flag is None else flag.data_ptr(), int(tag),
+            0 if loop is None else loop.data_ptr(),
             _build.stream_of(labels)), "K2 icm_sweep_pair")
     icm_sweep_pair.launches += 1
     return out
@@ -314,22 +317,28 @@ def icm_sweep_pair_chained(labels, unary_k, wmaps, mask_i, beta, *,
 
 
 def icm_kmajor(unary_k, wmaps, mask, init_labels, beta,
-               max_sweeps: int = 60, *, plain: bool = False):
+               max_sweeps: int = 60, *, plain: bool = False,
+               host_loop: bool = False):
     """Batched checkerboard ICM (the ``icm_pallas`` loop).
 
     Runs sweep pairs while any label of the bucket changed and fewer than
     ``max_sweeps`` sweeps ran; like the JAX loop, a capped run may
-    overshoot an odd ``max_sweeps`` by one sweep. Each pair sets a device
-    word to its own tag iff some label changed, read once per pair (one
-    host sync). Returns labels (R, H, W) int32."""
+    overshoot an odd ``max_sweeps`` by one sweep. On a CUDA float32
+    tensor the loop is a CUDA graph the card runs to its end
+    (``ops/loops.py``: no host read); on the CPU, with ``plain=True``
+    (the plain version) or with ``host_loop=True`` (the K2 kernel), the
+    host reads the loop word once per pair. Returns labels (R, H, W)
+    int32."""
+    if not (plain or host_loop or unary_k.device.type == "cpu"):
+        return loops.run_icm(unary_k, wmaps, mask, init_labels, beta,
+                             max_sweeps, icm_tile_plan(unary_k.shape[1]))
     mask_i = mask.to(torch.int32)
     labels = torch.where(mask, init_labels, 0).to(torch.int32).contiguous()
-    flag = torch.zeros((), dtype=torch.int32, device=labels.device)
+    loop = loops.new_loop(labels.device)
     changed, sweep = True, 0
     while changed and sweep < max_sweeps:
-        tag = sweep // 2 + 1
         labels = icm_sweep_pair(labels, unary_k, wmaps, mask_i, beta,
-                                plain=plain, flag=flag, tag=tag)
-        changed = int(flag) == tag
+                                plain=plain, loop=loop)
+        changed = bool(loop[loops.LOOP_GO])
         sweep += 2
     return labels

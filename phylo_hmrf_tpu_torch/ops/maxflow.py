@@ -5,11 +5,17 @@ Counterpart of ``phylo_hmrf_tpu/ops/maxflow_tpu.py``, same names. The min
 cut is the data-parallel push-relabel of ``grid_mincut_fused`` with the JAX
 schedule: a global relabel (BFS toward the sink, kernel K6) whenever
 ``it % 32 == 0``, push-relabel iterations (kernel K5) four at a time, the
-convergence test read on the host once per four iterations (on the kernel
-path: K5's device flag), at most ``max_sweeps`` iterations. Everything
-else here is plain tensor code, as it is XLA code in the JAX package: the
-move graphs (alpha-beta swap and alpha-expansion, with dominance
-freezing), the move loop with GCO-style pruning, and the energies.
+convergence test once per four iterations, at most ``max_sweeps``
+iterations. On a CUDA float32 tensor the whole cut, as each BFS fixpoint,
+is a CUDA graph whose loops the card decides (``ops/loops.py``,
+``csrc/loops.cu``): no host read inside a move, as the JAX loop is one
+device program. ``grid_mincut_host`` keeps the loop on the host, with a
+read of the kernels' loop word (or of ``torch.any`` on the plain path)
+per test: the route of CPU tensors, of ``plain=True`` and of
+``host_loop=True``. Everything else here is plain tensor code, as it is
+XLA code in the JAX package: the move graphs (alpha-beta swap and
+alpha-expansion, with dominance freezing), the move loop with GCO-style
+pruning, and the energies.
 
 Layouts carry a leading region-batch axis, as the JAX batched entry points
 do: labels, mask (R, H, W); unary_k (R, K, H, W) K-major; wmaps
@@ -30,6 +36,7 @@ import dataclasses
 import torch
 
 from phylo_hmrf_tpu_torch.data.regions import DIRS
+from phylo_hmrf_tpu_torch.ops import loops
 from phylo_hmrf_tpu_torch.ops.finish_kernels import (
     _f32, energy_from_rows, energy_rows, potts_energy_pair)
 from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
@@ -44,52 +51,59 @@ RELABEL_EVERY = 32     # iterations between global relabels (BFS)
 @dataclasses.dataclass
 class CutStats:
     """What the min cuts of one labeling pass did; filled when a caller
-    passes one in."""
+    passes one in. On the graph route the counts come from the graph's
+    counters on the card, read with the pass's cycle reads."""
     moves: int = 0           # grid_mincut calls (one per move, whole batch)
     pr_iterations: int = 0   # push-relabel iterations over all moves
     bfs_sweeps: int = 0      # BFS sweeps (global relabels + source-side BFS)
     capped: int = 0          # moves stopped by max_sweeps with nodes active
-    host_reads: int = 0      # loop tests read back to the host
+    host_reads: int = 0      # reads of device values by the host
     energy_start: float = 0.0   # MRF energy of the start labels and of the
     energy_end: float = 0.0     # labels returned (float64, summed)
 
+    def add_totals(self, t) -> None:
+        """Add a graph's counters (``loops.T_*``, host numbers)."""
+        self.moves += int(t[loops.T_RUNS])
+        self.pr_iterations += int(t[loops.T_PR_ITERS])
+        self.bfs_sweeps += int(t[loops.T_BFS_SWEEPS])
+        self.capped += int(t[loops.T_CAPPED])
+
 
 def _read(x, stats):
-    """One host read of a loop test, a 0-d tensor."""
+    """One host read of a device value: a 0-d tensor's item, or a 1-d
+    tensor as a list."""
     if stats is not None:
         stats.host_reads += 1
-    return x.item()
+    return x.item() if x.dim() == 0 else x.tolist()
 
 
-class _Flag:
-    """The device word K5 and K6 set to their call's tag when the host
-    loop must go on. The tag grows with every call, so the word is never
-    cleared."""
-
-    def __init__(self, device):
-        self.word = torch.zeros((), dtype=torch.int32, device=device)
-        self.tag = 0
-
-    def next(self) -> dict:
-        """The keywords of the next kernel call: the word and a new tag."""
-        self.tag += 1
-        return dict(flag=self.word, tag=self.tag)
-
-    def read(self, stats) -> bool:
-        """Whether the last call set the word (one host read)."""
-        return _read(self.word, stats) == self.tag
+def _on_card(t, plain: bool, host_loop: bool) -> bool:
+    """Whether a loop on ``t`` takes the graph route."""
+    return not (plain or host_loop or t.device.type == "cpu")
 
 
 def _bfs_fixpoint(d, caps, n: int, plain: bool, stats, spare=None,
-                  flag: _Flag | None = None):
+                  host_loop: bool = False):
     """Min-plus sweeps from the seed ``d`` until no distance changes, 8 per
-    host check. The kernel path runs them as K6 launches that ping-pong
-    ``d`` with ``spare`` (a second distance plane) and reads ``flag``;
-    both are made here when the caller has none. Returns the distances
-    (on the kernel path, in ``d`` or ``spare``)."""
+    test. On a CUDA float32 tensor (not ``plain``, not ``host_loop``)
+    the loop is a CUDA graph (no host read inside it; with ``stats``,
+    one read of its sweep count at the end). On the host loop the kernel
+    path runs K6 launches that ping-pong ``d`` with ``spare`` (a second
+    distance plane, made here when the caller has none) and reads their
+    loop word after each. Returns the distances (on the host kernel path,
+    in ``d`` or ``spare``)."""
+    if _on_card(d, plain, host_loop):
+        if stats is None:
+            return loops.run_bfs(d, caps, n)
+        g = loops.bfs_graph(d.device, *d.shape, n)
+        base = g.totals.clone()
+        out = loops.run_bfs(d, caps, n)
+        stats.bfs_sweeps += _read((g.totals - base)[loops.T_BFS_SWEEPS],
+                                  stats)
+        return out
     if not plain:
         spare = torch.empty_like(d) if spare is None else spare
-        flag = _Flag(d.device) if flag is None else flag
+        loop = loops.new_loop(d.device, n)
     k = 0
     changed = True
     while changed and k < n:
@@ -98,10 +112,9 @@ def _bfs_fixpoint(d, caps, n: int, plain: bool, stats, spare=None,
             changed = bool(_read(torch.any(new != d), stats))
             d = new
         else:
-            new, _ = bfs_sweeps(d, caps, n, n_inner=8, out=spare,
-                                **flag.next())
+            new, _ = bfs_sweeps(d, caps, n, n_inner=8, out=spare, loop=loop)
             d, spare = new, d
-            changed = flag.read(stats)
+            changed = bool(_read(loop[loops.LOOP_GO], stats))
         k += 8
     if stats is not None:
         stats.bfs_sweeps += k
@@ -109,7 +122,7 @@ def _bfs_fixpoint(d, caps, n: int, plain: bool, stats, spare=None,
 
 
 def grid_mincut(excess0, cap_t0, caps0, max_sweeps: int = 3000, *,
-                plain: bool = False,
+                plain: bool = False, host_loop: bool = False,
                 stats: CutStats | None = None) -> torch.Tensor:
     """Phase-1 push-relabel min cut of a region batch (the schedule of the
     JAX ``grid_mincut_fused``; regions share the loop until the last one
@@ -121,10 +134,33 @@ def grid_mincut(excess0, cap_t0, caps0, max_sweeps: int = 3000, *,
     bool: the pixels that cannot reach the sink in the final residual
     graph (distance >= n = H*W + 2).
 
+    On a CUDA float32 tensor (not ``plain``, not ``host_loop``) the cut is
+    one launch of a CUDA graph (``ops/loops.py``): no host read inside it;
+    with ``stats``, one read of the graph's counters at the end (a pass of
+    ``_optimize_batched`` reads them with its cycle reads instead).
+    Otherwise `grid_mincut_host`."""
+    if not _on_card(excess0, plain, host_loop):
+        return grid_mincut_host(excess0, cap_t0, caps0, max_sweeps,
+                                plain=plain, stats=stats)
+    if stats is None:
+        return loops.run_cut(excess0, cap_t0, caps0, max_sweeps)
+    R, H, W = excess0.shape
+    g = loops.cut_graph(excess0.device, R, H, W)
+    base = g.totals.clone()
+    side = loops.run_cut(excess0, cap_t0, caps0, max_sweeps)
+    stats.add_totals(_read(g.totals - base, stats))
+    return side
+
+
+def grid_mincut_host(excess0, cap_t0, caps0, max_sweeps: int = 3000, *,
+                     plain: bool = False,
+                     stats: CutStats | None = None) -> torch.Tensor:
+    """`grid_mincut` with its loops on the host: a read per test.
+
     The kernel path owns two sets of state buffers and a spare distance
     plane for the whole cut: each K5 call reads one set and writes the
     other, each K6 call one plane into the other, and the loop tests read
-    the kernels' device flag. The plain path tests with ``torch.any``."""
+    the kernels' loop word. The plain path tests with ``torch.any``."""
     R, H, W = excess0.shape
     n = H * W + 2
     dt = excess0.dtype if excess0.is_floating_point() else torch.float32
@@ -132,11 +168,11 @@ def grid_mincut(excess0, cap_t0, caps0, max_sweeps: int = 3000, *,
              torch.zeros((R, H, W), dtype=torch.int32, device=excess0.device),
              cap_t0.to(dt).clone().contiguous(),
              caps0.to(dt).clone().contiguous())
-    spare = flag = spare_d = None
+    spare = pr_loop = spare_d = None
     if not plain:
         spare = tuple(torch.empty_like(t) for t in state)
         spare_d = torch.empty_like(state[1])
-        flag = _Flag(excess0.device)
+        pr_loop = loops.new_loop(excess0.device)
 
     def distances(cap_t, caps):
         # the BFS from the sink seed: 1 where the sink arc is residual (a
@@ -145,7 +181,7 @@ def grid_mincut(excess0, cap_t0, caps0, max_sweeps: int = 3000, *,
         # module of PyTorch's kernels in the middle of the cut)
         seed = torch.where(cap_t > EPS, 1, n).to(torch.int32)
         return _bfs_fixpoint(seed, caps, n, plain, stats, spare=spare_d,
-                             flag=flag)
+                             host_loop=True)
 
     e, h = state[:2]
     active = bool(_read(torch.any((e > EPS) & (h < n)), stats))
@@ -166,9 +202,9 @@ def grid_mincut(excess0, cap_t0, caps0, max_sweeps: int = 3000, *,
                                           & (state[1] < n)), stats))
         else:
             state, _ = pr_iterations(e, h, cap_t, caps, n, n_inner=4,
-                                     out=spare, **flag.next())
+                                     out=spare, loop=pr_loop)
             spare = (e, h, cap_t, caps)
-            active = flag.read(stats)
+            active = bool(_read(pr_loop[loops.LOOP_GO], stats))
         it += 4
     if stats is not None:
         stats.moves += 1
@@ -290,13 +326,14 @@ def _expansion_graph(labels, unary_k, wmaps, mask, alpha: int, beta: float,
 
 def _swap_move_batch(labels, unary_k, wmaps, mask, a: int, b: int,
                      beta: float, wsum, *, max_sweeps: int,
-                     plain: bool = False, stats: CutStats | None = None):
+                     plain: bool = False, host_loop: bool = False,
+                     stats: CutStats | None = None):
     """One exact swap move over the region batch (regions share the pair).
     Returns (labels (R, H, W), n_changed (R,) on the device)."""
     excess0, cap_t0, caps0, in_play = _swap_graph(labels, unary_k, wmaps,
                                                   mask, a, b, beta, wsum)
     side = grid_mincut(excess0, cap_t0, caps0, max_sweeps, plain=plain,
-                       stats=stats)
+                       host_loop=host_loop, stats=stats)
     new = torch.where(side, a, b).to(labels.dtype)
     new = torch.where(in_play, new, labels)
     return new, torch.sum(new != labels, dim=(1, 2))
@@ -304,14 +341,14 @@ def _swap_move_batch(labels, unary_k, wmaps, mask, a: int, b: int,
 
 def _expansion_move_batch(labels, unary_k, wmaps, mask, alpha: int,
                           beta: float, wsum, *, max_sweeps: int,
-                          plain: bool = False,
+                          plain: bool = False, host_loop: bool = False,
                           stats: CutStats | None = None):
     """One exact alpha-expansion move over the region batch. Returns
     (labels (R, H, W), n_changed (R,) on the device)."""
     excess0, cap_t0, caps0, in_play = _expansion_graph(
         labels, unary_k, wmaps, mask, alpha, beta, wsum)
     side = grid_mincut(excess0, cap_t0, caps0, max_sweeps, plain=plain,
-                       stats=stats)
+                       host_loop=host_loop, stats=stats)
     new = torch.where(side, labels, alpha).to(labels.dtype)
     new = torch.where(in_play, new, labels)
     return new, torch.sum(new != labels, dim=(1, 2))
@@ -337,36 +374,47 @@ def _energy_hist(labels, unary_k, wmaps, mask, beta: float, n_states: int):
 def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
                       n_states: int, method: str, max_cycles: int,
                       max_sweeps: int = 3000, tol: float = 1e-6, *,
-                      plain: bool = False,
+                      plain: bool = False, host_loop: bool = False,
                       stats: CutStats | None = None) -> torch.Tensor:
     """Exact move-making over a batch of same-shape regions (the JAX
     ``_optimize_batched``): cycles of expansion moves (one per label) or
     swap moves (one per pair), with GCO's pruning — a move is skipped when
-    none of the labels it depends on changed since it last ran. Change
-    counts, energies and the histogram come back to the host once per
-    cycle; a cycle with no change, or an energy drop within ``tol``
-    (relative), ends the pass."""
+    none of the labels it depends on changed since it last ran. The host
+    reads the device once before the first cycle (the start energy and
+    histogram) and once at the end of each cycle (change counts, energy,
+    histogram and, on the graph route, the cut counters), as JAX's does:
+    on the graph route a move's cut reads nothing. A cycle with no change,
+    or an energy drop within ``tol`` (relative), ends the pass."""
     # beta at the unary's precision: the cut capacities see it at float32,
     # or unrounded in float64
     beta = _f32(beta) if unary_k.dtype == torch.float32 else float(beta)
     wsum = _incident_wsum(wmaps, beta)
     labels = torch.where(mask, init_labels, 0).to(torch.int32)
+    graph = base = None
+    if _on_card(unary_k, plain, host_loop):
+        # the moves' cuts add to this graph's counters; the cycle reads
+        # take them with the labels' numbers
+        graph = loops.cut_graph(unary_k.device, *labels.shape)
+        base = graph.totals.clone()
     e, hist_t = _energy_hist(labels, unary_k, wmaps, mask, beta, n_states)
-    e_start = prev_e = e_now = float(e.sum())
-    hist = hist_t.cpu().numpy()
+    got = _read(torch.cat([e.sum().view(1), hist_t.double()]), stats)
+    e_start = prev_e = e_now = got[0]
+    hist = [int(v) for v in got[1:]]
 
     if method == "expansion":
         moves = [(a,) for a in range(n_states)]
     else:
         moves = [(a, b) for a in range(n_states)
                  for b in range(a + 1, n_states)]
-    kw = dict(max_sweeps=max_sweeps, plain=plain, stats=stats)
+    kw = dict(max_sweeps=max_sweeps, plain=plain, host_loop=host_loop,
+              stats=None if graph is not None else stats)
 
     last_run = {}        # move -> move counter at its last run
     changed_actual = {}  # label (or "any") -> counter of its last change
+    totals = None        # the graph's counters at the last cycle read
     t = 0
     for _ in range(max_cycles):
-        maybe = hist > 0
+        maybe = [v > 0 for v in hist]
         changed_opt = dict(changed_actual)
         pending = []     # (move, counter, n_changed (R,) on the device)
         for mv in moves:
@@ -396,15 +444,24 @@ def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
         if not pending:
             break
 
-        # one host read per cycle: change counts, energies, histogram
+        # one host read per cycle: energy, histogram, change counts (and
+        # the cut counters), as one float64 vector (every count is exact)
         e, hist_t = _energy_hist(labels, unary_k, wmaps, mask, beta,
                                  n_states)
-        nch_all = torch.stack([p[2] for p in pending]).cpu().numpy()
-        hist = hist_t.cpu().numpy()
-        e_now = float(e.sum())
+        parts = [e.sum().view(1), hist_t.double(),
+                 torch.stack([p[2] for p in pending]).double().flatten()]
+        if graph is not None:
+            parts.append((graph.totals - base).double())
+        got = _read(torch.cat(parts), stats)
+        e_now = got[0]
+        hist = [int(v) for v in got[1:1 + n_states]]
+        R = labels.shape[0]
+        nch_all = got[1 + n_states:1 + n_states + R * len(pending)]
+        if graph is not None:
+            totals = got[1 + n_states + R * len(pending):]
         total_changed = 0
-        for (mv, tt, _), nc in zip(pending, nch_all):
-            n_tot = int(nc.sum())
+        for i, (mv, tt, _) in enumerate(pending):
+            n_tot = int(sum(nch_all[i * R:(i + 1) * R]))
             total_changed += n_tot
             if n_tot > 0:
                 for lab in (mv if method != "expansion" else ("any",)):
@@ -415,6 +472,8 @@ def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
             break
         prev_e = e_now
     if stats is not None:
+        if totals is not None:
+            stats.add_totals(totals)
         stats.energy_start += e_start
         stats.energy_end += e_now
     return labels

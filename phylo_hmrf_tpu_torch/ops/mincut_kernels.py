@@ -10,12 +10,15 @@ Arcs leaving the grid must carry capacity exactly 0 (the move graphs of
 
 Both wrappers are functional, as the JAX entries are: they read their
 state and write the new state to ``out`` (buffers the caller owns; new
-tensors when it gives none), and set a device word ``flag`` to ``tag``
-when the host loop must go on. A call with a fresh tag needs no clearing
-of the word, so the loop in ``maxflow.grid_mincut`` allocates nothing per
-call. On a CPU tensor, or with ``plain=True``, they run the plain
-version (in the operands' dtype: float64 capacities in the model's
-strict-parity mode); on a CUDA tensor they launch the kernel or raise.
+tensors when it gives none). With a loop word ``loop`` (``ops/loops.py``)
+a call is a step of that loop: it runs only where the word's GO is set
+(else it passes its state through) and updates the word; the host loop
+of ``maxflow.grid_mincut_host`` reads GO after each call, the graphs of
+``csrc/loops.cu`` launch the same kernels with no read. On a CPU tensor,
+or with ``plain=True``, they run the plain version (in the operands'
+dtype: float64 capacities in the model's strict-parity mode) under the
+same word protocol in tensor code; on a CUDA tensor they launch the
+kernel or raise.
 """
 
 from __future__ import annotations
@@ -24,10 +27,11 @@ import torch
 
 from phylo_hmrf_tpu_torch.data.regions import DIRS
 from phylo_hmrf_tpu_torch import _build
+from phylo_hmrf_tpu_torch.ops import loops
 from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2
 
 ALL_DIRS = tuple(DIRS) + tuple((-di, -dj) for (di, dj) in DIRS)
-EPS = 1e-6
+EPS = loops.CUT_EPS
 BFS_MAX_INNER = 8    # sweeps one K6 launch can run (its halo is 8 pixels)
 PR_MAX_INNER = 4     # iterations one K5 launch can run (radius 2 each)
 
@@ -42,10 +46,6 @@ def _nb(x: torch.Tensor, d: int, fill) -> torch.Tensor:
     return _shift2(x, di, dj, fill)
 
 
-def _new_flag(device) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.int32, device=device)
-
-
 def bfs_sweeps_plain(d, caps, n: int, n_inner: int):
     """Plain version of K6: ``n_inner`` Jacobi min-plus sweeps toward the
     sink, d <- min(d, min over residual arcs of d_nb + 1, n)."""
@@ -58,34 +58,38 @@ def bfs_sweeps_plain(d, caps, n: int, n_inner: int):
     return d
 
 
-def bfs_sweeps(d, caps, n: int, *, n_inner: int = 8, out=None, flag=None,
-               tag: int = 1, plain: bool = False):
+def bfs_sweeps(d, caps, n: int, *, n_inner: int = 8, out=None, loop=None,
+               plain: bool = False):
     """``n_inner`` (<= 8) BFS sweeps from ``d`` (not written) into ``out``,
-    in one K6 launch. Returns (new d, flag): the 0-d int32 ``flag`` holds
-    ``tag`` iff some distance changed (a new flag starts at 0)."""
+    in one K6 launch, a step of the loop ``loop`` (an int32 word, or None:
+    no loop): it goes on while some distance changed. Returns (new d,
+    loop)."""
     if not 1 <= n_inner <= BFS_MAX_INNER:
         raise ValueError(f"bfs_sweeps: n_inner {n_inner} not in 1..8")
     out = torch.empty_like(d) if out is None else out
-    flag = _new_flag(d.device) if flag is None else flag
     if plain or d.device.type == "cpu":
         new = bfs_sweeps_plain(d, caps, n, n_inner)
-        if torch.any(new != d):
-            flag.fill_(tag)
-        return out.copy_(new), flag
+        if loop is not None:
+            new, = loops.loop_step(loop, (new,), (d,), torch.any(new != d),
+                                   n_inner)
+        return out.copy_(new), loop
     R, H, W = d.shape
-    _build.check_tensors("bfs_sweeps", d=(d, torch.int32, (R, H, W)),
-                         out=(out, torch.int32, (R, H, W)),
-                         caps=(caps, torch.float32, (R, 8, H, W)),
-                         flag=(flag, torch.int32, ()))
+    specs = dict(d=(d, torch.int32, (R, H, W)),
+                 out=(out, torch.int32, (R, H, W)),
+                 caps=(caps, torch.float32, (R, 8, H, W)))
+    if loop is not None:
+        specs["loop"] = (loop, torch.int32, (loops.LOOP_WORDS,))
+    _build.check_tensors("bfs_sweeps", **specs)
     if out.data_ptr() == d.data_ptr():
         raise ValueError("bfs_sweeps: out must be another buffer than d")
     with _build.on_device(d):
         _build.check(_build.load().phmrf_bfs_sweeps(
             d.data_ptr(), out.data_ptr(), caps.data_ptr(), R, H, W, int(n),
-            int(n_inner), flag.data_ptr(), int(tag), _build.stream_of(d)),
+            int(n_inner), 0 if loop is None else loop.data_ptr(),
+            _build.stream_of(d)),
             "K6 bfs_sweeps")
     bfs_sweeps.launches += 1
-    return out, flag
+    return out, loop
 
 
 bfs_sweeps.launches = 0
@@ -125,43 +129,47 @@ def pr_iterations_plain(e, h, cap_t, caps, n: int, n_inner: int):
 
 
 def pr_iterations(e, h, cap_t, caps, n: int, *, n_inner: int = 4, out=None,
-                  flag=None, tag: int = 1, plain: bool = False):
+                  loop=None, plain: bool = False):
     """``n_inner`` (<= 4) push-relabel iterations in one K5 launch, from
     (e, h, cap_t, caps) (not written) into ``out``, a 4-tuple of buffers
-    of the same shapes. Returns (new (e, h, cap_t, caps), flag): the 0-d
-    int32 ``flag`` holds ``tag`` iff some node is active (e > EPS, h < n)
-    after them (a new flag starts at 0)."""
+    of the same shapes, a step of the loop ``loop`` (an int32 word, or
+    None: no loop): it goes on while some node is active (e > EPS, h < n)
+    after them. Returns (new (e, h, cap_t, caps), loop)."""
     if not 1 <= n_inner <= PR_MAX_INNER:
         raise ValueError(f"pr_iterations: n_inner {n_inner} not in 1..4")
     state = (e, h, cap_t, caps)
     out = tuple(torch.empty_like(t) for t in state) if out is None else out
-    flag = _new_flag(e.device) if flag is None else flag
     if plain or e.device.type == "cpu":
         new = pr_iterations_plain(e, h, cap_t, caps, n, n_inner)
-        if torch.any((new[0] > EPS) & (new[1] < n)):
-            flag.fill_(tag)
-        return tuple(o.copy_(t) for o, t in zip(out, new)), flag
+        if loop is not None:
+            new = loops.loop_step(loop, new, state,
+                                  torch.any((new[0] > EPS) & (new[1] < n)),
+                                  n_inner)
+        return tuple(o.copy_(t) for o, t in zip(out, new)), loop
     R, H, W = e.shape
     plane = (R, H, W)
-    _build.check_tensors(
-        "pr_iterations", e=(e, torch.float32, plane),
-        h=(h, torch.int32, plane), cap_t=(cap_t, torch.float32, plane),
+    specs = dict(
+        e=(e, torch.float32, plane), h=(h, torch.int32, plane),
+        cap_t=(cap_t, torch.float32, plane),
         caps=(caps, torch.float32, (R, 8, H, W)),
         e_out=(out[0], torch.float32, plane),
         h_out=(out[1], torch.int32, plane),
         cap_t_out=(out[2], torch.float32, plane),
-        caps_out=(out[3], torch.float32, (R, 8, H, W)),
-        flag=(flag, torch.int32, ()))
+        caps_out=(out[3], torch.float32, (R, 8, H, W)))
+    if loop is not None:
+        specs["loop"] = (loop, torch.int32, (loops.LOOP_WORDS,))
+    _build.check_tensors("pr_iterations", **specs)
     if any(o.data_ptr() == t.data_ptr() for o, t in zip(out, state)):
         raise ValueError("pr_iterations: out must be other buffers than the "
                          "state")
     with _build.on_device(e):
         _build.check(_build.load().phmrf_pr_iterations(
             *(t.data_ptr() for t in state), *(t.data_ptr() for t in out),
-            R, H, W, int(n), int(n_inner), flag.data_ptr(), int(tag),
+            R, H, W, int(n), int(n_inner),
+            0 if loop is None else loop.data_ptr(),
             _build.stream_of(e)), "K5 pr_iterations")
     pr_iterations.launches += 1
-    return out, flag
+    return out, loop
 
 
 pr_iterations.launches = 0

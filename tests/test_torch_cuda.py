@@ -103,19 +103,24 @@ def test_k2_kernel_matches_plain(dev, shape):
     the changed flag that of the labels; the whole ICM loop identical."""
     from phylo_hmrf_tpu_torch.ops.icm_kernels import (
         icm_kmajor, icm_sweep_pair, icm_sweep_pair_chained)
+    from phylo_hmrf_tpu_torch.ops.loops import LOOP_GO, new_loop
 
     x = _inputs(dev, shape)
     lab0 = torch.where(x["mask"], x["warm"], 0).to(torch.int32).contiguous()
     args = (lab0, x["unary_k"], x["w"], x["mask_i"], 1.0)
-    flag = torch.zeros((), dtype=torch.int32, device=dev)
     for ro in (0, 1):
+        loop = new_loop(dev)
         n0 = icm_sweep_pair.launches
-        got = icm_sweep_pair(*args, row_offset=ro, flag=flag, tag=ro + 1)
+        got = icm_sweep_pair(*args, row_offset=ro, loop=loop)
         assert icm_sweep_pair.launches - n0 == 1
         want = icm_sweep_pair(*args, row_offset=ro, plain=True)
         assert torch.equal(got, want)
         assert torch.equal(got, icm_sweep_pair_chained(*args, row_offset=ro))
-        assert (int(flag) == ro + 1) == bool(torch.any(want != lab0))
+        assert bool(loop[LOOP_GO]) == bool(torch.any(want != lab0))
+        # the loop has stopped (GO 0): the pair passes the labels through
+        loop[LOOP_GO] = 0
+        assert torch.equal(icm_sweep_pair(*args, row_offset=ro, loop=loop),
+                           lab0)
     got = icm_kmajor(x["unary_k"], x["w"], x["mask"], x["warm"], 1.0, 60)
     want = icm_kmajor(x["unary_k"], x["w"], x["mask"], x["warm"], 1.0, 60,
                       plain=True)
@@ -270,7 +275,8 @@ def _move_graph(x):
 def test_k6_kernel_matches_plain(dev, shape):
     """8 sweeps in one launch: identical distances (Jacobi sweeps, integer
     min-plus), the input untouched, the changed flag that of the plain
-    result; then the fixpoint of both paths: identical."""
+    result; a launch after its loop stopped passes d through; then the
+    fixpoint of both paths: identical."""
     from phylo_hmrf_tpu_torch.ops.maxflow import _bfs_fixpoint
     from phylo_hmrf_tpu_torch.ops.mincut_kernels import (bfs_sweeps,
                                                          bfs_sweeps_plain)
@@ -279,11 +285,16 @@ def test_k6_kernel_matches_plain(dev, shape):
     d0 = torch.where(cap_t0 > 1e-6, 1, n).to(torch.int32).contiguous()
     keep = d0.clone()
     n0 = bfs_sweeps.launches
-    d, changed = bfs_sweeps(d0, caps0, n, n_inner=8, tag=3)
+    from phylo_hmrf_tpu_torch.ops.loops import new_loop
+    d, loop = bfs_sweeps(d0, caps0, n, n_inner=8, loop=new_loop(dev))
     want = bfs_sweeps_plain(d0, caps0, n, 8)
     assert bfs_sweeps.launches - n0 == 1
     assert torch.equal(d, want) and torch.equal(d0, keep)
-    assert (int(changed) == 3) == bool(torch.any(want != d0))
+    assert bool(loop[0]) == bool(torch.any(want != d0))
+    assert loop[3].item() == 8
+    loop[0] = 0
+    assert torch.equal(bfs_sweeps(d0, caps0, n, n_inner=8, loop=loop)[0], d0)
+    assert loop[3].item() == 8
     assert torch.equal(_bfs_fixpoint(d0.clone(), caps0, n, False, None),
                        _bfs_fixpoint(d0.clone(), caps0, n, True, None))
 
@@ -302,17 +313,24 @@ def test_k5_kernel_matches_plain(dev, shape, n_inner):
     excess0, cap_t0, caps0, n = _move_graph(_cut_inputs(dev, shape))
     d0 = torch.where(cap_t0 > 1e-6, 1, n).to(torch.int32).contiguous()
     h = _bfs_fixpoint(d0, caps0, n, True, None)
+    from phylo_hmrf_tpu_torch.ops.loops import new_loop
+
     got = want = (excess0, h, cap_t0, caps0)
-    for tag in range(1, 4):
+    for _ in range(3):
         n0 = pr_iterations.launches
-        got, flag = pr_iterations(*got, n, n_inner=n_inner, tag=tag)
+        got, loop = pr_iterations(*got, n, n_inner=n_inner,
+                                  loop=new_loop(dev))
         assert pr_iterations.launches - n0 == 1
         want = pr_iterations_plain(*want, n, n_inner)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         active = bool(torch.any((want[0] > EPS) & (want[1] < n)))
-        assert (int(flag) == tag) == active
+        assert bool(loop[0]) == active
+    loop[0] = 0     # stopped: the state passes through
+    for a, b in zip(pr_iterations(*got, n, n_inner=n_inner, loop=loop)[0],
+                    got):
+        assert torch.equal(a, b)
 
 
 def _random_cut(dev, shape, seed, directed):
@@ -361,18 +379,18 @@ def test_k6_tile_edges_match_plain(dev, shape, directed):
     """K6 at every depth 1-8, chained 3 times from a sparse sink seed (far
     from the fixpoint, so distances cross tile edges): identical to the
     plain version, the changed flag that of the plain result."""
+    from phylo_hmrf_tpu_torch.ops.loops import new_loop
     from phylo_hmrf_tpu_torch.ops.mincut_kernels import (bfs_sweeps,
                                                          bfs_sweeps_plain)
 
     _, _, caps, n, d = _random_cut(dev, shape, sum(shape), directed)
-    tag = 0
     for _ in range(3):
         for n_inner in range(1, 9):
-            tag += 1
-            got, flag = bfs_sweeps(d, caps, n, n_inner=n_inner, tag=tag)
+            got, loop = bfs_sweeps(d, caps, n, n_inner=n_inner,
+                                   loop=new_loop(dev))
             want = bfs_sweeps_plain(d, caps, n, n_inner)
             assert torch.equal(got, want), (n_inner, int((got != want).sum()))
-            assert (int(flag) == tag) == bool(torch.any(want != d))
+            assert bool(loop[0]) == bool(torch.any(want != d))
         d = want
 
 
@@ -383,6 +401,7 @@ def test_k5_tile_edges_match_plain(dev, shape, directed):
     BFS-relabelled state: bitwise equal to the plain version at tile
     edges, the grid border and ragged H, W; the active flag that of the
     plain result."""
+    from phylo_hmrf_tpu_torch.ops.loops import new_loop
     from phylo_hmrf_tpu_torch.ops.maxflow import _bfs_fixpoint
     from phylo_hmrf_tpu_torch.ops.mincut_kernels import (
         EPS, pr_iterations, pr_iterations_plain)
@@ -391,13 +410,14 @@ def test_k5_tile_edges_match_plain(dev, shape, directed):
     d0 = torch.where(cap_t > EPS, 1, n).to(torch.int32)
     h = _bfs_fixpoint(d0, caps, n, True, None)
     got = want = (e, h, cap_t, caps)
-    for tag, n_inner in enumerate([4, 4, 4, 1, 2, 3], start=1):
-        got, flag = pr_iterations(*got, n, n_inner=n_inner, tag=tag)
+    for n_inner in [4, 4, 4, 1, 2, 3]:
+        got, loop = pr_iterations(*got, n, n_inner=n_inner,
+                                  loop=new_loop(dev))
         want = pr_iterations_plain(*want, n, n_inner)
         for i, (a, b) in enumerate(zip(got, want)):
             assert torch.equal(a, b), (n_inner, i)
         active = bool(torch.any((want[0] > EPS) & (want[1] < n)))
-        assert (int(flag) == tag) == active
+        assert bool(loop[0]) == active
 
 
 def _random_estep(dev, shape, K, seed):
@@ -454,26 +474,30 @@ def test_k2_tile_edges_match_chained(dev, shape, K):
     from phylo_hmrf_tpu_torch.ops.icm_kernels import (
         icm_sweep_pair, icm_sweep_pair_chained)
 
+    from phylo_hmrf_tpu_torch.ops.loops import new_loop
+
     x = _random_estep(dev, shape, K, 1 + sum(shape) + K)
-    flag = torch.zeros((), dtype=torch.int32, device=dev)
-    lab, tag = x["lab"], 0
+    lab = x["lab"]
     for _ in range(3):
         for ro in (0, 1, -7):
-            tag += 1
+            loop = new_loop(dev)
             args = (lab, x["unary"], x["w"], x["mask"], 1.0)
-            got = icm_sweep_pair(*args, row_offset=ro, flag=flag, tag=tag)
+            got = icm_sweep_pair(*args, row_offset=ro, loop=loop)
             want = icm_sweep_pair_chained(*args, row_offset=ro)
             assert torch.equal(got, want), (ro, int((got != want).sum()))
-            assert (int(flag) == tag) == bool(torch.any(want != lab))
+            assert bool(loop[0]) == bool(torch.any(want != lab))
         lab = want
 
 
 @pytest.mark.parametrize("shape", CUT_SHAPES)
 def test_grid_mincut_kernel_matches_plain(dev, shape):
-    """The whole min cut on the kernels and on the plain versions: with
-    K5/K6 bitwise and the same schedule, the same cut and the same work
-    (host reads included); the cut's cost checked too; no run hits
-    max_sweeps."""
+    """The whole min cut on the kernels (the graph route and the host
+    loop) and on the plain versions: with K5/K6 bitwise and the same
+    schedule, the same cut and the same work (the host loop's host reads
+    included; the graph route reads once, its counters); the cut's cost
+    checked too; no run hits max_sweeps."""
+    import dataclasses
+
     from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, grid_mincut
     from phylo_hmrf_tpu_torch.ops.mincut_kernels import _nb
 
@@ -485,18 +509,25 @@ def test_grid_mincut_kernel_matches_plain(dev, shape):
             c = c + (caps0[:, a].double() * (side & ~_nb(side, a, True))).sum()
         return float(c)
 
-    sk, sp = CutStats(), CutStats()
+    sk, sh, sp = CutStats(), CutStats(), CutStats()
     got = grid_mincut(excess0, cap_t0, caps0, stats=sk)
+    host = grid_mincut(excess0, cap_t0, caps0, host_loop=True, stats=sh)
     want = grid_mincut(excess0, cap_t0, caps0, plain=True, stats=sp)
     assert sk.capped == sp.capped == 0 and sk.moves == 1
-    assert torch.equal(got, want) and sk == sp
+    assert torch.equal(got, want) and torch.equal(host, want) and sh == sp
+    assert sk.host_reads == 1 and sh.host_reads > 2
+    assert dataclasses.replace(sk, host_reads=0) == dataclasses.replace(
+        sp, host_reads=0)
     assert cost(got) == pytest.approx(cost(want), rel=1e-5)
 
 
 @pytest.mark.parametrize("shape", ["ragged", "ragged_x2"])
 def test_polish_kernel_matches_plain(dev, shape):
     """One cycle of exact expansion moves from the same K1-K3 start on the
-    kernels and on the plain versions: identical labels."""
+    kernels (graph route) and on the plain versions: identical labels and
+    work; the graph route reads the host twice (the start, the cycle)."""
+    import dataclasses
+
     from phylo_hmrf_tpu_torch.ops import maxflow as mf
 
     x = _cut_inputs(dev, shape)
@@ -508,8 +539,10 @@ def test_polish_kernel_matches_plain(dev, shape):
                                       1.0, K, "expansion", 1, plain=plain,
                                       stats=st)
                  for plain, st in zip((False, True), stats))
-    assert torch.equal(got, want)
-    assert stats[0] == stats[1] and stats[0].moves > 0
+    assert torch.equal(got, want) and stats[0].moves > 0
+    assert stats[0].host_reads == 2
+    assert dataclasses.replace(stats[0], host_reads=0) == \
+        dataclasses.replace(stats[1], host_reads=0)
 
 
 def test_polish_is_deterministic(dev):
@@ -859,3 +892,126 @@ def test_graph_solve_matches_plain_driver(dev, dtype):
                 a.view(torch.uint8), b.view(torch.uint8))
     (solve,) = graphs.values()
     assert solve.replays == 3 * 4 and solve.host_reads == 0
+
+
+# ------------------------------------------------------ the loop graphs --
+
+@pytest.mark.parametrize("shape", CUT_SHAPES)
+def test_cut_graph_matches_host_loop(dev, shape):
+    """The min cut as one CUDA graph launch (``ops/loops.py``) against
+    ``grid_mincut_host`` on the kernels: bitwise the same side and the
+    same counts (moves, iterations, sweeps, capped), twice with device
+    allocations between the calls (the graph reads only buffers it
+    keeps); a max_sweeps cap the cut hits gives the host loop's capped
+    count and side too."""
+    import dataclasses
+
+    from phylo_hmrf_tpu_torch.ops import loops
+    from phylo_hmrf_tpu_torch.ops.maxflow import (CutStats, grid_mincut,
+                                                  grid_mincut_host)
+
+    excess0, cap_t0, caps0, _ = _move_graph(_cut_inputs(dev, shape))
+    for max_sweeps in (3000, 3000, 9):
+        sg, sh = CutStats(), CutStats()
+        launches = loops.run_cut.launches
+        got = grid_mincut(excess0, cap_t0, caps0, max_sweeps, stats=sg)
+        junk = [torch.randn(4096, device=dev) for _ in range(64)]
+        want = grid_mincut_host(excess0, cap_t0, caps0, max_sweeps,
+                                stats=sh)
+        del junk
+        assert loops.run_cut.launches - launches == 1
+        assert torch.equal(got, want)
+        assert sg.host_reads == 1
+        assert dataclasses.replace(sg, host_reads=0) == \
+            dataclasses.replace(sh, host_reads=0)
+        assert (sg.capped == 1) == (max_sweeps == 9)
+
+
+@pytest.mark.parametrize("shape", CUT_SHAPES)
+def test_bfs_graph_matches_host_loop(dev, shape):
+    """The BFS fixpoint as a graph: the host loop's distances and sweeps."""
+    from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, _bfs_fixpoint
+
+    excess0, cap_t0, caps0, n = _move_graph(_cut_inputs(dev, shape))
+    d0 = torch.where(cap_t0 > 1e-6, 1, n).to(torch.int32).contiguous()
+    sg, sh = CutStats(), CutStats()
+    got = _bfs_fixpoint(d0, caps0, n, False, sg)
+    want = _bfs_fixpoint(d0.clone(), caps0, n, False, sh, host_loop=True)
+    assert torch.equal(got, want) and sg.bfs_sweeps == sh.bfs_sweeps > 0
+    assert sg.host_reads == 1
+
+
+@pytest.mark.parametrize("max_sweeps", [60, 5, 1])
+@pytest.mark.parametrize("shape", ["ragged", "ragged_x2", "chr21"])
+def test_icm_graph_matches_host_loop(dev, shape, max_sweeps):
+    """``icm_kmajor`` as a graph against its host loop on K2 (and the
+    plain version): bitwise labels, also for an odd max_sweeps (both
+    overshoot it by a sweep) and one the loop hits; no host read or
+    synchronization on the graph route (``set_sync_debug_mode``), a second
+    call after allocations agrees."""
+    from phylo_hmrf_tpu_torch.ops import loops
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
+
+    x = _cut_inputs(dev, shape)
+    args = (x["unary_k"], x["w"], x["mask"], x["warm"], 1.0, max_sweeps)
+    want = icm_kmajor(*args, host_loop=True)
+    assert torch.equal(want, icm_kmajor(*args, plain=True))
+    icm_kmajor(*args)     # builds the graph (a build may synchronize)
+    torch.cuda.synchronize()
+    launches = loops.run_icm.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = icm_kmajor(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    junk = [torch.randn(4096, device=dev) for _ in range(64)]
+    again = icm_kmajor(*args)
+    del junk
+    assert loops.run_icm.launches - launches == 2
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+@pytest.mark.parametrize("method", ["expansion", "swap"])
+@pytest.mark.parametrize("shape", ["ragged", "ragged_x2"])
+def test_optimize_graph_route_matches_host_loop(dev, shape, method):
+    """``_optimize_batched`` on the graph route against the host loop:
+    the same labels, moves, iterations, sweeps and energies; the graph
+    route reads the host once before the first cycle and once a cycle."""
+    import dataclasses
+
+    from phylo_hmrf_tpu_torch.ops import maxflow as mf
+
+    x = _cut_inputs(dev, shape)
+    K = x["unary_k"].shape[1]
+    start = mf._start_batch(x["unary_k"], x["w"], x["mask"], x["warm"], 1.0,
+                            60)
+    sg, sh = mf.CutStats(), mf.CutStats()
+    kw = dict(max_cycles=3)
+    got = mf._optimize_batched(x["unary_k"], x["w"], x["mask"], start, 1.0,
+                               K, method, stats=sg, **kw)
+    want = mf._optimize_batched(x["unary_k"], x["w"], x["mask"], start, 1.0,
+                                K, method, host_loop=True, stats=sh, **kw)
+    assert torch.equal(got, want) and sg.moves > 0
+    assert dataclasses.replace(sg, host_reads=0) == dataclasses.replace(
+        sh, host_reads=0)
+    # the cycles: 1 + cycles reads, the host loop's on top of its loops'
+    loop_reads = (sh.moves + sh.pr_iterations // 4 + sh.bfs_sweeps // 8)
+    cycles = sh.host_reads - loop_reads - 1
+    assert 1 <= cycles <= 3 and sg.host_reads == 1 + cycles
+
+
+def test_loop_graphs_per_shape(dev):
+    """A new shape builds a new graph; the same shape reuses its graph."""
+    from phylo_hmrf_tpu_torch.ops import loops
+    from phylo_hmrf_tpu_torch.ops.maxflow import grid_mincut
+
+    x = _inputs(dev, "ragged")
+    excess0, cap_t0, caps0, _ = _move_graph(x)
+    grid_mincut(excess0, cap_t0, caps0)
+    builds = loops.stats["builds"]
+    grid_mincut(excess0, cap_t0, caps0)
+    assert loops.stats["builds"] == builds
+    grid_mincut(excess0[:, :-1], cap_t0[:, :-1],
+                caps0[:, :, :-1].contiguous())
+    assert loops.stats["builds"] == builds + 1
+    assert loops.driver_version() >= loops.MIN_DRIVER

@@ -401,13 +401,15 @@ def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
                          1.0, n_inner=2)
     icm_kernels.icm_phase_(_t(labels.copy()), _t(-logprob_k), _t(wm),
                            _t(mask), 1.0, 0, 1)
-    # the sweep pair's changed flag on CPU: set iff some label changed
-    flag = torch.zeros((), dtype=torch.int32)
+    # the sweep pair's loop word on CPU: GO set iff some label changed
+    from phylo_hmrf_tpu_torch.ops import loops
+    loop = loops.new_loop(torch.device("cpu"))
     lab = _t(labels.copy())
     new = icm_kernels.icm_sweep_pair(lab, _t(-logprob_k), _t(wm), _t(mask),
-                                     1.0, row_offset=1, flag=flag, tag=4)
+                                     1.0, row_offset=1, loop=loop)
     assert torch.equal(lab, _t(labels))
-    assert (int(flag) == 4) == bool(torch.any(new != lab))
+    assert bool(loop[loops.LOOP_GO]) == bool(torch.any(new != lab))
+    assert int(loop[loops.LOOP_COUNT]) == 2
     finish_kernels.potts_energy(_t(-logprob_k), _t(mask), _t(labels),
                                 _t(wm), 1.0)
     finish_kernels.finish_stats(_t(logprob_k), _t(img_f), _t(mask),

@@ -120,9 +120,11 @@ def test_k6_plain_matches_bfs_sweeps_pallas(n_inner):
     want = np.asarray(bfs_sweeps_pallas(jnp.asarray(d0), jnp.asarray(caps),
                                         jnp.int32(n), n_inner=n_inner,
                                         interpret=True))
-    d, changed = bfs_sweeps(_t(d0), _t(caps), n, n_inner=n_inner)
+    from phylo_hmrf_tpu_torch.ops.loops import new_loop
+    d, loop = bfs_sweeps(_t(d0), _t(caps), n, n_inner=n_inner,
+                         loop=new_loop(torch.device("cpu")))
     np.testing.assert_array_equal(d.numpy(), want)
-    assert int(changed) == 1 and (want < n).sum() > (d0 < n).sum()
+    assert int(loop[0]) == 1 and (want < n).sum() > (d0 < n).sum()
 
 
 # ------------------------------------------------------------ grid cut --
@@ -378,8 +380,10 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
         assert torch.equal(a, b)
     for a, b in zip(state, (e, h, cap_t, caps)):
         np.testing.assert_array_equal(a.numpy(), b)
-    d, changed = mk.bfs_sweeps(_t(h), got[3], n, n_inner=8)
-    assert int(changed) in (0, 1)
+    from phylo_hmrf_tpu_torch.ops.loops import new_loop
+    d, loop = mk.bfs_sweeps(_t(h), got[3], n, n_inner=8,
+                            loop=new_loop(torch.device("cpu")))
+    assert int(loop[0]) in (0, 1) and int(loop[3]) == 8
     np.testing.assert_array_equal(h, _relabelled_state(
         np.random.default_rng(13), R=1, H=8, W=16)[1])
     assert (mk.pr_iterations.launches, mk.bfs_sweeps.launches) == before
@@ -390,34 +394,37 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
 
 
 def test_cpu_wrapper_flags_match_any_tests():
-    """The flags of the wrappers (their plain versions on the CPU) are the
-    loop tests the plain path reads with ``torch.any``: K6's word holds
-    the call's tag iff a distance changed, K5's iff a node is still active
+    """The loop words of the wrappers (their plain versions on the CPU)
+    are the loop tests the plain path reads with ``torch.any``: K6's GO
+    is set iff a distance changed, K5's iff a node is still active
     (e > EPS, h < n), call after call until the fixpoint and the cut end
-    (where neither is set); an older tag never reads as set."""
+    (where neither is set), and COUNT holds the sweeps / iterations
+    run."""
+    from phylo_hmrf_tpu_torch.ops import loops
     from phylo_hmrf_tpu_torch.ops import mincut_kernels as mk
-    from phylo_hmrf_tpu_torch.ops.maxflow import _Flag
 
     e, h, cap_t, caps, n = _relabelled_state(np.random.default_rng(14),
                                              R=2, H=6, W=10)
-    flag = _Flag(torch.device("cpu"))
+    loop = loops.new_loop(torch.device("cpu"))
     d = torch.where(_t(cap_t) > mk.EPS, 1, n).to(torch.int32)
     seen = set()
-    for _ in range(n):
-        new, _ = mk.bfs_sweeps(d, _t(caps), n, n_inner=3, **flag.next())
+    for k in range(1, n):
+        new, _ = mk.bfs_sweeps(d, _t(caps), n, n_inner=3, loop=loop)
         want = bool(torch.any(new != d))
-        assert flag.read(None) == want
+        assert bool(loop[loops.LOOP_GO]) == want
+        assert int(loop[loops.LOOP_COUNT]) == 3 * k
         seen.add(want)
         d = new
         if not want:
             break
     assert seen == {True, False}
     state = tuple(_t(a) for a in (e, h, cap_t, caps))
+    loop = loops.new_loop(torch.device("cpu"))
     seen = set()
     for _ in range(500):
-        state, _ = mk.pr_iterations(*state, n, n_inner=4, **flag.next())
+        state, _ = mk.pr_iterations(*state, n, n_inner=4, loop=loop)
         want = bool(torch.any((state[0] > mk.EPS) & (state[1] < n)))
-        assert flag.read(None) == want
+        assert bool(loop[loops.LOOP_GO]) == want
         seen.add(want)
         if not want:
             break
