@@ -63,6 +63,18 @@ unary at the JAX gate against the host's, one float64 E-step from the
 shards, and >= 0.99 label agreement with the float32 E-step.
 ``[f64_oracle]`` holds one float64 expansion polish on the card against
 the C++ expansion on the ``[host_swap]`` problem (energy within 0.1%).
+The float64 loops run as CUDA graphs of captured plain units:
+``[f64_profile]`` times one float64 expansion polish pass at chr21 (the
+problem's own moments, its K1-K3 start in float64) on that graph route
+(wall, device time by CUDA events around the graph launches, idle share,
+host reads; the kernels and device time of one plain K5 and K6 unit);
+``python3 chip_smoke.py --f64-profile host_loop`` runs that phase alone
+on the host-read route (plus one whole cut under ``torch.profiler``).
+``[f64_loops]`` runs the same pass on the graph and host-read routes in
+turns (labels and ``CutStats`` bitwise, host reads 1 + cycles against
+one a test, walls, device time) and one float64 ``icm_kmajor`` run and
+one float64 cut under ``set_sync_debug_mode("error")``, each bitwise
+its host loop.
 
 The command line drives the same problem from files (``[cli]``): the
 port's writer puts a chr21-scale input (657 bins, 4 species, ~194k contact
@@ -106,7 +118,10 @@ K1's 8 sweeps and K2's sweep pair on 8-row halos those of the whole grid,
 bitwise; K1 on a shard's slab bitwise its chained route); the
 row-sharded E-step of that region against the single-device E-step and for
 bitwise repeats (and the device busy time of both under
-``torch.profiler``); the region-sharded E-step of a 4-region chr21 bucket
+``torch.profiler``); that E-step and the thin block's (``[spatial_loops]``)
+with their ICM loops as one CUDA graph a run against the host-read loops,
+in turns: bitwise, walls, synchronizing calls per E-step; the
+region-sharded E-step of a 4-region chr21 bucket
 against the single-device bucket; a region-mode ``swap_tpu`` E-step over
 a bucket of two chr21 regions (``[mesh_exact]``), its labels equal to each
 region's own on one device; and a default-config spatial fit of the
@@ -755,31 +770,34 @@ def check_mincut(x, n_states, beta=1.0):
         ops=4 * OPS_PR * R * H * W)
 
     # the whole min cut: with K5/K6 bitwise and the same schedule, the
-    # same cut and the same work on the three routes (the graph reads the
-    # host once, for its counters; the host loop reads every test)
+    # same cut and the same work on the four routes (a graph, of the
+    # kernels or of the captured plain units, reads the host once, for its
+    # counters; a host loop reads every test)
     runs = {}
     for name, kw in (("kernel", {}), ("host_loop", dict(host_loop=True)),
-                     ("plain", dict(plain=True))):
+                     ("plain", dict(plain=True)),
+                     ("plain_host_loop", dict(plain=True, host_loop=True))):
         stats = mf.CutStats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         side = mf.grid_mincut(excess0, cap_t0, caps0, stats=stats, **kw)
         torch.cuda.synchronize()
         runs[name] = (side, time.perf_counter() - t0, stats)
-    for name in ("kernel", "host_loop"):
+    for name in ("kernel", "host_loop", "plain_host_loop"):
         _check(torch.equal(runs[name][0], runs["plain"][0]),
                f"min cut: the {name} route's cut differs from the plain "
                "path's")
         _check(dataclasses.replace(runs[name][2], host_reads=0)
                == dataclasses.replace(runs["plain"][2], host_reads=0),
                f"min cut: the routes did different work: {runs}")
-    _check(runs["kernel"][2].host_reads == 1
+    _check(runs["kernel"][2].host_reads == runs["plain"][2].host_reads == 1
            and runs["host_loop"][2].host_reads
-           == runs["plain"][2].host_reads, "min cut: host reads")
+           == runs["plain_host_loop"][2].host_reads, "min cut: host reads")
     cost = _cut_cost(runs["kernel"][0], excess0, cap_t0, caps0)
     cut = dict(alpha=alpha, in_play=in_play[alpha], cost=cost,
                kernel_s=runs["kernel"][1], host_loop_s=runs["host_loop"][1],
                plain_s=runs["plain"][1],
+               plain_host_loop_s=runs["plain_host_loop"][1],
                stats=dataclasses.asdict(runs["kernel"][2]),
                host_loop_stats=dataclasses.asdict(runs["host_loop"][2]))
     return out, cut, start
@@ -877,6 +895,324 @@ def profile_polish(x, start, n_states, max_cycles, beta=1.0,
             bfs_sweeps_per_move=stats.bfs_sweeps / stats.moves)
     out["graph_builds"] = dict(loops.stats)
     return out
+
+
+def f64_inputs(region, means, covs, warm, device, beta1=0.5):
+    """The float64 operands of the polish on ``region`` (R = 1), as the
+    float64 E-step forms them: unary_k, w, mask and the warm labels."""
+    import numpy as np
+    import torch
+
+    from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
+    from phylo_hmrf_tpu_torch.ops.potts import weight_maps
+
+    def dev(a, dtype=torch.float64):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return dict(
+        unary_k=-gaussian_logpdf_kmajor(dev(region.img[None]), dev(means),
+                                        dev(covs)).contiguous(),
+        w=weight_maps(dev(region.dmaps[None]), beta1).contiguous(),
+        mask=dev(region.mask[None], torch.bool),
+        warm=dev(region.labels_to_grid(warm)[None], torch.int32))
+
+
+def profile_f64_polish(x, start, n_states, max_cycles, beta=1.0,
+                       routes=("graph", "host_loop")):
+    """``[f64_profile]``: one float64 expansion polish pass (the plain
+    versions, ``plain=True``) from ``start`` on the float64 operands
+    ``x``, on each route of ``routes`` (``graph``: the captured plain
+    units in the loop graphs; ``host_loop``: a host read a test):
+    wall, host reads, the pass's counts. Per route: its device time, on
+    the graph route the CUDA-event spans of the graph launches (the
+    moves' tensor code outside them is not in it), on the host-read
+    route the units' device time (K5 units x one unit's, K6 units x one
+    unit's, by ``torch.profiler``); the idle share against the wall. On
+    the host-read route also one whole cut (the move with the most
+    pixels in play) profiled: its wall, device busy and idle share. And
+    the kernels one plain K5 unit (4 iterations) and one plain K6 unit (8
+    sweeps) launch, with their device time."""
+    import dataclasses
+
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops import loops
+    from phylo_hmrf_tpu_torch.ops import maxflow as mf
+    from phylo_hmrf_tpu_torch.ops.mincut_kernels import (
+        EPS, bfs_sweeps, pr_iterations)
+
+    wsum = mf._incident_wsum(x["w"], beta)
+    in_play = [int(mf._expansion_graph(start, x["unary_k"], x["w"],
+                                       x["mask"], a, beta, wsum)[3].sum())
+               for a in range(n_states)]
+    alpha = max(range(n_states), key=in_play.__getitem__)
+    excess0, cap_t0, caps0, _ = mf._expansion_graph(
+        start, x["unary_k"], x["w"], x["mask"], alpha, beta, wsum)
+    R, H, W = excess0.shape
+    n = H * W + 2
+    h0 = torch.zeros((R, H, W), dtype=torch.int32, device=excess0.device)
+    d0 = torch.where(cap_t0 > EPS, 1, n).to(torch.int32)
+    k5_s, k5_n, _ = _device_busy_s(lambda: pr_iterations(
+        excess0, h0, cap_t0, caps0, n, n_inner=4, plain=True,
+        loop=loops.new_loop(excess0.device)))
+    k6_s, k6_n, _ = _device_busy_s(lambda: bfs_sweeps(
+        d0, caps0, n, n_inner=8, plain=True,
+        loop=loops.new_loop(excess0.device)))
+    out = dict(shape=[R, H, W], alpha=alpha, in_play=in_play[alpha],
+               k5_unit_kernels=k5_n, k5_unit_device_ms=k5_s * 1e3,
+               k6_unit_kernels=k6_n, k6_unit_device_ms=k6_s * 1e3)
+    labels = {}
+    for route in routes:
+        stats = mf.CutStats()
+
+        def run(st=None):
+            return mf._optimize_batched(
+                x["unary_k"], x["w"], x["mask"], start, beta, n_states,
+                "expansion", max_cycles, plain=True,
+                host_loop=route == "host_loop", stats=st)
+        if route == "graph":
+            run()     # the graphs are built (the first pass of a shape)
+        torch.cuda.synchronize()
+        with _graph_spans() as spans:
+            t0 = time.perf_counter()
+            labels[route] = run(stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rec = dict(wall_s=wall, host_reads=stats.host_reads,
+                   stats=dataclasses.asdict(stats))
+        if route == "graph":
+            busy = spans.seconds()
+            rec.update(graph_launches=len(spans.pairs), graph_span_s=busy)
+        else:
+            busy = (stats.pr_iterations / 4 * k5_s
+                    + stats.bfs_sweeps / 8 * k6_s)
+            rec["units_device_s"] = busy
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mf.grid_mincut_host(excess0, cap_t0, caps0, plain=True)
+            torch.cuda.synchronize()
+            cut_wall = time.perf_counter() - t0
+            cut_busy, cut_n, _ = _device_busy_s(lambda: mf.grid_mincut_host(
+                excess0, cap_t0, caps0, plain=True))
+            rec["one_cut"] = dict(wall_s=cut_wall, device_busy_s=cut_busy,
+                                  kernels=cut_n, idle_share=max(
+                                      0.0, 1.0 - cut_busy / cut_wall))
+        rec["idle_share"] = max(0.0, 1.0 - busy / wall)
+        out[route] = rec
+    if len(labels) == 2:
+        _check(torch.equal(labels["graph"], labels["host_loop"]),
+               "[f64_profile] the routes' labels differ")
+    return out
+
+
+def check_f64_loops(x, start, n_states, cycles, turns=1, beta=1.0):
+    """``[f64_loops]``: the float64 loops on the card as graphs of
+    captured plain units (``plain=True``) against their host-read plain
+    routes, on the float64 operands ``x`` of the chr21 problem: the
+    expansion polish pass (``cycles`` cycles from ``start``) on the graph
+    route and on the host loop in turns (``turns`` of each; one keeps
+    the smoke in its time: a host-read pass is ~25-30 s), labels
+    bitwise and the same ``CutStats`` but host reads (1 + cycles on the
+    graph route), walls, the graph route's device time (CUDA events
+    around each graph launch) and idle share; one ``icm_kmajor`` run in
+    float64 from the warm labels, bitwise its host loop, and one float64
+    cut of the pass's first move, each launched under
+    ``torch.cuda.set_sync_debug_mode("error")``; the graphs built, their
+    seconds and pool bytes."""
+    import dataclasses
+
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops import loops
+    from phylo_hmrf_tpu_torch.ops import maxflow as mf
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
+
+    runs = {"graph": [], "host_loop": []}
+    for route in ("graph", "host_loop") * turns:
+        stats = mf.CutStats()
+        torch.cuda.synchronize()
+        with _graph_spans() as spans:
+            t0 = time.perf_counter()
+            lab = mf._optimize_batched(
+                x["unary_k"], x["w"], x["mask"], start, beta, n_states,
+                "expansion", cycles, plain=True,
+                host_loop=route == "host_loop", stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[route].append(dict(labels=lab, wall_s=wall, stats=stats,
+                                graph_s=spans.seconds(),
+                                graph_launches=len(spans.pairs)))
+    ref = runs["host_loop"][0]
+    for route, rs in runs.items():
+        for r in rs:
+            _check(torch.equal(r["labels"], ref["labels"]),
+                   f"[f64_loops] the {route} route's labels differ in "
+                   f"{int((r['labels'] != ref['labels']).sum())} pixels")
+            _check(_same_work(r["stats"], ref["stats"]),
+                   f"[f64_loops] the {route} route did other work: "
+                   f"{r['stats']} vs {ref['stats']}")
+    st = ref["stats"]
+    loop_reads = st.moves + st.pr_iterations // 4 + st.bfs_sweeps // 8
+    n_cycles = st.host_reads - loop_reads - 1
+    graph = runs["graph"]
+    _check(all(r["stats"].host_reads == 1 + n_cycles for r in graph),
+           f"[f64_loops] host reads on the graph route: "
+           f"{[r['stats'].host_reads for r in graph]}, {n_cycles} cycles")
+    _check(all(r["graph_launches"] == st.moves for r in graph),
+           "[f64_loops] a move was not one graph launch")
+    rec = dict(
+        cycles=n_cycles, moves=st.moves, bitwise=True,
+        graph_s=[r["wall_s"] for r in graph],
+        host_loop_s=[r["wall_s"] for r in runs["host_loop"]],
+        graph_device_s=[r["graph_s"] for r in graph],
+        graph_idle_share=[max(0.0, 1.0 - r["graph_s"] / r["wall_s"])
+                          for r in graph],
+        host_reads_graph=graph[0]["stats"].host_reads,
+        host_reads_host_loop=st.host_reads,
+        stats=dataclasses.asdict(graph[0]["stats"]))
+
+    # one ICM run and one cut, each a graph launch with no synchronization
+    args = (x["unary_k"], x["w"], x["mask"], x["warm"], beta, 60)
+    want = icm_kmajor(*args, plain=True, host_loop=True)
+    icm_kmajor(*args, plain=True)        # the shape's graph, built
+    wsum = mf._incident_wsum(x["w"], beta)
+    excess0, cap_t0, caps0, _ = mf._expansion_graph(
+        start, x["unary_k"], x["w"], x["mask"], 0, beta, wsum)
+    cut_want = mf.grid_mincut(excess0, cap_t0, caps0, plain=True,
+                              host_loop=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = icm_kmajor(*args, plain=True)
+        cut = mf.grid_mincut(excess0, cap_t0, caps0, plain=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _check(torch.equal(got, want), "[f64_loops] icm_kmajor: the graph's "
+           f"labels differ in {int((got != want).sum())} pixels")
+    _check(torch.equal(cut, cut_want), "[f64_loops] the float64 cut's "
+           "graph differs from its host loop")
+    walls = {"graph": [], "host_loop": []}
+    for route in ("host_loop", "graph", "graph", "host_loop"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        icm_kmajor(*args, plain=True, host_loop=route == "host_loop")
+        torch.cuda.synchronize()
+        walls[route].append(time.perf_counter() - t0)
+    rec["icm"] = dict(bitwise=True, sync_debug_error_ok=True,
+                      graph_s=walls["graph"], host_loop_s=walls["host_loop"])
+    rec["cut_sync_debug_error_ok"] = True
+    rec["graph_builds"] = dict(loops.stats)
+    rec["graphs"] = [dict(kind=type(g).__name__, plain=g.plain,
+                          pool_bytes=g.units.pool_bytes)
+                     for g in loops._cache.values() if g.units is not None]
+    return rec
+
+
+def _host_reads(fn):
+    """(the result of ``fn()``, the synchronizing CUDA calls it made:
+    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings, counted)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing" in str(w.message) for w in seen)
+
+
+def check_spatial_loops(mesh, device, ten_kb, thin_reps=3):
+    """``[spatial_loops]``: the row-sharded E-step on one card with its ICM
+    loop as one graph (``parallel/halo.py::_icm_halo_graph``) against the
+    host-read loop (``host_loop=True``), in turns (host, graph, graph,
+    host), on the 10 kb region (4 shards of 816 rows: the K2 branch;
+    ``ten_kb`` = (img, mask, dmaps, warm, means, covs)) and on the
+    spatial fit's off-diagonal block (4 shards of 6 rows: the K8 branch):
+    labels, statistics and costs bitwise equal; walls; the synchronizing
+    calls an E-step makes (``_host_reads``: 0 from the ICM loops on the
+    graph route)."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops import loops
+    from phylo_hmrf_tpu_torch.parallel.halo import make_rowsharded_estep
+
+    _, off, mo, co, wo, _ = offdiag_block()
+
+    def dev(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    thin = (dev(off.img), dev(off.mask), dev(off.dmaps),
+            dev(off.labels_to_grid(wo), torch.int32),
+            dev(mo, torch.float32), dev(co, torch.float32))
+    rec = {}
+    for name, args, reps in (("10kb", ten_kb, 1), ("thin", thin, thin_reps)):
+        fns = {route: make_rowsharded_estep(
+            mesh, weighted_pp=False, max_sweeps=60,
+            host_loop=route == "host_loop") for route in ("graph",
+                                                         "host_loop")}
+        full = (*args, 1.0, 0.5)
+        for fn in fns.values():         # the graphs built, the allocator
+            fn(*full)
+        walls = {"graph": [], "host_loop": []}
+        outs, reads = {}, {}
+        for route in ("host_loop", "graph", "graph", "host_loop"):
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fns[route](*full)
+                torch.cuda.synchronize()
+                walls[route].append(time.perf_counter() - t0)
+            outs.setdefault(route, out)
+        for route in fns:
+            _, reads[route] = _host_reads(lambda: fns[route](*full))
+        a, b = (_estep_digests(outs[r]) for r in ("graph", "host_loop"))
+        _check(a == b, f"[spatial_loops] {name}: the graph route's E-step "
+               f"differs from the host loop's: {a} vs {b}")
+        _check(reads["graph"] < reads["host_loop"],
+               f"[spatial_loops] {name}: host reads {reads}")
+        rec[name] = dict(shape=list(args[0].shape), shards=mesh.size,
+                         bitwise=True, graph_s=walls["graph"],
+                         host_loop_s=walls["host_loop"],
+                         syncs_per_estep=reads)
+    rec["graph_launches"] = loops.run_unit_loop.launches
+    rec["graph_builds"] = dict(loops.stats)
+    return rec
+
+
+def f64_profile_main() -> int:
+    """``python3 chip_smoke.py --f64-profile``: ``[f64_profile]`` alone
+    (the chr21 problem's own moments, its K1-K3 start in float64), on
+    the routes named after the flag (default both)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from phylo_hmrf_tpu_torch import PhyloHMRFConfig
+    from phylo_hmrf_tpu_torch.ops.maxflow import _start_batch
+    from phylo_hmrf_tpu_torch.synth import chr21_problem
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    routes = tuple(sys.argv[sys.argv.index("--f64-profile") + 1:]) or (
+        "graph", "host_loop")
+    _, region, means, covs, warm, _ = chr21_problem(0)
+    x = f64_inputs(region, means, covs, warm, torch.device("cuda"))
+    cfg = PhyloHMRFConfig()
+    start = _start_batch(x["unary_k"], x["w"], x["mask"], x["warm"], 1.0,
+                         cfg.icm_max_sweeps, plain=True)
+    rec = profile_f64_polish(x, start, means.shape[0], cfg.swap_tpu_cycles,
+                             routes=routes)
+    print(f"[f64_profile] {json.dumps(rec)}")
+    print(smi)
+    return 0
 
 
 # kernels that run inside the loop graphs (csrc/loops.cu and the node
@@ -1141,25 +1477,39 @@ def _counters():
             "K7_mf_sweeps_halo": mf_kernels.mf_sweeps_halo,
             "K8_icm_sweep_halo": icm_kernels.icm_sweep_halo_,
             "G_icm_loop": loops.run_icm, "G_cut_loop": loops.run_cut,
-            "G_bfs_loop": loops.run_bfs}
+            "G_bfs_loop": loops.run_bfs,
+            "G_halo_icm_loop": loops.run_unit_loop}
 
 
-# the loop graph that launches a kernel on the card, and the kernel's
+def _plain_graph_launches():
+    """Launches of the loop graphs of captured plain units (the float64
+    mode's), by graph; they launch none of K1-K8."""
+    from phylo_hmrf_tpu_torch.ops import loops
+
+    return {name: fn.plain_launches for name, fn in (
+        ("G_icm_loop", loops.run_icm), ("G_cut_loop", loops.run_cut),
+        ("G_bfs_loop", loops.run_bfs),
+        ("G_halo_icm_loop", loops.run_unit_loop))}
+
+
+# the loop graphs that launch a kernel on the card, and the kernel's
 # name in loops.kernel_launches()
-GRAPH_OF = {"K2_icm_phase": ("G_icm_loop", "K2"),
-            "K5_pr_iterations": ("G_cut_loop", "K5"),
-            "K6_bfs_sweeps": ("G_cut_loop", "K6")}
+GRAPH_OF = {"K2_icm_phase": (("G_icm_loop", "G_halo_icm_loop"), "K2"),
+            "K5_pr_iterations": (("G_cut_loop",), "K5"),
+            "K6_bfs_sweeps": (("G_cut_loop",), "K6"),
+            "K8_icm_sweep_halo": (("G_halo_icm_loop",), "K8")}
 
 
 def _ran(launches, name):
     """Whether kernel ``name`` ran: launched by its wrapper, or by a
-    launch of the loop graph that holds it."""
-    graph = GRAPH_OF.get(name, (None,))[0]
-    return launches.get(name, 0) + launches.get(graph, 0) > 0
+    launch of a loop graph that holds it."""
+    graphs = GRAPH_OF.get(name, ((),))[0]
+    return launches.get(name, 0) + sum(launches.get(g, 0)
+                                       for g in graphs) > 0
 
 
 def _graph_kernels():
-    """The K2, K5 and K6 launches made inside loop graphs so far, read
+    """The K2, K5, K6 and K8 launches made inside loop graphs so far, read
     from the graphs' counters on the card (a read per graph)."""
     from phylo_hmrf_tpu_torch.ops import loops
 
@@ -1167,8 +1517,8 @@ def _graph_kernels():
 
 
 def _add_graph_kernels(launches, before):
-    """``launches`` (by kernel) with the K2 / K5 / K6 launches made inside
-    loop graphs since ``before`` (`_graph_kernels`) added."""
+    """``launches`` (by kernel) with the K2 / K5 / K6 / K8 launches made
+    inside loop graphs since ``before`` (`_graph_kernels`) added."""
     now = _graph_kernels()
     out = dict(launches)
     for name, (_, key) in GRAPH_OF.items():
@@ -1682,9 +2032,12 @@ def check_f64(tree, region, state, fit_launches, device):
                           dtype="float64")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    plain0 = _plain_graph_launches()
     t0 = time.perf_counter()
     run = fit_model(tree, [region], cfg, device=device, count_init=True)
     fit_s = time.perf_counter() - t0
+    plain_graphs = {k: v - plain0[k]
+                    for k, v in _plain_graph_launches().items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     res, model = run.res, run.model
     _check(model._dtype == torch.float64 and not model._use_kernels,
@@ -1759,6 +2112,7 @@ def check_f64(tree, region, state, fit_launches, device):
         polish=dict(moves=st.moves, pr_iterations=st.pr_iterations,
                     bfs_sweeps=st.bfs_sweeps, host_reads=st.host_reads,
                     energy_start=st.energy_start, energy_end=st.energy_end),
+        plain_graph_launches=plain_graphs,
         estep_bitwise_repeat=True, spatial_shards=SHARDS,
         spatial_bitwise_single=True, f32_label_agreement=agree,
         f32_cost_rel=float(np.max(np.abs(f32[4] - one[4])
@@ -3087,6 +3441,18 @@ def main() -> int:
     f64 = check_f64(tree, region, run.state, run.launches, dev)
     print(f"[f64] {json.dumps(f64)}")
     print(f"[f64_oracle] {json.dumps(check_f64_oracle(dev))}")
+    # the float64 loops as graphs of captured plain units: the polish
+    # pass profiled on the graph route (the host-read route's profile:
+    # --f64-profile host_loop), then both routes in turns
+    x64 = f64_inputs(region, means, covs, warm, dev)
+    start64 = _start_batch(x64["unary_k"], x64["w"], x64["mask"],
+                           x64["warm"], 1.0, PhyloHMRFConfig().icm_max_sweeps,
+                           plain=True)
+    prof64 = profile_f64_polish(x64, start64, K, cycles, routes=("graph",))
+    print(f"[f64_profile] {json.dumps(prof64)}")
+    print(f"[f64_loops] "
+          f"{json.dumps(check_f64_loops(x64, start64, K, cycles))}")
+    del x64, start64
     torch.cuda.empty_cache()
     # the command line's path: the same fit from files, then its resume
     cli_launches = check_cli()
@@ -3137,6 +3503,11 @@ def main() -> int:
                   for a in (m10, c10))
     sp = check_spatial_estep(x10, img10, dmaps10, m10t, c10t, mesh)
     print(f"[spatial_estep] {json.dumps(sp)}")
+    # the row-sharded ICM loop as one graph on the card, against its host
+    # loop: the 10 kb E-step (K2 branch) and the thin block's (K8)
+    spl = check_spatial_loops(mesh, dev, (img10, x10["mask"][0], dmaps10,
+                                          x10["warm"][0], m10t, c10t))
+    print(f"[spatial_loops] {json.dumps(spl)}")
     del x10, img10, dmaps10
     # the plain versions at 10 kb leave tens of GB in the allocator's
     # cache; give it back before the fits that follow
@@ -3233,5 +3604,7 @@ if __name__ == "__main__":
         sys.exit(cli_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--xmesh-rank"]:
         sys.exit(xmesh_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--f64-profile"]:
+        sys.exit(f64_profile_main())
     sys.exit(count_launches_main() if "--count-launches" in sys.argv[1:]
              else main())

@@ -164,17 +164,21 @@ _SIGNATURES = {
     #     stream
     "phmrf_bfs_sweeps": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # the loop graphs (loops.cu), each writing its executable graph to the
-    # last pointer. BFS fixpoint: d0, d1, caps, R, H, W, n, bfs word,
-    # counters
-    "phmrf_graph_bfs": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # last pointer; `units`: null (kernel nodes) or an array of captured
+    # graphs (child nodes). BFS fixpoint: d0, d1, caps, R, H, W, n, bfs
+    # word, counters, units
+    "phmrf_graph_bfs": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # min cut: e, h, cap_t, caps, the other set of four, d0, d1, R, H, W,
-    #     n, pr word, bfs word, counters
+    #     n, pr word, bfs word, counters, units
     "phmrf_graph_cut": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _P, _P, _P, _P],
+                        _I, _P, _P, _P, _P, _P],
     # ICM: l0, l1, unary, w, mask, R, K, H, W, beta, tile rows, tile cols,
-    #     threads, loop word, counters
+    #     threads, loop word, counters, units
     "phmrf_graph_icm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
-                        _P, _P, _P],
+                        _P, _P, _P, _P],
+    # a unit loop: the captured unit, loop word, counters, the counter of
+    #     its launches, launches a body
+    "phmrf_graph_unit_loop": [_P, _P, _P, _I, _I, _P],
     # executable graph, stream
     "phmrf_graph_launch": [_P, _P],
     "phmrf_graph_destroy": [_P],

@@ -27,11 +27,22 @@
 //     then WHILE {K2 pair l0 -> l1, K2 l1 -> l0, cond}: pairs run while a
 //     label changed and fewer than max_sweeps sweeps ran (an odd max_sweeps
 //     is overshot by one sweep, as in JAX); the labels end in l0.
+//   A unit loop: begin (as ICM's), then WHILE {unit, cond}: one captured
+//     unit a body that ends by writing the word (the row-sharded ICM of
+//     parallel/halo.py: a sweep pair or a sweep over a card's shards).
 // The cond nodes (one thread) add to the graph's int64 counters what the
 // loop did (iterations, sweeps, launches, loops stopped at their limit)
 // and set the WHILE node's condition from the word. Bound: the kernels'
 // own; each node adds a few microseconds of the card's launch latency and
 // no host time.
+//
+// Each body unit is a kernel node (K2, K5, K6, the seed and height-max
+// kernels below) or, where a graph is built with `units`, a child graph
+// node: a unit of PyTorch tensor code that ops/loops.py captured
+// (torch.cuda.CUDAGraph with keep_graph) on the same buffers and words,
+// the plain versions of K2/K5/K6 in the operands' dtype (float64 in the
+// strict-parity mode). Both kinds run the same program in the same node
+// order; a plain graph counts its units at T_U* instead of T_K*.
 #include "common.cuh"
 #include "loops.cuh"
 
@@ -45,6 +56,11 @@
 #define T_K2 6           // K2 launches
 #define T_ICM_SWEEPS 7   // ICM sweeps
 #define T_ICM_CAPPED 8   // ICM runs stopped at max_sweeps with a change
+#define T_U5 9           // captured plain K5 units (a plain graph's)
+#define T_U6 10          // captured plain K6 units
+#define T_U2 11          // captured plain K2 units
+#define T_K8 12          // K8 launches (the row-sharded unit loop)
+#define T_U8 13          // captured plain K8 units
 #define T_WORDS 16
 
 #define W_(loop, k) (loop)[PHMRF_LOOP_##k]
@@ -62,9 +78,9 @@ __global__ void cut_begin_kernel(int* pr, long long* tot,
   cudaGraphSetConditional(h, go);
 }
 
-__global__ void cut_cond_kernel(int* pr, long long* tot,
+__global__ void cut_cond_kernel(int* pr, long long* tot, int slot,
                                 cudaGraphConditionalHandle h) {
-  tot[T_K5] += 8;
+  tot[slot] += 8;
   const int go = W_(pr, GO);
   if (!go) {
     tot[T_PR_ITERS] += W_(pr, COUNT);
@@ -86,9 +102,9 @@ __global__ void bfs_begin_kernel(int* bfs, const int* gate, int n,
   cudaGraphSetConditional(h, go);
 }
 
-__global__ void bfs_cond_kernel(int* bfs, long long* tot,
+__global__ void bfs_cond_kernel(int* bfs, long long* tot, int slot,
                                 cudaGraphConditionalHandle h) {
-  tot[T_K6] += 2;
+  tot[slot] += 2;
   const int go = W_(bfs, GO);
   if (!go) tot[T_BFS_SWEEPS] += W_(bfs, COUNT);
   cudaGraphSetConditional(h, go);
@@ -106,9 +122,12 @@ __global__ void icm_begin_kernel(int* L, long long* tot,
   cudaGraphSetConditional(h, go);
 }
 
-__global__ void icm_cond_kernel(int* L, long long* tot,
+// slot, per_body: the counter of the body's launches and how many it
+// makes
+__global__ void icm_cond_kernel(int* L, long long* tot, int slot,
+                                int per_body,
                                 cudaGraphConditionalHandle h) {
-  tot[T_K2] += 2;
+  tot[slot] += per_body;
   const int go = W_(L, GO);
   if (!go) {
     tot[T_ICM_SWEEPS] += W_(L, COUNT);
@@ -181,11 +200,26 @@ static cudaError_t add_while(cudaGraph_t g, cudaGraphNode_t* last,
     if (err_ != cudaSuccess) return err_;      \
   } while (0)
 
-// The BFS fixpoint behind *last in g: d0 -> d1 -> d0 in each body
+// A child graph node behind *last: a clone of `child` (a captured unit),
+// which reads and writes memory by the addresses captured in it.
+static cudaError_t add_child(cudaGraph_t g, cudaGraphNode_t* last,
+                             void* child) {
+  if (child == nullptr) return cudaErrorInvalidValue;
+  cudaGraphNode_t node;
+  CK(cudaGraphAddChildGraphNode(&node, g, *last ? last : nullptr,
+                                *last ? 1 : 0, (cudaGraph_t)child));
+  *last = node;
+  return cudaSuccess;
+}
+
+// The BFS fixpoint behind *last in g: d0 -> d1 -> d0 in each body (K6
+// launches, or the captured units units[0] = d0 -> d1, units[1] = d1 ->
+// d0)
 static cudaError_t add_bfs_loop(cudaGraph_t g, cudaGraphNode_t* last,
                                 int* d0, int* d1, const float* caps, int R,
                                 int H, int W, int n, int* bfs,
-                                const int* gate, long long* tot) {
+                                const int* gate, long long* tot,
+                                void* const* units) {
   cudaGraphConditionalHandle h;
   CK(cudaGraphConditionalHandleCreate(&h, g, 0, 0));
   void* begin[] = {&bfs, &gate, &n, &h};
@@ -193,9 +227,15 @@ static cudaError_t add_bfs_loop(cudaGraph_t g, cudaGraphNode_t* last,
   cudaGraph_t body;
   CK(add_while(g, last, h, &body));
   cudaGraphNode_t b = nullptr;
-  CK(phmrf_bfs_node(body, &b, d0, d1, caps, R, H, W, n, 8, bfs));
-  CK(phmrf_bfs_node(body, &b, d1, d0, caps, R, H, W, n, 8, bfs));
-  void* cond[] = {&bfs, &tot, &h};
+  if (units) {
+    CK(add_child(body, &b, units[0]));
+    CK(add_child(body, &b, units[1]));
+  } else {
+    CK(phmrf_bfs_node(body, &b, d0, d1, caps, R, H, W, n, 8, bfs));
+    CK(phmrf_bfs_node(body, &b, d1, d0, caps, R, H, W, n, 8, bfs));
+  }
+  int slot = units ? T_U6 : T_K6;
+  void* cond[] = {&bfs, &tot, &slot, &h};
   return add_one_thread(body, &b, (const void*)&bfs_cond_kernel, cond);
 }
 
@@ -208,16 +248,8 @@ static cudaError_t instantiate(cudaGraph_t g, void** exec) {
   return cudaSuccess;
 }
 
-// The BFS fixpoint from d0 (the seed) over caps; distances end in d0.
-extern "C" int phmrf_graph_bfs(int* d0, int* d1, const float* caps, int R,
-                               int H, int W, int n, int* bfs, long long* tot,
-                               void** exec) {
-  CK(phmrf_prepare_mincut());
-  cudaGraph_t g;
-  CK(cudaGraphCreate(&g, 0));
-  cudaGraphNode_t last = nullptr;
-  const cudaError_t err = add_bfs_loop(g, &last, d0, d1, caps, R, H, W, n,
-                                       bfs, nullptr, tot);
+// instantiate g (destroyed either way) unless building it failed
+static int finish(cudaGraph_t g, cudaError_t err, void** exec) {
   if (err != cudaSuccess) {
     cudaGraphDestroy(g);
     return (int)err;
@@ -225,10 +257,25 @@ extern "C" int phmrf_graph_bfs(int* d0, int* d1, const float* caps, int R,
   return (int)instantiate(g, exec);
 }
 
+// The BFS fixpoint from d0 (the seed) over caps; distances end in d0.
+// units: null (K6), or the captured units d0 -> d1, d1 -> d0.
+extern "C" int phmrf_graph_bfs(int* d0, int* d1, const float* caps, int R,
+                               int H, int W, int n, int* bfs, long long* tot,
+                               void* const* units, void** exec) {
+  if (!units) CK(phmrf_prepare_mincut());
+  cudaGraph_t g;
+  CK(cudaGraphCreate(&g, 0));
+  cudaGraphNode_t last = nullptr;
+  return finish(g, add_bfs_loop(g, &last, d0, d1, caps, R, H, W, n, bfs,
+                                nullptr, tot, units), exec);
+}
+
+// units (captured, or null: kernels): seed, BFS d0 -> d1, BFS d1 -> d0,
+// height max, K5 A -> B, K5 B -> A
 static cudaError_t build_cut(cudaGraph_t g, float* const* a, int* const* ai,
                              float* const* b, int* const* bi, int* d0,
                              int* d1, int R, int H, int W, int n, int* pr,
-                             int* bfs, long long* tot) {
+                             int* bfs, long long* tot, void* const* units) {
   // a = {e, cap_t, caps}, ai = {h} of the carry; b, bi the other set
   const long N = (long)R * H * W;
   cudaGraphConditionalHandle hc;
@@ -243,57 +290,71 @@ static cudaError_t build_cut(cudaGraph_t g, float* const* a, int* const* ai,
   float* ct = a[1];
   int* h = ai[0];
   void* seed[] = {&ct, &d0, const_cast<long*>(&N), &n};
-  CK(add_elementwise(body, &c, (const void*)&cut_seed_kernel, N, seed));
-  CK(add_bfs_loop(body, &c, d0, d1, a[2], R, H, W, n, bfs, pr, tot));
+  void* const* bfs_units = units ? units + 1 : nullptr;
+  if (units)
+    CK(add_child(body, &c, units[0]));
+  else
+    CK(add_elementwise(body, &c, (const void*)&cut_seed_kernel, N, seed));
+  CK(add_bfs_loop(body, &c, d0, d1, a[2], R, H, W, n, bfs, pr, tot,
+                  bfs_units));
   void* hmax[] = {&h, &d0, const_cast<long*>(&N), &pr};
-  CK(add_elementwise(body, &c, (const void*)&cut_hmax_kernel, N, hmax));
+  if (units)
+    CK(add_child(body, &c, units[3]));
+  else
+    CK(add_elementwise(body, &c, (const void*)&cut_hmax_kernel, N, hmax));
   for (int k = 0; k < 8; ++k) {
     float* const* src = k % 2 ? b : a;
     float* const* dst = k % 2 ? a : b;
     int* const* srci = k % 2 ? bi : ai;
     int* const* dsti = k % 2 ? ai : bi;
-    CK(phmrf_pr_node(body, &c, src[0], srci[0], src[1], src[2], dst[0],
-                     dsti[0], dst[1], dst[2], R, H, W, n, 4, pr));
+    if (units)
+      CK(add_child(body, &c, units[4 + k % 2]));
+    else
+      CK(phmrf_pr_node(body, &c, src[0], srci[0], src[1], src[2], dst[0],
+                       dsti[0], dst[1], dst[2], R, H, W, n, 4, pr));
   }
-  void* cond[] = {&pr, &tot, &hc};
+  int slot = units ? T_U5 : T_K5;
+  void* cond[] = {&pr, &tot, &slot, &hc};
   CK(add_one_thread(body, &c, (const void*)&cut_cond_kernel, cond));
 
   // the source side: the final BFS over the residual graph
-  CK(add_elementwise(g, &last, (const void*)&cut_seed_kernel, N, seed));
+  if (units)
+    CK(add_child(g, &last, units[0]));
+  else
+    CK(add_elementwise(g, &last, (const void*)&cut_seed_kernel, N, seed));
   return add_bfs_loop(g, &last, d0, d1, a[2], R, H, W, n, bfs, nullptr,
-                      tot);
+                      tot, bfs_units);
 }
 
 // The min cut of the carry (e, h, cap_t, caps), which the caller filled
 // (h = 0), with the other set (e2, h2, ct2, caps2) as the ping-pong's;
 // the pr word holds GO (some e > eps) and LIMIT (max_sweeps). The
-// distances of the final BFS end in d0.
+// distances of the final BFS end in d0. units: null (the kernels), or the
+// six captured units of build_cut (then the data pointers go unused).
 extern "C" int phmrf_graph_cut(float* e, int* h, float* cap_t, float* caps,
                                float* e2, int* h2, float* ct2, float* caps2,
                                int* d0, int* d1, int R, int H, int W, int n,
                                int* pr, int* bfs, long long* tot,
-                               void** exec) {
-  CK(phmrf_prepare_mincut());
+                               void* const* units, void** exec) {
+  if (!units) CK(phmrf_prepare_mincut());
   cudaGraph_t g;
   CK(cudaGraphCreate(&g, 0));
   float* a[] = {e, cap_t, caps};
   int* ai[] = {h};
   float* b[] = {e2, ct2, caps2};
   int* bi[] = {h2};
-  const cudaError_t err =
-      build_cut(g, a, ai, b, bi, d0, d1, R, H, W, n, pr, bfs, tot);
-  if (err != cudaSuccess) {
-    cudaGraphDestroy(g);
-    return (int)err;
-  }
-  return (int)instantiate(g, exec);
+  return finish(g, build_cut(g, a, ai, b, bi, d0, d1, R, H, W, n, pr, bfs,
+                             tot, units), exec);
 }
 
+// begin, then WHILE {the body's units, cond}: `n_units` captured units a
+// body (units non-null), or the two K2 pairs l0 -> l1 -> l0
 static cudaError_t build_icm(cudaGraph_t g, int* l0, int* l1,
                              const float* unary, const float* w,
                              const int* mask, int R, int K, int H, int W,
                              float beta, int th, int tw, int threads,
-                             int* loop, long long* tot) {
+                             int* loop, long long* tot, void* const* units,
+                             int n_units, int slot, int per_body) {
   cudaGraphConditionalHandle h;
   CK(cudaGraphConditionalHandleCreate(&h, g, 0, 0));
   cudaGraphNode_t last = nullptr;
@@ -302,31 +363,46 @@ static cudaError_t build_icm(cudaGraph_t g, int* l0, int* l1,
   cudaGraph_t body;
   CK(add_while(g, &last, h, &body));
   cudaGraphNode_t b = nullptr;
-  CK(phmrf_icm_pair_node(body, &b, l0, l1, unary, w, mask, R, K, H, W, beta,
-                         0, th, tw, threads, loop));
-  CK(phmrf_icm_pair_node(body, &b, l1, l0, unary, w, mask, R, K, H, W, beta,
-                         0, th, tw, threads, loop));
-  void* cond[] = {&loop, &tot, &h};
+  if (units) {
+    for (int k = 0; k < n_units; ++k) CK(add_child(body, &b, units[k]));
+  } else {
+    CK(phmrf_icm_pair_node(body, &b, l0, l1, unary, w, mask, R, K, H, W,
+                           beta, 0, th, tw, threads, loop));
+    CK(phmrf_icm_pair_node(body, &b, l1, l0, unary, w, mask, R, K, H, W,
+                           beta, 0, th, tw, threads, loop));
+  }
+  void* cond[] = {&loop, &tot, &slot, &per_body, &h};
   return add_one_thread(body, &b, (const void*)&icm_cond_kernel, cond);
 }
 
 // ICM from the labels in l0 (masked to 0 by the caller); the word's LIMIT
-// is max_sweeps. The labels end in l0.
+// is max_sweeps. The labels end in l0. units: null (K2), or the captured
+// plain pairs l0 -> l1, l1 -> l0 (then only loop and tot are used).
 extern "C" int phmrf_graph_icm(int* l0, int* l1, const float* unary,
                                const float* w, const int* mask, int R, int K,
                                int H, int W, float beta, int th, int tw,
                                int threads, int* loop, long long* tot,
-                               void** exec) {
-  CK(phmrf_prepare_icm_pair(th, tw));
+                               void* const* units, void** exec) {
+  if (!units) CK(phmrf_prepare_icm_pair(th, tw));
   cudaGraph_t g;
   CK(cudaGraphCreate(&g, 0));
-  const cudaError_t err = build_icm(g, l0, l1, unary, w, mask, R, K, H, W,
-                                    beta, th, tw, threads, loop, tot);
-  if (err != cudaSuccess) {
-    cudaGraphDestroy(g);
-    return (int)err;
-  }
-  return (int)instantiate(g, exec);
+  return finish(g, build_icm(g, l0, l1, unary, w, mask, R, K, H, W, beta,
+                             th, tw, threads, loop, tot, units, 2,
+                             units ? T_U2 : T_K2, 2), exec);
+}
+
+// A unit loop: begin, then WHILE {unit, cond} on the word `loop` (LIMIT
+// written by the caller); the unit ends by updating the word. Its
+// launches count `per_body` a body at counter `slot`.
+extern "C" int phmrf_graph_unit_loop(void* unit, int* loop, long long* tot,
+                                     int slot, int per_body, void** exec) {
+  if (slot < 0 || slot >= T_WORDS) return (int)cudaErrorInvalidValue;
+  cudaGraph_t g;
+  CK(cudaGraphCreate(&g, 0));
+  void* units[] = {unit};
+  return finish(g, build_icm(g, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, 0, 0, 0, 0, 0.0f, 0, 0, 0, loop, tot,
+                             units, 1, slot, per_body), exec);
 }
 
 extern "C" int phmrf_graph_launch(void* exec, void* stream) {

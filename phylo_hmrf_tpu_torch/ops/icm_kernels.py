@@ -6,7 +6,9 @@ in one launch, planned by ``icm_tile_plan``) replaces
 ``_icm_sweep_pair_padded``, ``icm_sweep_halo_`` (K8: the phases of a sweep
 over all the row shards of a device in one launch, ``ops/halo_rows.py``)
 replaces ``icm_phase_pallas(halo_extended=True)``, and ``icm_kmajor`` is
-the ``icm_pallas`` loop (on the card a CUDA graph, ``ops/loops.py``). ``icm_phase_`` (the phase kernel) and
+the ``icm_pallas`` loop (on the card a CUDA graph, ``ops/loops.py``;
+with ``plain=True`` the float64 ``ops/icm.py::icm`` loop). ``icm_phase_``
+(the phase kernel) and
 ``icm_sweep_pair_chained`` (eight of it) are the reference K2 is held to
 on the card, ``icm_sweep_halo_chained`` (it per phase and shard on the
 exchanged slabs) that of K8. Layout: labels, mask (R, H, W) int32; unary_k
@@ -323,15 +325,18 @@ def icm_kmajor(unary_k, wmaps, mask, init_labels, beta,
 
     Runs sweep pairs while any label of the bucket changed and fewer than
     ``max_sweeps`` sweeps ran; like the JAX loop, a capped run may
-    overshoot an odd ``max_sweeps`` by one sweep. On a CUDA float32
-    tensor the loop is a CUDA graph the card runs to its end
-    (``ops/loops.py``: no host read); on the CPU, with ``plain=True``
-    (the plain version) or with ``host_loop=True`` (the K2 kernel), the
-    host reads the loop word once per pair. Returns labels (R, H, W)
+    overshoot an odd ``max_sweeps`` by one sweep. On a CUDA tensor the
+    loop is a CUDA graph the card runs to its end (``ops/loops.py``: no
+    host read) whose bodies are K2, or with ``plain=True`` (the float64
+    mode: the JAX ``ops/icm.py::icm``) K2's plain version captured; on
+    the CPU or with ``host_loop=True`` the host reads the loop word once
+    per pair (the plain version with ``plain``). Returns labels (R, H, W)
     int32."""
-    if not (plain or host_loop or unary_k.device.type == "cpu"):
+    if loops.route(unary_k.device, unary_k.dtype, plain, host_loop) \
+            != "host":
         return loops.run_icm(unary_k, wmaps, mask, init_labels, beta,
-                             max_sweeps, icm_tile_plan(unary_k.shape[1]))
+                             max_sweeps, icm_tile_plan(unary_k.shape[1]),
+                             plain=plain)
     mask_i = mask.to(torch.int32)
     labels = torch.where(mask, init_labels, 0).to(torch.int32).contiguous()
     loop = loops.new_loop(labels.device)

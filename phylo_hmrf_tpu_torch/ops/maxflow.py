@@ -6,16 +6,18 @@ cut is the data-parallel push-relabel of ``grid_mincut_fused`` with the JAX
 schedule: a global relabel (BFS toward the sink, kernel K6) whenever
 ``it % 32 == 0``, push-relabel iterations (kernel K5) four at a time, the
 convergence test once per four iterations, at most ``max_sweeps``
-iterations. On a CUDA float32 tensor the whole cut, as each BFS fixpoint,
-is a CUDA graph whose loops the card decides (``ops/loops.py``,
+iterations. On a CUDA tensor the whole cut, as each BFS fixpoint, is a
+CUDA graph whose loops the card decides (``ops/loops.py``,
 ``csrc/loops.cu``): no host read inside a move, as the JAX loop is one
-device program. ``grid_mincut_host`` keeps the loop on the host, with a
-read of the kernels' loop word (or of ``torch.any`` on the plain path)
-per test: the route of CPU tensors, of ``plain=True`` and of
-``host_loop=True``. Everything else here is plain tensor code, as it is
-XLA code in the JAX package: the move graphs (alpha-beta swap and
-alpha-expansion, with dominance freezing), the move loop with GCO-style
-pruning, and the energies.
+device program. Its bodies are K5/K6 in float32, or with ``plain=True``
+(the float64 mode: the JAX ``grid_mincut``) the plain versions' tensor
+code captured into the same program. ``grid_mincut_host`` keeps the loop
+on the host, with a read of the kernels' loop word (or of ``torch.any``
+on the plain path) per test: the route of CPU tensors and of
+``host_loop=True`` (`loops.route`). Everything else here is plain tensor
+code, as it is XLA code in the JAX package: the move graphs (alpha-beta
+swap and alpha-expansion, with dominance freezing), the move loop with
+GCO-style pruning, and the energies.
 
 Layouts carry a leading region-batch axis, as the JAX batched entry points
 do: labels, mask (R, H, W); unary_k (R, K, H, W) K-major; wmaps
@@ -78,26 +80,26 @@ def _read(x, stats):
 
 
 def _on_card(t, plain: bool, host_loop: bool) -> bool:
-    """Whether a loop on ``t`` takes the graph route."""
-    return not (plain or host_loop or t.device.type == "cpu")
+    """Whether a loop on ``t`` takes a graph route (`loops.route`)."""
+    return loops.route(t.device, t.dtype, plain, host_loop) != "host"
 
 
 def _bfs_fixpoint(d, caps, n: int, plain: bool, stats, spare=None,
                   host_loop: bool = False):
     """Min-plus sweeps from the seed ``d`` until no distance changes, 8 per
-    test. On a CUDA float32 tensor (not ``plain``, not ``host_loop``)
-    the loop is a CUDA graph (no host read inside it; with ``stats``,
-    one read of its sweep count at the end). On the host loop the kernel
-    path runs K6 launches that ping-pong ``d`` with ``spare`` (a second
-    distance plane, made here when the caller has none) and reads their
-    loop word after each. Returns the distances (on the host kernel path,
-    in ``d`` or ``spare``)."""
-    if _on_card(d, plain, host_loop):
+    test. On a CUDA tensor (not ``host_loop``) the loop is a CUDA graph
+    (K6, or the plain version captured with ``plain``; no host read
+    inside it; with ``stats``, one read of its sweep count at the end).
+    On the host loop the kernel path runs K6 launches that ping-pong ``d``
+    with ``spare`` (a second distance plane, made here when the caller has
+    none) and reads their loop word after each. Returns the distances (on
+    the host kernel path, in ``d`` or ``spare``)."""
+    if _on_card(caps, plain, host_loop):
         if stats is None:
-            return loops.run_bfs(d, caps, n)
-        g = loops.bfs_graph(d.device, *d.shape, n)
+            return loops.run_bfs(d, caps, n, plain=plain)
+        g = loops.bfs_graph(d.device, *d.shape, n, caps.dtype, plain)
         base = g.totals.clone()
-        out = loops.run_bfs(d, caps, n)
+        out = loops.run_bfs(d, caps, n, plain=plain)
         stats.bfs_sweeps += _read((g.totals - base)[loops.T_BFS_SWEEPS],
                                   stats)
         return out
@@ -134,20 +136,21 @@ def grid_mincut(excess0, cap_t0, caps0, max_sweeps: int = 3000, *,
     bool: the pixels that cannot reach the sink in the final residual
     graph (distance >= n = H*W + 2).
 
-    On a CUDA float32 tensor (not ``plain``, not ``host_loop``) the cut is
-    one launch of a CUDA graph (``ops/loops.py``): no host read inside it;
-    with ``stats``, one read of the graph's counters at the end (a pass of
-    ``_optimize_batched`` reads them with its cycle reads instead).
-    Otherwise `grid_mincut_host`."""
+    On a CUDA tensor (not ``host_loop``) the cut is one launch of a CUDA
+    graph (``ops/loops.py``; K5/K6 in float32, their plain versions
+    captured with ``plain``, in the operands' dtype): no host read inside
+    it; with ``stats``, one read of the graph's counters at the end (a
+    pass of ``_optimize_batched`` reads them with its cycle reads
+    instead). Otherwise `grid_mincut_host`."""
     if not _on_card(excess0, plain, host_loop):
         return grid_mincut_host(excess0, cap_t0, caps0, max_sweeps,
                                 plain=plain, stats=stats)
     if stats is None:
-        return loops.run_cut(excess0, cap_t0, caps0, max_sweeps)
+        return loops.run_cut(excess0, cap_t0, caps0, max_sweeps, plain=plain)
     R, H, W = excess0.shape
-    g = loops.cut_graph(excess0.device, R, H, W)
+    g = loops.cut_graph(excess0.device, R, H, W, excess0.dtype, plain)
     base = g.totals.clone()
-    side = loops.run_cut(excess0, cap_t0, caps0, max_sweeps)
+    side = loops.run_cut(excess0, cap_t0, caps0, max_sweeps, plain=plain)
     stats.add_totals(_read(g.totals - base, stats))
     return side
 
@@ -394,7 +397,8 @@ def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
     if _on_card(unary_k, plain, host_loop):
         # the moves' cuts add to this graph's counters; the cycle reads
         # take them with the labels' numbers
-        graph = loops.cut_graph(unary_k.device, *labels.shape)
+        graph = loops.cut_graph(unary_k.device, *labels.shape,
+                                unary_k.dtype, plain)
         base = graph.totals.clone()
     e, hist_t = _energy_hist(labels, unary_k, wmaps, mask, beta, n_states)
     got = _read(torch.cat([e.sum().view(1), hist_t.double()]), stats)

@@ -27,7 +27,15 @@ region: q, unary_k (1, K, Hl, W); weights (1, 4, Hl, W); labels, mask
 * ICM: with Hl >= 8, one 8-row exchange per sweep pair and K2 on the
   extended slabs with the global colour parity; otherwise K8
   (``icm_sweep_halo_``), one call per sweep, which counts the labels it
-  changed on the device (one int read per sweep and device).
+  changed on the device. When one process holds all the shards on one
+  CUDA device, the ICM loop is one CUDA graph whose WHILE node the card
+  decides (`_icm_halo_graph`, ``ops/loops.py::UnitLoop``: the body, a
+  sweep pair or a sweep over all the shards with the region's changed
+  count, captured; no host read inside the loop, as JAX's while_loop with
+  its ``psum`` on the device). Otherwise (shards on several devices or in
+  several processes, or ``host_loop``) the host reads the region's count
+  once per sweep pair or sweep: across processes that count crosses gloo
+  on the host, so the loop stays there.
 
 K7 and K8 take every shard of a device in one launch and read the rows
 beyond a shard's edges where they lie (``ops/halo_rows.py``, the table of
@@ -66,6 +74,7 @@ from __future__ import annotations
 import torch
 
 from phylo_hmrf_tpu_torch.config import SMALL_EPS
+from phylo_hmrf_tpu_torch.ops import loops
 from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
 from phylo_hmrf_tpu_torch.ops.finish_kernels import (
     cost_vec_from_sums, energy_from_rows, energy_rows, finish_from_rows,
@@ -161,26 +170,120 @@ def _mean_field_halo_kernels(unary_k, w_ext, beta, temps, iters_per_temp,
     return _each(hard, extend_rows(q, 1, owners), w_ext, unary_k)
 
 
+def icm_pair_unit(labels, unp, wp, maskp, row0, beta, plain: bool, loop):
+    """The body of the K2 branch's loop on one card: one 8-row exchange of
+    the labels, a sweep pair (K2, or its plain version) on every shard's
+    extended slab, the changed labels summed in shard order on the device
+    into a step of the word ``loop`` (2 sweeps); ``labels`` (per shard)
+    updated in place, or left as they were once the word says the loop
+    has stopped (`loops.loop_step`). Tensor code on the graph's buffers
+    (the CPU tests run it unrolled)."""
+    def unit():
+        new = [_center(icm_sweep_pair(lp, u, w, m, beta, plain=plain,
+                                      row_offset=r0 - HALO), HALO)
+               for lp, u, w, m, r0 in zip(extend_rows(labels, HALO), unp, wp,
+                                          maskp, row0)]
+        changed = psum([torch.count_nonzero(a != b)
+                        for a, b in zip(new, labels)])
+        new = loops.loop_step(loop, new, labels, changed > 0, 2)
+        for lab, n in zip(labels, new):
+            lab.copy_(n)
+    return unit
+
+
+def icm_sweep_unit(labels, unary_k, w_ext, mask_i, count, row0, sources,
+                   beta, plain: bool, loop):
+    """The body of the K8 branch's loop on one card: one sweep of all the
+    shards (K8, one launch, or its plain version) on ``labels`` in place,
+    its changed labels counted into ``count`` (one int32, zeroed first)
+    and tested on the device, a step of the word ``loop`` (1 sweep); the
+    labels put back once the word says the loop has stopped."""
+    def unit():
+        old = [lab.clone() for lab in labels]
+        count.zero_()
+        icm_sweep_halo_(labels, unary_k, w_ext, mask_i, beta,
+                        {count.device: count}, row0=row0, sources=sources,
+                        plain=plain)
+        new = loops.loop_step(loop, labels, old, count[0] > 0, 1)
+        for lab, n in zip(labels, new):
+            lab.copy_(n)
+    return unit
+
+
+def _one_card(xs) -> bool:
+    """Whether this process holds every shard of ``xs``, all on one CUDA
+    device."""
+    return all(x is not None for x in xs) and len(
+        {x.device for x in xs}) == 1 and xs[0].device.type == "cuda"
+
+
+def _icm_halo_graph(slabs, labels, beta, max_sweeps: int, plain: bool,
+                    row0, sources=None):
+    """`_icm_halo_kernels`' loop on one card as one launch of a cached
+    `loops.UnitLoop`: ``slabs`` are the constant operands per shard (the
+    K2 branch's 8-row-extended unary, weights and mask, or the K8
+    branch's unary, 1-row-extended weights and mask; ``sources`` set for
+    the K8 branch), copied into the graph's buffers with the labels.
+    Returns new labels per shard."""
+    dev = labels[0].device
+    k8 = sources is not None
+    key = ("halo_icm", k8, dev, len(labels), tuple(labels[0].shape),
+           tuple(slabs[0][0].shape), slabs[0][0].dtype, float(beta), plain)
+
+    def make():
+        bufs = tuple([torch.zeros_like(x) for x in xs] for xs in slabs)
+        labs = [torch.zeros_like(lab) for lab in labels]
+        count = torch.zeros(1, dtype=torch.int32, device=dev)
+        if k8:
+            slot = loops.T_U8 if plain else loops.T_K8
+            g = loops.UnitLoop(dev, lambda loop: icm_sweep_unit(
+                labs, *bufs, count, row0, sources, beta, plain, loop), slot,
+                1, (bufs, labs, count), counters=(icm_sweep_halo_,))
+        else:
+            slot = loops.T_U2 if plain else loops.T_K2
+            g = loops.UnitLoop(dev, lambda loop: icm_pair_unit(
+                labs, *bufs, row0, beta, plain, loop), slot, len(labels),
+                (bufs, labs), counters=(icm_sweep_pair,))
+        g.slabs, g.labels = bufs, labs
+        return g
+    g = loops.cached(key, make)
+    for dst, src in zip(g.slabs, slabs):
+        for d, x in zip(dst, src):
+            d.copy_(x)
+    for d, lab in zip(g.labels, labels):
+        d.copy_(lab)
+    loops.run_unit_loop(g, max_sweeps)
+    return [lab.clone() for lab in g.labels]
+
+
 def _icm_halo_kernels(unary_k, w_ext, mask, init_labels, beta,
-                      max_sweeps: int, plain: bool = False, owners=None):
+                      max_sweeps: int, plain: bool = False, owners=None,
+                      host_loop: bool = False):
     """Checkerboard ICM on the row shards from ``init_labels``; returns
     labels per shard (1, Hl, W) int32. The colour parity is that of the
     global row (a shard starts at row shard * Hl). Runs while any label of
-    the region changed (summed over the shards, read once per sweep pair
-    on the K2 branch, once per sweep and device on the K8 branch; across
-    processes the count of every process, so all stop at the same sweep)
-    and fewer than ``max_sweeps`` sweeps ran."""
+    the region changed (summed over the shards) and fewer than
+    ``max_sweeps`` sweeps ran. With every shard on one CUDA device of
+    this process (and not ``host_loop``), the loop is one CUDA graph
+    (`_icm_halo_graph`); otherwise the host reads the count once per
+    sweep pair on the K2 branch, once per sweep and device on the K8
+    branch (across processes the count of every process, so all stop at
+    the same sweep)."""
     Hl = first_local(unary_k).shape[-2]
     row0 = [i * Hl for i in range(len(unary_k))]
     mask_i = _each(lambda m: m.to(torch.int32), mask)
     labels = _each(lambda m, w: torch.where(m, w, 0).to(torch.int32)
                    .contiguous(), mask, init_labels)
+    graph = not host_loop and _one_card(labels)
     changed, sweep = 1, 0
     if Hl >= HALO:
         # per-E-step constant slabs exchanged once
         unp = extend_rows(unary_k, HALO, owners)
         wp = extend_rows(_each(lambda w: _center(w, 1), w_ext), HALO, owners)
         maskp = extend_rows(mask_i, HALO, owners)
+        if graph:
+            return _icm_halo_graph((unp, wp, maskp), labels, beta,
+                                   max_sweeps, plain, row0)
         while changed > 0 and sweep < max_sweeps:
             new = _each(lambda lp, u, w, m, r0: _center(icm_sweep_pair(
                 lp, u, w, m, beta, plain=plain, row_offset=r0 - HALO), HALO),
@@ -192,6 +295,9 @@ def _icm_halo_kernels(unary_k, w_ext, mask, init_labels, beta,
         return labels
 
     sources = _row_sources(labels, owners)
+    if graph:
+        return _icm_halo_graph((unary_k, w_ext, mask_i), labels, beta,
+                               max_sweeps, plain, row0, sources)
     # one int32 a device and sweep, zeroed once: K8 adds its changes there
     counts = {d: torch.zeros(max(max_sweeps, 1), dtype=torch.int32, device=d)
               for d in dict.fromkeys(lab.device for lab in labels
@@ -234,7 +340,7 @@ def estep_region_rowsharded(img, mask, dmaps, warm, means, covars, beta,
                             beta1, *, weighted_pp: bool, max_sweeps: int,
                             temps=MF_TEMPS, iters_per_temp: int = 8,
                             damping: float = 0.5, plain: bool = False,
-                            owners=None):
+                            owners=None, host_loop: bool = False):
     """The E-step of one region whose rows are split over shards. Lists
     per shard, each on its shard's device: img (Hl, W, F), mask (Hl, W)
     bool, dmaps (4, Hl, W), warm (Hl, W); means (K, F) and covars
@@ -247,7 +353,8 @@ def estep_region_rowsharded(img, mask, dmaps, warm, means, covars, beta,
     cost_vec (4,), n_valid ()), the last three summed over all the shards
     in shard order (float64, then float32) on the first (local) shard's
     device; for float64 operands, folded from all the shards' rows in row
-    order (float64). ``plain`` runs the kernels' plain versions."""
+    order (float64). ``plain`` runs the kernels' plain versions;
+    ``host_loop`` keeps ICM's loop on the host (`_icm_halo_kernels`)."""
     def unary(x):
         return -gaussian_logpdf_kmajor(x[None], means.to(x.device),
                                        covars.to(x.device)).contiguous()
@@ -260,9 +367,9 @@ def estep_region_rowsharded(img, mask, dmaps, warm, means, covars, beta,
     mf = _mean_field_halo_kernels(unary_k, w_ext, beta, temps,
                                   iters_per_temp, damping, plain, owners)
     cand_a = _icm_halo_kernels(unary_k, w_ext, mask_b, mf, beta, max_sweeps,
-                               plain, owners)
+                               plain, owners, host_loop)
     cand_b = _icm_halo_kernels(unary_k, w_ext, mask_b, warm_b, beta,
-                               max_sweeps, plain, owners)
+                               max_sweeps, plain, owners, host_loop)
     # K3 and K4 on the halo-extended slabs: the halo rows have mask 0, so
     # only the center pixels count
     unary_z = _each(_zero_rows, unary_k)
@@ -270,7 +377,10 @@ def estep_region_rowsharded(img, mask, dmaps, warm, means, covars, beta,
     w_z = _each(_zero_rows, w_cut)
     e = _energy_halo_pair(cand_a, cand_b, unary_z, w_z, mask_z, beta, plain,
                           owners)
-    labels = cand_a if bool(e[0] <= e[1]) else cand_b
+    # the pick on the device, as JAX's jnp.where (no host read)
+    pick_a = e[0] <= e[1]
+    labels = _each(lambda a, b: torch.where(pick_a.to(a.device), a, b),
+                   cand_a, cand_b)
 
     # K4's pairwise potential at a center pixel reads the labels and the
     # backward-edge weights of the exchanged rows
@@ -321,7 +431,8 @@ def gather_rows(xs, device, owners=None) -> torch.Tensor:
 
 
 def make_rowsharded_estep(mesh, *, weighted_pp: bool, max_sweeps: int,
-                          iters_per_temp: int = 8, plain: bool = False):
+                          iters_per_temp: int = 8, plain: bool = False,
+                          host_loop: bool = False):
     """The row-sharded E-step on global tensors: img (H, W, F), mask
     (H, W), dmaps (4, H, W), warm (H, W) with H divisible by the mesh size
     (pad rows with mask=False). Returns (labels (H, W) on the first
@@ -336,7 +447,7 @@ def make_rowsharded_estep(mesh, *, weighted_pp: bool, max_sweeps: int,
             shard_rows(mesh, dmaps, 1), shard_rows(mesh, warm), means,
             covars, beta, beta1, weighted_pp=weighted_pp,
             max_sweeps=max_sweeps, iters_per_temp=iters_per_temp,
-            plain=plain, owners=owners)
+            plain=plain, owners=owners, host_loop=host_loop)
         return (gather_rows(labels, mesh.first_device, owners), stats,
                 cost_vec, n_valid)
     return run

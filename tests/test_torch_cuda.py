@@ -491,11 +491,11 @@ def test_k2_tile_edges_match_chained(dev, shape, K):
 
 @pytest.mark.parametrize("shape", CUT_SHAPES)
 def test_grid_mincut_kernel_matches_plain(dev, shape):
-    """The whole min cut on the kernels (the graph route and the host
-    loop) and on the plain versions: with K5/K6 bitwise and the same
-    schedule, the same cut and the same work (the host loop's host reads
-    included; the graph route reads once, its counters); the cut's cost
-    checked too; no run hits max_sweeps."""
+    """The whole min cut on the kernels and on the plain versions, each
+    on the graph route and on the host loop: with K5/K6 bitwise and the
+    same schedule, the same cut and the same work (the host loops' host
+    reads included; a graph route reads once, its counters); the cut's
+    cost checked too; no run hits max_sweeps."""
     import dataclasses
 
     from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, grid_mincut
@@ -509,13 +509,16 @@ def test_grid_mincut_kernel_matches_plain(dev, shape):
             c = c + (caps0[:, a].double() * (side & ~_nb(side, a, True))).sum()
         return float(c)
 
-    sk, sh, sp = CutStats(), CutStats(), CutStats()
+    sk, sh, sp, sph = CutStats(), CutStats(), CutStats(), CutStats()
     got = grid_mincut(excess0, cap_t0, caps0, stats=sk)
     host = grid_mincut(excess0, cap_t0, caps0, host_loop=True, stats=sh)
     want = grid_mincut(excess0, cap_t0, caps0, plain=True, stats=sp)
+    plain_host = grid_mincut(excess0, cap_t0, caps0, plain=True,
+                             host_loop=True, stats=sph)
     assert sk.capped == sp.capped == 0 and sk.moves == 1
-    assert torch.equal(got, want) and torch.equal(host, want) and sh == sp
-    assert sk.host_reads == 1 and sh.host_reads > 2
+    assert torch.equal(got, want) and torch.equal(host, want)
+    assert torch.equal(plain_host, want) and sh == sph
+    assert sk.host_reads == sp.host_reads == 1 and sh.host_reads > 2
     assert dataclasses.replace(sk, host_reads=0) == dataclasses.replace(
         sp, host_reads=0)
     assert cost(got) == pytest.approx(cost(want), rel=1e-5)
@@ -1015,3 +1018,176 @@ def test_loop_graphs_per_shape(dev):
                 caps0[:, :, :-1].contiguous())
     assert loops.stats["builds"] == builds + 1
     assert loops.driver_version() >= loops.MIN_DRIVER
+
+
+# ------------------------------------- the plain (float64) loop graphs --
+
+def _f64(x):
+    return {k: (v.double() if v.is_floating_point() else v)
+            for k, v in x.items()}
+
+
+@pytest.mark.parametrize("shape", ["ragged", "ragged_x2"])
+def test_f64_cut_and_bfs_graphs_match_host_loop(dev, shape):
+    """The float64 min cut and BFS fixpoint as graphs of captured plain
+    units (``plain=True`` on the card) against their host-read plain
+    routes: bitwise the same side, distances and counts, twice with
+    device allocations between the calls (the graph reads only buffers
+    and the pool it keeps), also capped at max_sweeps = 9; they add to
+    the plain counters, launch no kernel of this package and no kernel
+    graph."""
+    import dataclasses
+
+    from phylo_hmrf_tpu_torch.ops import loops
+    from phylo_hmrf_tpu_torch.ops.maxflow import (CutStats, _bfs_fixpoint,
+                                                  grid_mincut,
+                                                  grid_mincut_host)
+    from phylo_hmrf_tpu_torch.ops.mincut_kernels import (bfs_sweeps,
+                                                         pr_iterations)
+
+    # the float32 move graph's capacities, in float64
+    excess0, cap_t0, caps0, n = _move_graph(_cut_inputs(dev, shape))
+    excess0, cap_t0, caps0 = (t.double() for t in (excess0, cap_t0, caps0))
+    kernels = (pr_iterations.launches, bfs_sweeps.launches,
+               loops.run_cut.launches, loops.run_bfs.launches)
+    units = loops.plain_units()
+    for max_sweeps in (3000, 3000, 9):
+        sg, sh = CutStats(), CutStats()
+        launches = loops.run_cut.plain_launches
+        got = grid_mincut(excess0, cap_t0, caps0, max_sweeps, plain=True,
+                          stats=sg)
+        junk = [torch.randn(4096, device=dev) for _ in range(64)]
+        want = grid_mincut_host(excess0, cap_t0, caps0, max_sweeps,
+                                plain=True, stats=sh)
+        del junk
+        assert loops.run_cut.plain_launches - launches == 1
+        assert torch.equal(got, want) and sg.host_reads == 1
+        assert dataclasses.replace(sg, host_reads=0) == \
+            dataclasses.replace(sh, host_reads=0)
+        assert (sg.capped == 1) == (max_sweeps == 9)
+    d0 = torch.where(cap_t0 > 1e-6, 1, n).to(torch.int32).contiguous()
+    for _ in range(2):
+        sg, sh = CutStats(), CutStats()
+        got = _bfs_fixpoint(d0, caps0, n, True, sg)
+        junk = [torch.randn(4096, device=dev) for _ in range(64)]
+        want = _bfs_fixpoint(d0.clone(), caps0, n, True, sh, host_loop=True)
+        del junk
+        assert torch.equal(got, want) and sg.bfs_sweeps == sh.bfs_sweeps > 0
+    assert (pr_iterations.launches, bfs_sweeps.launches,
+            loops.run_cut.launches, loops.run_bfs.launches) == kernels
+    now = loops.plain_units()
+    assert now["K5"] > units["K5"] and now["K6"] > units["K6"]
+
+
+@pytest.mark.parametrize("max_sweeps", [60, 5])
+@pytest.mark.parametrize("shape", ["ragged_x2", "chr21"])
+def test_f64_icm_graph_matches_host_loop(dev, shape, max_sweeps):
+    """``icm_kmajor(plain=True)`` in float64 as a graph of captured plain
+    sweep pairs: bitwise its host-read plain route, launched under
+    ``set_sync_debug_mode("error")`` (no host read, no synchronization),
+    again after allocations; no K2 launch."""
+    from phylo_hmrf_tpu_torch.ops import loops
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_kmajor,
+                                                      icm_sweep_pair)
+
+    x = _f64(_cut_inputs(dev, shape))
+    args = (x["unary_k"], x["w"], x["mask"], x["warm"], 1.0, max_sweeps)
+    want = icm_kmajor(*args, plain=True, host_loop=True)
+    icm_kmajor(*args, plain=True)     # builds the graph (it synchronizes)
+    torch.cuda.synchronize()
+    launches = loops.run_icm.plain_launches
+    k2 = icm_sweep_pair.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = icm_kmajor(*args, plain=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    junk = [torch.randn(4096, device=dev) for _ in range(64)]
+    again = icm_kmajor(*args, plain=True)
+    del junk
+    assert loops.run_icm.plain_launches - launches == 2
+    assert icm_sweep_pair.launches == k2
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+def test_f64_polish_launches_no_kernel(dev):
+    """A float64 expansion polish pass (``_optimize_batched(plain=True)``)
+    on the graph route: bitwise the host-read plain route's labels and
+    counts, 1 + cycles host reads, none of K1-K8 launched and no kernel
+    graph (what ``chip_smoke.py``'s ``[f64]`` checks), its cuts in plain
+    graphs."""
+    import dataclasses
+
+    from phylo_hmrf_tpu_torch.ops import (finish_kernels, icm_kernels,
+                                          loops, mf_kernels, mincut_kernels)
+    from phylo_hmrf_tpu_torch.ops import maxflow as mf
+
+    x = _f64(_cut_inputs(dev, "ragged_x2"))
+    K = x["unary_k"].shape[1]
+    start = mf._start_batch(x["unary_k"], x["w"], x["mask"], x["warm"], 1.0,
+                            60, plain=True)
+    counters = (mf_kernels.mf_sweeps, icm_kernels.icm_sweep_pair,
+                finish_kernels.potts_energy, finish_kernels.finish_stats,
+                mincut_kernels.pr_iterations, mincut_kernels.bfs_sweeps,
+                mf_kernels.mf_sweeps_halo, icm_kernels.icm_sweep_halo_,
+                loops.run_icm, loops.run_cut, loops.run_bfs,
+                loops.run_unit_loop)
+    before = [c.launches for c in counters]
+    plain = loops.run_cut.plain_launches
+    sg, sh = mf.CutStats(), mf.CutStats()
+    got = mf._optimize_batched(x["unary_k"], x["w"], x["mask"], start, 1.0,
+                               K, "expansion", 3, plain=True, stats=sg)
+    want = mf._optimize_batched(x["unary_k"], x["w"], x["mask"], start, 1.0,
+                                K, "expansion", 3, plain=True,
+                                host_loop=True, stats=sh)
+    assert torch.equal(got, want) and sg.moves > 0
+    assert dataclasses.replace(sg, host_reads=0) == dataclasses.replace(
+        sh, host_reads=0)
+    loop_reads = sh.moves + sh.pr_iterations // 4 + sh.bfs_sweeps // 8
+    assert sg.host_reads == sh.host_reads - loop_reads
+    assert [c.launches for c in counters] == before
+    assert loops.run_cut.plain_launches - plain == sg.moves
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["offdiag", "chr21"])
+def test_halo_icm_graph_matches_host_loop(dev, name, dtype):
+    """`_icm_halo_kernels` over 4 shards of the card as one graph launch
+    (the K8 branch on the 6-row shards of "offdiag", the K2 branch on the
+    168-row shards of "chr21"; kernels in float32, the captured plain
+    versions in float64) against its host loop: bitwise labels, twice
+    with allocations between the calls, the second call under
+    ``set_sync_debug_mode("error")``; the float32 graph's K2 / K8
+    launches counted on the card."""
+    from phylo_hmrf_tpu_torch.ops import loops
+    from phylo_hmrf_tpu_torch.parallel import halo
+
+    x, sh = _halo_inputs(dev, name)
+    w_ext, _, _ = _halo_args(sh)
+    conv = (lambda t: t.to(dtype))
+    unary = [conv(u) for u in sh["unary_k"]]
+    w_ext = [conv(w) for w in w_ext]
+    mask = [m != 0 for m in sh["mask_i"]]
+    init = sh["lab0"]
+    plain = dtype == torch.float64
+    args = (unary, w_ext, mask, init, 1.0, 60, plain)
+    want = halo._icm_halo_kernels(*args, host_loop=True)
+    before = loops.kernel_launches()
+    launches = (loops.run_unit_loop.launches,
+                loops.run_unit_loop.plain_launches)
+    got = halo._icm_halo_kernels(*args)
+    torch.cuda.synchronize()
+    junk = [torch.randn(4096, device=dev) for _ in range(64)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = halo._icm_halo_kernels(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    del junk
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    assert (loops.run_unit_loop.launches - launches[0],
+            loops.run_unit_loop.plain_launches - launches[1]) == (
+        (0, 2) if plain else (2, 0))
+    key = "K8" if name == "offdiag" else "K2"
+    assert (loops.kernel_launches()[key] > before[key]) == (not plain)

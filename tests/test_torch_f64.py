@@ -17,6 +17,7 @@ from phylo_hmrf_tpu.config import PhyloHMRFConfig  # noqa: E402
 from phylo_hmrf_tpu_torch import PhyloHMRF  # noqa: E402
 from phylo_hmrf_tpu_torch.convert import export_state, import_state  # noqa
 from phylo_hmrf_tpu_torch.models import hmrf as port_hmrf  # noqa: E402
+from phylo_hmrf_tpu_torch.ops import loops  # noqa: E402
 from phylo_hmrf_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from phylo_hmrf_tpu_torch.synth import bench_tree  # noqa: E402
 from tests.test_torch_fit import synth_problem  # noqa: E402
@@ -363,3 +364,48 @@ def test_model_passes_its_choice_to_every_wrapper(monkeypatch, dtype):
     assert names == {"mf_sweeps", "icm_sweep_pair", "potts_energy_pair",
                      "finish_stats"}, names
     assert {p for _, p in seen} == {True}
+
+
+@pytest.mark.parametrize("seed,max_sweeps", [(0, 3000), (1, 3000), (2, 3000),
+                                             (3, 3000), (4, 10)])
+def test_f64_cut_program_matches_jax(seed, max_sweeps):
+    """The float64 cut graph's program (its captured units unrolled,
+    ``tests/test_torch_f64loops.py``) against JAX's float64
+    ``grid_mincut`` under x64, vmapped over the region batch as
+    ``_cut_batch(use_pallas=False)`` runs it: the same source side,
+    pixel for pixel (also where max_sweeps = 10 caps both loops)."""
+    from phylo_hmrf_tpu.ops.maxflow_tpu import _cut_batch
+    from tests.test_torch_f64loops import f64_cut, plain_cut_program
+
+    excess0, cap_t0, caps0 = f64_cut(seed)
+    R, H, W = excess0.shape
+    # 40 periods of 32 iterations: more than these cuts need (the program
+    # checks that its loops ended)
+    got, _ = plain_cut_program(excess0, cap_t0, caps0, max_sweeps, 40,
+                               (H * W + 2) // 16 + 1)
+    with x64():
+        want = np.asarray(_cut_batch(
+            jnp.asarray(excess0.numpy()), jnp.asarray(cap_t0.numpy()),
+            jnp.asarray(caps0.numpy()), max_sweeps, 32, False))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_f64_icm_program_matches_jax(seed):
+    """The float64 ICM graph's program (``icm_units`` unrolled) against
+    JAX's float64 ``ops/icm.py::icm`` under x64, region by region: the
+    same labels on every valid pixel (both run to their fixpoint)."""
+    from phylo_hmrf_tpu.ops.icm import icm
+    from tests.test_torch_f64loops import f64_icm, plain_icm_program
+
+    unary, w, mask, init = f64_icm(seed)
+    got, loop = plain_icm_program(unary, w, mask, init, 1.2, 60, 33)
+    assert int(loop[loops.LOOP_LAST]) == 0      # converged, not capped
+    with x64():
+        want = np.stack([np.asarray(icm(
+            jnp.asarray(unary[r].permute(1, 2, 0).numpy()),
+            jnp.asarray(w[r].numpy()), jnp.asarray(mask[r].numpy()),
+            jnp.asarray(init[r].numpy()), 1.2, 60))
+            for r in range(unary.shape[0])])
+    m = mask.numpy()
+    np.testing.assert_array_equal(got.numpy()[m], want[m])
