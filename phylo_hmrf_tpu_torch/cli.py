@@ -106,7 +106,8 @@ def parse_args(argv=None):
       help="save the EM checkpoint every N iterations")
     a("--n_workers", default="0", help="data-loading process pool size")
     a("--profile_dir", default="",
-      help="write a torch.profiler Chrome trace here")
+      help="write a torch.profiler Chrome trace here, with the fit's "
+           "trace on: its spans are ranges of the trace")
     a("--cost_log", default="", help="JSONL per-iteration cost log file")
     a("--run_json", default="",
       help="write a machine-readable run artifact (config, walls, phase "
@@ -383,7 +384,8 @@ def _run(opts, cfg, device, dist, t_start) -> str:
         result = model.fit(checkpoint_path=ckpt_path,
                            checkpoint_every=int(opts.checkpoint_every),
                            resume=bool(ckpt_path),
-                           cost_log=opts.cost_log or None)
+                           cost_log=opts.cost_log or None,
+                           trace=bool(opts.profile_dir))
     walls["fit_s"] = time.perf_counter() - t_fit
     print("phase timings:", model.timer.report())
 

@@ -91,9 +91,9 @@ counterpart here; each is noted where the JAX engine reads it (see
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-import time
 import types
 from typing import Sequence
 
@@ -109,6 +109,7 @@ from phylo_hmrf_tpu_torch.models.emission import (gaussian_logpdf,
 from phylo_hmrf_tpu_torch.models.ou import (
     TreeTensors, check_params, ou_moments_batch, ou_nll_init, ou_nll_stats,
     propagate_mean_guess, tree_tensors)
+from phylo_hmrf_tpu_torch.ops import loops
 from phylo_hmrf_tpu_torch.ops.finish_kernels import (
     cost_vec_from_sums, finish_stats)
 from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
@@ -126,7 +127,8 @@ from phylo_hmrf_tpu_torch.parallel.sharding import (
     device_put_bucket, make_sharded_estep, pad_bucket_to_devices)
 from phylo_hmrf_tpu_torch.tree import PhyloTree
 from phylo_hmrf_tpu_torch.utils import checkpoint as ckpt
-from phylo_hmrf_tpu_torch.utils.profiling import ConvergenceMonitor, PhaseTimer
+from phylo_hmrf_tpu_torch.utils.profiling import (ConvergenceMonitor, Trace,
+                                                  active, span)
 
 # the labelers whose every E-step is an exact move-making pass: after them
 # the final polish would repeat what the last E-step did
@@ -556,7 +558,8 @@ class PhyloHMRF:
         X, init_slices = self._init_arrays()
         K, P = self.n_states, self.n_params
         X_dev = self._dev(X, torch.float32)
-        centers_d, labels_d, _ = kmeans(self._gen, X_dev, K)
+        with span("kmeans"):
+            centers_d, labels_d, _ = kmeans(self._gen, X_dev, K)
         xbar_d, xxT_d, cnt_d = _init_cluster_stats(X_dev.to(self._dtype),
                                                    labels_d, K)
         # host RNG draws in the reference order: params first, then one
@@ -566,13 +569,14 @@ class PhyloHMRF:
                               for _ in range(K)])
         guesses_d = _init_guess(centers_d.to(self._dtype),
                                 self._dev(rand_part), self.tree, P)
-        solved_d, _ = _init_solve(
-            guesses_d, xbar_d, xxT_d, cfg.min_covar, tt=self._tt,
-            lo=cfg.param_lo, hi=cfg.param_hi, iters=cfg.mstep_iters,
-            graphs=self._graphs)
-        centers, labels, xbar, xxT, cnt, guesses, solved0 = (
-            _to_numpy(t) for t in (centers_d, labels_d, xbar_d, xxT_d, cnt_d,
-                                   guesses_d, solved_d))
+        with span("init_solve"):
+            solved_d, _ = _init_solve(
+                guesses_d, xbar_d, xxT_d, cfg.min_covar, tt=self._tt,
+                lo=cfg.param_lo, hi=cfg.param_hi, iters=cfg.mstep_iters,
+                graphs=self._graphs)
+        centers, labels, xbar, xxT, cnt, guesses, solved0 = _read_host(
+            centers_d, labels_d, xbar_d, xxT_d, cnt_d, guesses_d, solved_d,
+            what="init")
         centers = np.asarray(centers, np.float64)
         # the k-means labels seed the warm-start grids; the multi-process
         # hook makes them process 0's on every process (the OU init params
@@ -606,12 +610,14 @@ class PhyloHMRF:
             if attempt == 0:
                 solved = pre["solved0"]
             else:
-                solved, _ = _init_solve(
-                    self._dev(guesses), self._dev(xbar), self._dev(xxT),
-                    cfg.min_covar, tt=self._tt, lo=cfg.param_lo,
-                    hi=cfg.param_hi, iters=cfg.mstep_iters,
-                    graphs=self._graphs)
-                solved = np.asarray(_to_numpy(solved), np.float64)
+                with span("init_solve"):
+                    solved, _ = _init_solve(
+                        self._dev(guesses), self._dev(xbar), self._dev(xxT),
+                        cfg.min_covar, tt=self._tt, lo=cfg.param_lo,
+                        hi=cfg.param_hi, iters=cfg.mstep_iters,
+                        graphs=self._graphs)
+                solved = np.asarray(_read_host(solved, what="init_retry")[0],
+                                    np.float64)
             bad = []
             for c in range(K):
                 if not occupied[c]:
@@ -661,99 +667,111 @@ class PhyloHMRF:
         ``expansion`` labelers label with the C++ moves from the float64
         ``means`` / ``covars``; K4 reads their cast to the model dtype, as
         every other route does."""
-        cfg = self.cfg
-        if self._spatial and exact_method is not None:
-            # fit cannot get here (the constructor refuses those labelers
-            # in spatial mode); a direct caller must not get a mean-field
-            # pass when it asked for an exact one
-            raise ValueError("exact_method is not supported with "
-                             "shard_mode='spatial'; use shard_mode='region'")
-        K, F = self.n_states, self.n_features
-        R = len(self.regions)
-        post = np.zeros((R, K))
-        obs = np.zeros((R, K, F))
-        obs2 = np.zeros((R, K, F, F))
-        costs = np.zeros((R, 4))
-        nvalid = np.zeros(R)
-        label_grids = [None] * R
-        means_t = self._dev(means)
-        covars_t = self._dev(covars)
+        with span("estep", device=True) as sp:
+            launches0 = loops.graph_launches() if sp.on else 0
+            cfg = self.cfg
+            if self._spatial and exact_method is not None:
+                # fit cannot get here (the constructor refuses those
+                # labelers in spatial mode); a direct caller must not get a
+                # mean-field pass when it asked for an exact one
+                raise ValueError("exact_method is not supported with "
+                                 "shard_mode='spatial'; use "
+                                 "shard_mode='region'")
+            K, F = self.n_states, self.n_features
+            R = len(self.regions)
+            post = np.zeros((R, K))
+            obs = np.zeros((R, K, F))
+            obs2 = np.zeros((R, K, F, F))
+            costs = np.zeros((R, 4))
+            nvalid = np.zeros(R)
+            label_grids = [None] * R
+            means_t = self._dev(means)
+            covars_t = self._dev(covars)
 
-        kw = dict(weighted_pp=(cfg.estimate_type == 3),
-                  max_sweeps=cfg.icm_max_sweeps)
+            kw = dict(weighted_pp=(cfg.estimate_type == 3),
+                      max_sweeps=cfg.icm_max_sweeps)
 
-        def warm_of(idxs, pad=0):
-            warm = torch.stack([
-                torch.as_tensor(warm_grids[i], device=self.device)
-                for i in idxs]).to(torch.int32)
-            if pad:   # the empty regions padding a bucket to the mesh
-                warm = torch.cat([warm, warm.new_zeros(
-                    (pad,) + warm.shape[1:])])
-            return warm
+            def warm_of(idxs, pad=0):
+                warm = torch.stack([
+                    torch.as_tensor(warm_grids[i], device=self.device)
+                    for i in idxs]).to(torch.int32)
+                if pad:   # the empty regions padding a bucket to the mesh
+                    warm = torch.cat([warm, warm.new_zeros(
+                        (pad,) + warm.shape[1:])])
+                return warm
 
-        if cfg.labeler in ("swap_tpu", "expansion_tpu"):
-            exact_method = ("expansion" if cfg.labeler == "expansion_tpu"
-                            else "swap")
-        done = []   # (region indices, post, obs, obs2, costs, n_valid)
-        if self._spatial:
-            owners = self.mesh.owners
-            for ri, (img, mask, dmaps) in enumerate(self._spatial_arrays):
-                labels, (p, o, o2), cv, nv = estep_region_rowsharded(
-                    img, mask, dmaps, shard_rows(self.mesh, warm_of([ri])[0]),
-                    means_t, covars_t, cfg.beta, cfg.beta1,
-                    plain=not self._use_kernels, owners=owners, **kw)
-                label_grids[ri] = gather_rows(labels, self.device, owners)
-                done.append(([ri], p[None], o[None], o2[None], cv[None],
-                             nv[None]))
-        elif exact_method is not None or cfg.labeler in ("swap", "expansion"):
-            # labels from the exact moves, then K4 on them per bucket, on
-            # the (first) device; the labels stay there
-            if exact_method is not None:
-                self.exact_stats_.append(CutStats())
-                grids = self._exact_labels_all(
-                    means, covars, warm_grids, method=exact_method,
-                    stats=self.exact_stats_[-1])
+            if cfg.labeler in ("swap_tpu", "expansion_tpu"):
+                exact_method = ("expansion" if cfg.labeler == "expansion_tpu"
+                                else "swap")
+            done = []   # (region indices, post, obs, obs2, costs, n_valid)
+            if self._spatial:
+                owners = self.mesh.owners
+                for ri, (img, mask, dmaps) in enumerate(
+                        self._spatial_arrays):
+                    labels, (p, o, o2), cv, nv = estep_region_rowsharded(
+                        img, mask, dmaps,
+                        shard_rows(self.mesh, warm_of([ri])[0]), means_t,
+                        covars_t, cfg.beta, cfg.beta1,
+                        plain=not self._use_kernels, owners=owners, **kw)
+                    label_grids[ri] = gather_rows(labels, self.device, owners)
+                    done.append(([ri], p[None], o[None], o2[None], cv[None],
+                                 nv[None]))
+            elif (exact_method is not None
+                  or cfg.labeler in ("swap", "expansion")):
+                # labels from the exact moves, then K4 on them per bucket,
+                # on the (first) device; the labels stay there
+                if exact_method is not None:
+                    self.exact_stats_.append(CutStats())
+                    grids = self._exact_labels_all(
+                        means, covars, warm_grids, method=exact_method,
+                        stats=self.exact_stats_[-1])
+                else:
+                    grids = [self._dev(g, torch.int32)
+                             for g in self._swap_labels(
+                                 means, covars, warm_grids,
+                                 method=cfg.labeler)]
+                for idxs, img, mask, dmaps in self._bucket_arrays.values():
+                    labels = torch.stack([grids[i] for i in idxs])
+                    (p, o, o2), cv, nv = _finish_bucket(
+                        img, mask, dmaps, labels, means_t, covars_t, cfg.beta,
+                        cfg.beta1, weighted_pp=kw["weighted_pp"],
+                        plain=not self._use_kernels)
+                    done.append((idxs, p, o, o2, cv, nv))
+                    for bi, ri in enumerate(idxs):
+                        label_grids[ri] = labels[bi]
+            elif self._n_shards > 1:
+                for idxs, img, mask, dmaps in self._sharded_buckets.values():
+                    r_pad = sum(x.shape[0] for x in img)
+                    labels, (p, o, o2), cv, nv = self._sharded_estep(
+                        img, mask, dmaps, warm_of(idxs, r_pad - len(idxs)),
+                        means_t, covars_t, cfg.beta, cfg.beta1)
+                    done.append((idxs, p, o, o2, cv, nv))
+                    for bi, ri in enumerate(idxs):
+                        label_grids[ri] = labels[bi]
             else:
-                grids = [self._dev(g, torch.int32) for g in self._swap_labels(
-                    means, covars, warm_grids, method=cfg.labeler)]
-            for idxs, img, mask, dmaps in self._bucket_arrays.values():
-                labels = torch.stack([grids[i] for i in idxs])
-                (p, o, o2), cv, nv = _finish_bucket(
-                    img, mask, dmaps, labels, means_t, covars_t, cfg.beta,
-                    cfg.beta1, weighted_pp=kw["weighted_pp"],
-                    plain=not self._use_kernels)
-                done.append((idxs, p, o, o2, cv, nv))
-                for bi, ri in enumerate(idxs):
-                    label_grids[ri] = labels[bi]
-        elif self._n_shards > 1:
-            for idxs, img, mask, dmaps in self._sharded_buckets.values():
-                r_pad = sum(x.shape[0] for x in img)
-                labels, (p, o, o2), cv, nv = self._sharded_estep(
-                    img, mask, dmaps, warm_of(idxs, r_pad - len(idxs)),
-                    means_t, covars_t, cfg.beta, cfg.beta1)
-                done.append((idxs, p, o, o2, cv, nv))
-                for bi, ri in enumerate(idxs):
-                    label_grids[ri] = labels[bi]
-        else:
-            for idxs, img, mask, dmaps in self._bucket_arrays.values():
-                labels, (p, o, o2), cv, nv = _estep_bucket(
-                    img, mask, dmaps, warm_of(idxs), means_t, covars_t,
-                    cfg.beta, cfg.beta1, labeler=self._labeler_static,
-                    plain=not self._use_kernels, **kw)
-                done.append((idxs, p, o, o2, cv, nv))
-                for bi, ri in enumerate(idxs):
-                    label_grids[ri] = labels[bi]
-        packed = []
-        for idxs, p, o, o2, cv, nv in done:
-            Rb = len(idxs)   # padding regions of a sharded bucket dropped
-            packed.append(torch.cat([p[:Rb].reshape(Rb, -1),
-                                     o[:Rb].reshape(Rb, -1),
-                                     o2[:Rb].reshape(Rb, -1),
-                                     cv[:Rb].reshape(Rb, -1),
-                                     nv[:Rb].reshape(Rb, 1)],
-                                    dim=1).flatten())
-        # no regions (an empty share): nothing to read back
-        fetch = _HostCopy([torch.cat(packed)] if packed else [])
+                for idxs, img, mask, dmaps in self._bucket_arrays.values():
+                    labels, (p, o, o2), cv, nv = _estep_bucket(
+                        img, mask, dmaps, warm_of(idxs), means_t, covars_t,
+                        cfg.beta, cfg.beta1, labeler=self._labeler_static,
+                        plain=not self._use_kernels, **kw)
+                    done.append((idxs, p, o, o2, cv, nv))
+                    for bi, ri in enumerate(idxs):
+                        label_grids[ri] = labels[bi]
+            packed = []
+            for idxs, p, o, o2, cv, nv in done:
+                Rb = len(idxs)   # padding regions of a sharded bucket dropped
+                packed.append(torch.cat([p[:Rb].reshape(Rb, -1),
+                                         o[:Rb].reshape(Rb, -1),
+                                         o2[:Rb].reshape(Rb, -1),
+                                         cv[:Rb].reshape(Rb, -1),
+                                         nv[:Rb].reshape(Rb, 1)],
+                                        dim=1).flatten())
+            # no regions (an empty share): nothing to read back
+            fetch = _HostCopy([torch.cat(packed)] if packed else [],
+                              what="estep")
+            if sp.on:
+                sp.add(buckets=len(done),
+                       graph_launches=loops.graph_launches() - launches0)
 
         def collect():
             host = (fetch.get()[0].astype(np.float64) if packed
@@ -896,8 +914,9 @@ class PhyloHMRF:
         eye = torch.eye(self.n_features, dtype=self._dtype,
                         device=self.device)
         covars = covars + self.cfg.min_covar * eye
-        return (np.asarray(_to_numpy(means), np.float64),
-                np.asarray(_to_numpy(covars), np.float64))
+        means, covars = _read_host(means, covars, what="moments")
+        return (np.asarray(means, np.float64),
+                np.asarray(covars, np.float64))
 
     def mstep_dispatch(self, stats) -> dict:
         """Enqueue the attempt-0 M-step solve and return a handle for
@@ -908,10 +927,12 @@ class PhyloHMRF:
         published at once in ``self._moments_dev``, so the caller may
         enqueue the next E-step against them before their validity is
         known (`mstep_finalize` rolls that back when a state failed)."""
-        post, obs, obs2 = self._global_stats(stats)
-        out = self._solve_full_dev(self._blend_guess(), post, obs, obs2)
-        self._moments_dev = (out[2], out[3])
-        return {"fetch": _HostCopy(out), "stats": (post, obs, obs2)}
+        with span("mstep_dispatch"):
+            post, obs, obs2 = self._global_stats(stats)
+            out = self._solve_full_dev(self._blend_guess(), post, obs, obs2)
+            self._moments_dev = (out[2], out[3])
+            return {"fetch": _HostCopy(out, what="mstep"),
+                    "stats": (post, obs, obs2)}
 
     def mstep_finalize(self, handle) -> bool:
         """Wait for the dispatched solve, accept the valid states, retry
@@ -920,47 +941,49 @@ class PhyloHMRF:
         state failed attempt 0): ``_moments_dev``, ``means_``,
         ``covars_`` and ``params_vec`` are then corrected, and an E-step
         enqueued against the published moments must be enqueued again."""
-        cfg = self.cfg
-        post, obs, obs2 = handle["stats"]
-        params = self.params_vec.copy()
-        pending = np.ones(self.n_states, dtype=bool)
-        rolled_back = False
-        fused_moments = None
-        for attempt in range(cfg.mstep_retries):
-            if attempt == 0:
-                got = handle["fetch"].get()
-            else:
-                got = [_to_numpy(t) for t in self._solve_full_dev(
-                    self._blend_guess(), post, obs, obs2)]
-            solved, valid, means_d, covars_d = got
-            solved = np.asarray(solved, np.float64)
-            valid = np.asarray(valid, bool)
-            take = pending & valid
-            params[take] = solved[take]
-            if attempt == 0:
-                if valid.all():
-                    # every state accepted this very solve: its moments
-                    # stand
-                    fused_moments = (np.asarray(means_d, np.float64),
-                                     np.asarray(covars_d, np.float64))
+        with span("mstep_finalize"):
+            cfg = self.cfg
+            post, obs, obs2 = handle["stats"]
+            params = self.params_vec.copy()
+            pending = np.ones(self.n_states, dtype=bool)
+            rolled_back = False
+            fused_moments = None
+            for attempt in range(cfg.mstep_retries):
+                if attempt == 0:
+                    got = handle["fetch"].get()
                 else:
-                    rolled_back = True
-            pending = pending & ~valid
-            if not pending.any():
-                break
-        if pending.any():
-            # reference fallback: keep the k-means-fit init params
-            params[pending] = self.init_ou_params[pending]
-        self.params_vec = params
-        if fused_moments is not None:
-            self.means_, self.covars_ = fused_moments
-        else:
-            self.means_, self.covars_ = self._moments_np(params)
-            # the model-dtype casts of the float64 mirrors are the device
-            # values exactly
-            self._moments_dev = (self._dev(self.means_),
-                                 self._dev(self.covars_))
-        return rolled_back
+                    got = _read_host(*self._solve_full_dev(
+                        self._blend_guess(), post, obs, obs2),
+                        what="mstep_retry")
+                solved, valid, means_d, covars_d = got
+                solved = np.asarray(solved, np.float64)
+                valid = np.asarray(valid, bool)
+                take = pending & valid
+                params[take] = solved[take]
+                if attempt == 0:
+                    if valid.all():
+                        # every state accepted this very solve: its moments
+                        # stand
+                        fused_moments = (np.asarray(means_d, np.float64),
+                                         np.asarray(covars_d, np.float64))
+                    else:
+                        rolled_back = True
+                pending = pending & ~valid
+                if not pending.any():
+                    break
+            if pending.any():
+                # reference fallback: keep the k-means-fit init params
+                params[pending] = self.init_ou_params[pending]
+            self.params_vec = params
+            if fused_moments is not None:
+                self.means_, self.covars_ = fused_moments
+            else:
+                self.means_, self.covars_ = self._moments_np(params)
+                # the model-dtype casts of the float64 mirrors are the device
+                # values exactly
+                self._moments_dev = (self._dev(self.means_),
+                                     self._dev(self.covars_))
+            return rolled_back
 
     def mstep(self, stats) -> np.ndarray:
         """`mstep_dispatch`, then `mstep_finalize`: the sequential
@@ -976,7 +999,7 @@ class PhyloHMRF:
             checkpoint_path: str | None = None, checkpoint_every: int = 5,
             resume: bool = False, patience: int | None = None,
             track_states: bool = False, monitor=None,
-            cost_log: str | None = None) -> FitResult:
+            cost_log: str | None = None, trace: bool = False) -> FitResult:
         """The EM loop of the JAX engine's ``fit``: pipelined with
         ``em_pipeline`` (the default), else sequential; both give the
         same fit, bitwise.
@@ -986,15 +1009,32 @@ class PhyloHMRF:
         to the append-only ``.hist`` sidecar, then the npz is replaced
         atomically. ``resume=True`` continues from that file when it
         exists (the numpy RNG included; the torch generator feeds only
-        ``initialize``, which a resume skips)."""
+        ``initialize``, which a resume skips).
+
+        ``model.timer`` is the fit's `Trace` (``utils/profiling.py``):
+        its phase totals, and with ``trace=True`` every span of the fit
+        (``fit``, ``init``, ``em_iter``, ``estep``, ``mstep_dispatch``,
+        ``mstep_finalize``, ``wait``, ``polish`` and those of the solves,
+        moves and graph builds below), device spans timed by CUDA events
+        and resolved after the fit."""
+        self.timer = Trace(on=trace, device=self.device)
+        with active(self.timer), self.timer.span("fit"):
+            result = self._fit(verbose, callback, checkpoint_path,
+                               checkpoint_every, resume, patience,
+                               track_states, monitor, cost_log)
+        self.timer.resolve()
+        return result
+
+    def _fit(self, verbose, callback, checkpoint_path, checkpoint_every,
+             resume, patience, track_states, monitor, cost_log):
         cfg = self.cfg
+        timer = self.timer
         patience = cfg.patience if patience is None else patience
         state_list = [] if track_states else None
         if monitor is None:
             monitor = ConvergenceMonitor(cfg.threshold, patience,
                                          log_file=cost_log)
         self.monitor_ = monitor
-        self.timer = PhaseTimer()
         self.polish_stats_ = None
         it_start = 0
         restored = None
@@ -1026,12 +1066,11 @@ class PhyloHMRF:
                 print(f"[resume] from iter {it_start}")
         else:
             if self.params_vec is None:
-                t0 = time.time()
-                with self.timer.phase("init"):
+                with span("init"):
                     self.initialize()
                 if verbose:
                     print(f"[init] k-means + OU init in "
-                          f"{time.time() - t0:.2f}s")
+                          f"{timer.last_ms('init', host=False) / 1e3:.2f}s")
             prev = np.array([1e-3, 1e-3, 1e-3])  # pairwise/unary/cost1 "pre"
             cost_rows = []
             params_list = []
@@ -1104,12 +1143,33 @@ class PhyloHMRF:
         pending_estep = None    # (it, exact_method, grids, collect, n_exact)
         pending_mstep = None    # the handle of `mstep_dispatch`
 
+        @contextlib.contextmanager
+        def _em_iter(it):
+            """The span of one pass of the loop, with the speculative
+            E-steps rolled back in it."""
+            timer.iteration = it
+            rollbacks = self._mstep_rollbacks_
+            with span("em_iter", iteration=it) as sp:
+                try:
+                    yield
+                finally:
+                    sp.add(rollbacks=self._mstep_rollbacks_ - rollbacks)
+
+        def _estep_note():
+            """The verbose line's E-step: its device time and the host's
+            wait for its statistics (trace on, on CUDA), else the host's
+            own time in it."""
+            dev = timer.last_device_ms("estep")
+            if dev is not None:
+                return (f"estep device {dev:.2f}ms, wait "
+                        f"{timer.last_ms('wait'):.2f}ms")
+            return f"estep host {timer.last_ms('estep'):.2f}ms"
+
         def _finalize_pending_mstep():
             nonlocal pending_mstep, pending_estep
             if pending_mstep is None:
                 return
-            with self.timer.phase("mstep"):
-                rolled = self.mstep_finalize(pending_mstep)
+            rolled = self.mstep_finalize(pending_mstep)
             pending_mstep = None
             if rolled:
                 # the speculative E-step read stale moments: drop it (and
@@ -1120,12 +1180,11 @@ class PhyloHMRF:
                 pending_estep = None
 
         for it in range(it_start, cfg.max_iter):
-            exact_method = _exact_for(it)
-            if exact_method is not None:
-                self.hybrid_exact_iters_.append(it)
-            _finalize_pending_mstep()
-            t0 = time.time()
-            with self.timer.phase("estep"):
+            with _em_iter(it):
+                exact_method = _exact_for(it)
+                if exact_method is not None:
+                    self.hybrid_exact_iters_.append(it)
+                _finalize_pending_mstep()
                 if (pending_estep is not None
                         and pending_estep[:2] == (it, exact_method)):
                     label_grids, collect = pending_estep[2:4]
@@ -1133,94 +1192,93 @@ class PhyloHMRF:
                     label_grids, collect, _ = _dispatch_estep(exact_method)
                 pending_estep = None
                 stats, costs, _ = collect()
-            t1 = time.time()
 
-            # the accumulated "pairwise_cost" that drives convergence and
-            # is exported is the NORMALIZED one (reference base.py:388-389)
-            reduced = self._global_costs(costs, ratio_vec)
-            pairwise_cost_raw = float(reduced[0])
-            pairwise_cost = float(reduced[1])
-            unary_cost = float(reduced[2])
-            cost1 = float(reduced[3])
+                # the accumulated "pairwise_cost" that drives convergence and
+                # is exported is the NORMALIZED one (reference base.py:388-389)
+                reduced = self._global_costs(costs, ratio_vec)
+                pairwise_cost_raw = float(reduced[0])
+                pairwise_cost = float(reduced[1])
+                unary_cost = float(reduced[2])
+                cost1 = float(reduced[3])
 
-            d1 = abs((pairwise_cost - prev[0]) / prev[0])
-            d2 = abs((unary_cost - prev[1]) / prev[1])
-            d3 = abs((cost1 - prev[2]) / prev[2])
-            prev = np.array([pairwise_cost, unary_cost, cost1])
-            d3_prev = d3
-            d12_prev = max(d1, d2)
+                d1 = abs((pairwise_cost - prev[0]) / prev[0])
+                d2 = abs((unary_cost - prev[1]) / prev[1])
+                d3 = abs((cost1 - prev[2]) / prev[2])
+                prev = np.array([pairwise_cost, unary_cost, cost1])
+                d3_prev = d3
+                d12_prev = max(d1, d2)
 
-            monitor.report(it, pairwise_cost, unary_cost, cost1)
-            cost_rows.append([it, pairwise_cost, unary_cost, cost1])
-            params_list.append(self.params_vec.copy())
-            hist_rec = [params_list[-1]]
-            n_iters = it + 1
-            if track_states:
-                state_list.append(self._flat_labels(label_grids))
-                hist_rec.append(state_list[-1])
-            hist_pending.append(hist_rec)
+                monitor.report(it, pairwise_cost, unary_cost, cost1)
+                cost_rows.append([it, pairwise_cost, unary_cost, cost1])
+                params_list.append(self.params_vec.copy())
+                hist_rec = [params_list[-1]]
+                n_iters = it + 1
+                if track_states:
+                    state_list.append(self._flat_labels(label_grids))
+                    hist_rec.append(state_list[-1])
+                hist_pending.append(hist_rec)
 
-            if verbose:
-                print(f"[iter {it:3d}] pairwise={pairwise_cost:.6f} "
-                      f"(raw={pairwise_cost_raw:.6f}) "
-                      f"unary={unary_cost:.6f} cost1={cost1:.6f} "
-                      f"estep={t1 - t0:.2f}s")
+                if verbose:
+                    print(f"[iter {it:3d}] pairwise={pairwise_cost:.6f} "
+                          f"(raw={pairwise_cost_raw:.6f}) "
+                          f"unary={unary_cost:.6f} cost1={cost1:.6f} "
+                          f"{_estep_note()}")
 
-            if cost1 < min_cost[1]:
-                min_cost = [it, cost1]
-                params_best = self.params_vec.copy()
-                self.labels_local = label_grids   # warm start from best
-            if cost1 < min_cost1[1] and it >= cfg.best_from_iter:
-                min_cost1 = [it, cost1]
-                params_best1 = self.params_vec.copy()
-                t_label_grids = label_grids
+                if cost1 < min_cost[1]:
+                    min_cost = [it, cost1]
+                    params_best = self.params_vec.copy()
+                    self.labels_local = label_grids   # warm start from best
+                if cost1 < min_cost1[1] and it >= cfg.best_from_iter:
+                    min_cost1 = [it, cost1]
+                    params_best1 = self.params_vec.copy()
+                    t_label_grids = label_grids
 
-            if callback is not None:
-                callback(self, it, cost_rows[-1], label_grids)
+                if callback is not None:
+                    callback(self, it, cost_rows[-1], label_grids)
 
-            if (((d1 < cfg.threshold and d2 < cfg.threshold)
-                 or d3 < cfg.threshold) and it > cfg.min_iter):
-                break
-            if it - min_cost1[0] > patience:
-                break
+                if (((d1 < cfg.threshold and d2 < cfg.threshold)
+                     or d3 < cfg.threshold) and it > cfg.min_iter):
+                    break
+                if it - min_cost1[0] > patience:
+                    break
 
-            t2 = time.time()
-            with self.timer.phase("mstep"):
                 pending_mstep = self.mstep_dispatch(stats)
-            if cfg.em_pipeline and use_dev_moments and it + 1 < cfg.max_iter:
-                # the next E-step, enqueued behind the solve. The host
-                # labelers cannot speculate: they read the float64 host
-                # moments, which exist only after `mstep_finalize`
-                nxt_exact = _exact_for(it + 1)
-                with self.timer.phase("estep"):
+                if (cfg.em_pipeline and use_dev_moments
+                        and it + 1 < cfg.max_iter):
+                    # the next E-step, enqueued behind the solve. The host
+                    # labelers cannot speculate: they read the float64 host
+                    # moments, which exist only after `mstep_finalize`
+                    nxt_exact = _exact_for(it + 1)
                     pending_estep = (it + 1, nxt_exact,
                                      *_dispatch_estep(nxt_exact))
-            else:
-                _finalize_pending_mstep()
-            if verbose:
-                print(f"[iter {it:3d}] mstep={time.time() - t2:.2f}s")
+                else:
+                    _finalize_pending_mstep()
+                if verbose:
+                    print(f"[iter {it:3d}] mstep_dispatch host "
+                          f"{timer.last_ms('mstep_dispatch'):.2f}ms")
 
-            if (checkpoint_path is not None
-                    and (it + 1) % checkpoint_every == 0):
-                # the post-M-step state (params, moments, RNG): the pending
-                # M-step is finalized first. Only the rows added since the
-                # last save go to the sidecar, then the npz points at them
-                _finalize_pending_mstep()
-                hist_offset = ckpt.append_history(
-                    checkpoint_path, hist_pending, truncate_to=hist_offset)
-                hist_pending = []
-                extra = {"params_best": params_best,
-                         "params_best1": params_best1}
-                for ri, g in enumerate(t_label_grids):
-                    extra[f"t_labels_{ri}"] = _host_labels(g)
-                ckpt.save_checkpoint(
-                    checkpoint_path, self._host_state(),
-                    {"iter": it, "prev": prev, "cost_rows": cost_rows,
-                     "min_cost": min_cost, "min_cost1": min_cost1,
-                     "hist_count": len(params_list),
-                     "hist_offset": hist_offset,
-                     "hist_states": bool(track_states)},
-                    extra)
+                if (checkpoint_path is not None
+                        and (it + 1) % checkpoint_every == 0):
+                    # the post-M-step state (params, moments, RNG): the pending
+                    # M-step is finalized first. Only the rows added since the
+                    # last save go to the sidecar, then the npz points at them
+                    _finalize_pending_mstep()
+                    hist_offset = ckpt.append_history(
+                        checkpoint_path, hist_pending, truncate_to=hist_offset)
+                    hist_pending = []
+                    extra = {"params_best": params_best,
+                             "params_best1": params_best1}
+                    for ri, g in enumerate(t_label_grids):
+                        extra[f"t_labels_{ri}"] = _host_labels(g)
+                    ckpt.save_checkpoint(
+                        checkpoint_path, self._host_state(),
+                        {"iter": it, "prev": prev, "cost_rows": cost_rows,
+                         "min_cost": min_cost, "min_cost1": min_cost1,
+                         "hist_count": len(params_list),
+                         "hist_offset": hist_offset,
+                         "hist_states": bool(track_states)},
+                        extra)
+        timer.iteration = None
 
         # a pending M-step still finalizes, so the model's state (params,
         # moments, RNG stream) is the sequential loop's
@@ -1235,7 +1293,7 @@ class PhyloHMRF:
             # one exact graph-cut pass over the best-iteration labels under
             # the restored best-iteration moments
             self.polish_stats_ = CutStats()
-            with self.timer.phase("final_polish"):
+            with span("polish"):
                 t_label_grids = self._exact_labels_all(
                     self.means_, self.covars_, t_label_grids,
                     method=cfg.polish_method, stats=self.polish_stats_)
@@ -1348,18 +1406,27 @@ class PhyloHMRF:
     def _flat_labels(self, grids) -> np.ndarray:
         if not self.regions:
             return np.zeros(0, np.int32)
-        return np.concatenate([r.labels_to_flat(_to_numpy(g))
-                               for r, g in zip(self.regions, grids)])
+        return np.concatenate([r.labels_to_flat(g) for r, g in zip(
+            self.regions, _read_host(*grids, what="labels"))])
+
+
+def _read_host(*tensors, what: str) -> list:
+    """Host numpy copies of ``tensors``: a ``wait`` span of the fit's
+    trace."""
+    with span("wait", what=what):
+        return [_to_numpy(t) for t in tensors]
 
 
 class _HostCopy:
     """A read-back of ``tensors`` under way: on CUDA the copies into fresh
     pinned host buffers start at construction, behind one CUDA event, and
     `get` waits for the event and returns numpy arrays (views of the
-    buffers, which nothing else reuses); on the CPU `get` copies."""
+    buffers, which nothing else reuses); on the CPU `get` copies. The
+    wait is a ``wait`` span of the fit's trace, counted as ``what``."""
 
-    def __init__(self, tensors):
+    def __init__(self, tensors, what: str = "copy"):
         self._tensors = list(tensors)
+        self._what = what
         self._event = None
         if self._tensors and self._tensors[0].device.type == "cuda":
             self._host = [torch.empty(t.shape, dtype=t.dtype,
@@ -1372,8 +1439,9 @@ class _HostCopy:
 
     def get(self) -> list:
         if self._event is None:
-            return [_to_numpy(t) for t in self._tensors]
-        self._event.synchronize()
+            return _read_host(*self._tensors, what=self._what)
+        with span("wait", what=self._what):
+            self._event.synchronize()
         return [h.numpy() for h in self._host]
 
 

@@ -36,6 +36,8 @@ from typing import NamedTuple
 
 import torch
 
+from phylo_hmrf_tpu_torch.utils.profiling import span
+
 _LS_ETAS = (4.0, 2.0, 1.0, 0.5, 0.25, 0.1, 0.04, 0.015, 0.005, 0.001)
 _BOXED_TOL = 1e-7     # the boxed solve's early-exit threshold
 _PATIENCE = 5         # steps without gain before a row stops
@@ -226,77 +228,87 @@ class GraphSolve:
     ``finish``'s outputs, so a later replay leaves them alone. Counters:
     ``replays`` (step graphs), ``host_reads``, ``capture_s``,
     ``pool_bytes`` (device memory the graphs and their buffers hold). A
-    failed capture or replay raises."""
+    failed capture or replay raises. In a traced fit the capture is a
+    ``graph_capture`` span, a call a ``solve`` span timed on the device
+    too, its flag reads ``wait`` spans."""
 
     def __init__(self, objective, p0: torch.Tensor, args, lo: float,
                  hi: float, n_iters: int, finish=None):
         if p0.device.type != "cuda":
             raise ValueError(f"GraphSolve needs CUDA tensors, got "
                              f"{p0.device}")
-        t0 = time.perf_counter()
-        dev = p0.device
-        # each capture empties the allocator's cache: empty it first, so
-        # the change of the reserved bytes is what the graphs hold
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        self.n_iters, self.chunk = int(n_iters), GRAPH_CHUNK
-        self.n_chunks = max(1, math.ceil(self.n_iters / self.chunk))
-        self.replays = self.host_reads = 0
-        self.p0 = p0.detach().clone()
-        self.args = tuple(a.detach().clone() for a in args)
-        etas_t = torch.as_tensor(_LS_ETAS, dtype=p0.dtype, device=dev)
+        with span("graph_capture") as sp:
+            t0 = time.perf_counter()
+            dev = p0.device
+            # each capture empties the allocator's cache: empty it first, so
+            # the change of the reserved bytes is what the graphs hold
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            self.n_iters, self.chunk = int(n_iters), GRAPH_CHUNK
+            self.n_chunks = max(1, math.ceil(self.n_iters / self.chunk))
+            self.replays = self.host_reads = 0
+            self.p0 = p0.detach().clone()
+            self.args = tuple(a.detach().clone() for a in args)
+            etas_t = torch.as_tensor(_LS_ETAS, dtype=p0.dtype, device=dev)
 
-        def fn(z):
-            return objective(box_decode(z, lo, hi), *self.args)
+            def fn(z):
+                return objective(box_decode(z, lo, hi), *self.args)
 
-        def init():
-            return lbfgs_init(fn, box_encode(self.p0, lo, hi))
+            def init():
+                return lbfgs_init(fn, box_encode(self.p0, lo, hi))
 
-        def steps(carry):
-            for _ in range(self.chunk):
-                carry = lbfgs_step(fn, carry, etas_t, _BOXED_TOL,
-                                   _PATIENCE, self.n_iters)
-            return carry
+            def steps(carry):
+                for _ in range(self.chunk):
+                    carry = lbfgs_step(fn, carry, etas_t, _BOXED_TOL,
+                                       _PATIENCE, self.n_iters)
+                return carry
 
-        def decode(carry):
-            p = box_decode(carry.x, lo, hi)
-            return (tuple(finish(p, carry.f, *self.args)) if finish
-                    else (p, carry.f))
+            def decode(carry):
+                p = box_decode(carry.x, lo, hi)
+                return (tuple(finish(p, carry.f, *self.args)) if finish
+                        else (p, carry.f))
 
-        # every tensor the graphs read (the grid of step sizes, what the
-        # objective closes over) lives as long as they do
-        self._keep = (init, steps, decode)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                decode(steps(init()))
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self._g_init = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._g_init):
-            self.carry = init()
-        self._g_step = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._g_step):
-            for dst, src in zip(self.carry, steps(self.carry)):
-                dst.copy_(src)
-        self._g_finish = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._g_finish):
-            self.out = decode(self.carry)
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.capture_s = time.perf_counter() - t0
+            # every tensor the graphs read (the grid of step sizes, what the
+            # objective closes over) lives as long as they do
+            self._keep = (init, steps, decode)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    decode(steps(init()))
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self._g_init = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._g_init):
+                self.carry = init()
+            self._g_step = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._g_step):
+                for dst, src in zip(self.carry, steps(self.carry)):
+                    dst.copy_(src)
+            self._g_finish = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._g_finish):
+                self.out = decode(self.carry)
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            self.capture_s = time.perf_counter() - t0
+            sp.add(capture_s=self.capture_s, pool_bytes=self.pool_bytes)
 
     def __call__(self, p0: torch.Tensor, *args, early_exit: bool = False):
-        self.p0.copy_(p0)
-        for dst, src in zip(self.args, args):
-            dst.copy_(src)
-        self._g_init.replay()
-        for _ in range(self.n_chunks):
-            self._g_step.replay()
-            self.replays += 1
-            if early_exit:
-                self.host_reads += 1
-                if not bool(self.carry.active.any()):
-                    break
-        self._g_finish.replay()
-        return tuple(t.clone() for t in self.out)
+        replays, reads = self.replays, self.host_reads
+        with span("solve", device=True) as sp:
+            self.p0.copy_(p0)
+            for dst, src in zip(self.args, args):
+                dst.copy_(src)
+            self._g_init.replay()
+            for _ in range(self.n_chunks):
+                self._g_step.replay()
+                self.replays += 1
+                if early_exit:
+                    self.host_reads += 1
+                    with span("wait", what="solve_flags"):
+                        if not bool(self.carry.active.any()):
+                            break
+            self._g_finish.replay()
+            out = tuple(t.clone() for t in self.out)
+            sp.add(replays=self.replays - replays,
+                   host_reads=self.host_reads - reads)
+        return out

@@ -39,7 +39,8 @@ their captured units' pools hold); each graph's int64 ``totals`` on the
 card (what its loops did: iterations, sweeps, kernel launches or plain
 units, runs stopped at their limit), read only where a caller asks
 (`kernel_launches`, `plain_units`, a cut's ``CutStats`` at
-``_optimize_batched``'s cycle read).
+``_optimize_batched``'s cycle read). In a traced fit a graph's build and
+its units' capture are ``loop_graph_build`` spans.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ import time
 import torch
 
 from phylo_hmrf_tpu_torch import _build
+from phylo_hmrf_tpu_torch.utils.profiling import span
 
 LOOP_GO, LOOP_SEEN, LOOP_TICKET, LOOP_COUNT, LOOP_LIMIT, LOOP_LAST = range(6)
 LOOP_WORDS = 8
@@ -140,7 +142,7 @@ class _Graph:
         self._keep = buffers
         exec_ = ctypes.c_void_p()
         t0 = time.perf_counter()
-        with torch.cuda.device(device):
+        with span("loop_graph_build", builds=1), torch.cuda.device(device):
             _build.check(build(self.totals.data_ptr(),
                                ctypes.byref(exec_)), "loop graph build")
         stats["builds"] += 1
@@ -181,35 +183,36 @@ class Units:
     device memory the pool holds."""
 
     def __init__(self, device, fns, counters=()):
-        t0 = time.perf_counter()
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for fn in fns:
-                fn()
-        side.synchronize()
-        counts = [(c, c.launches) for c in counters]
-        self.graphs, pool = [], None
-        try:
-            for fn in fns:
-                g = torch.cuda.CUDAGraph(keep_graph=True)
-                with torch.cuda.graph(g, pool=pool, stream=side):
+        with span("loop_graph_build", captures=len(fns)):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for fn in fns:
                     fn()
-                g.instantiate()
-                pool = g.pool() if pool is None else pool
-                self.graphs.append(g)
-        finally:
-            for c, n in counts:
-                c.launches = n
-        torch.cuda.current_stream(device).wait_stream(side)
-        self._fns = fns
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        stats["captures"] += len(fns)
-        stats["capture_s"] += time.perf_counter() - t0
-        stats["pool_bytes"] += self.pool_bytes
+            side.synchronize()
+            counts = [(c, c.launches) for c in counters]
+            self.graphs, pool = [], None
+            try:
+                for fn in fns:
+                    g = torch.cuda.CUDAGraph(keep_graph=True)
+                    with torch.cuda.graph(g, pool=pool, stream=side):
+                        fn()
+                    g.instantiate()
+                    pool = g.pool() if pool is None else pool
+                    self.graphs.append(g)
+            finally:
+                for c, n in counts:
+                    c.launches = n
+            torch.cuda.current_stream(device).wait_stream(side)
+            self._fns = fns
+            self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+            stats["captures"] += len(fns)
+            stats["capture_s"] += time.perf_counter() - t0
+            stats["pool_bytes"] += self.pool_bytes
         self.raw = (ctypes.c_void_p * len(fns))(
             *[g.raw_cuda_graph() for g in self.graphs])
 
@@ -243,6 +246,13 @@ def _counted(slots) -> dict:
         for name, slot in slots.items():
             out[name] += int(t[slot])
     return out
+
+
+def graph_launches() -> int:
+    """Loop-graph launches of this process so far (host counters, both
+    kinds)."""
+    return sum(fn.launches + fn.plain_launches
+               for fn in (run_cut, run_bfs, run_icm, run_unit_loop))
 
 
 def kernel_launches() -> dict:

@@ -46,6 +46,7 @@ from phylo_hmrf_tpu_torch.ops.mf_kernels import _shift2, mean_field_kmajor
 from phylo_hmrf_tpu_torch.ops.mincut_kernels import (
     ALL_DIRS, EPS, _nb, _rev, bfs_sweeps, bfs_sweeps_plain, pr_iterations,
     pr_iterations_plain)
+from phylo_hmrf_tpu_torch.utils.profiling import span
 
 RELABEL_EVERY = 32     # iterations between global relabels (BFS)
 
@@ -71,12 +72,13 @@ class CutStats:
         self.capped += int(t[loops.T_CAPPED])
 
 
-def _read(x, stats):
+def _read(x, stats, what: str = "cut"):
     """One host read of a device value: a 0-d tensor's item, or a 1-d
-    tensor as a list."""
+    tensor as a list (a ``wait`` span of the fit's trace)."""
     if stats is not None:
         stats.host_reads += 1
-    return x.item() if x.dim() == 0 else x.tolist()
+    with span("wait", what=what):
+        return x.item() if x.dim() == 0 else x.tolist()
 
 
 def _on_card(t, plain: bool, host_loop: bool) -> bool:
@@ -387,100 +389,112 @@ def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
     histogram) and once at the end of each cycle (change counts, energy,
     histogram and, on the graph route, the cut counters), as JAX's does:
     on the graph route a move's cut reads nothing. A cycle with no change,
-    or an energy drop within ``tol`` (relative), ends the pass."""
-    # beta at the unary's precision: the cut capacities see it at float32,
-    # or unrounded in float64
-    beta = _f32(beta) if unary_k.dtype == torch.float32 else float(beta)
-    wsum = _incident_wsum(wmaps, beta)
-    labels = torch.where(mask, init_labels, 0).to(torch.int32)
-    graph = base = None
-    if _on_card(unary_k, plain, host_loop):
-        # the moves' cuts add to this graph's counters; the cycle reads
-        # take them with the labels' numbers
-        graph = loops.cut_graph(unary_k.device, *labels.shape,
-                                unary_k.dtype, plain)
-        base = graph.totals.clone()
-    e, hist_t = _energy_hist(labels, unary_k, wmaps, mask, beta, n_states)
-    got = _read(torch.cat([e.sum().view(1), hist_t.double()]), stats)
-    e_start = prev_e = e_now = got[0]
-    hist = [int(v) for v in got[1:]]
+    or an energy drop within ``tol`` (relative), ends the pass. In a
+    traced fit the pass is a ``moves`` span, its reads ``wait`` spans."""
+    with span("moves", method=method) as sp:
+        before = (dataclasses.asdict(stats) if sp.on and stats is not None
+                  else None)
+        # beta at the unary's precision: the cut capacities see it at float32,
+        # or unrounded in float64
+        beta = _f32(beta) if unary_k.dtype == torch.float32 else float(beta)
+        wsum = _incident_wsum(wmaps, beta)
+        labels = torch.where(mask, init_labels, 0).to(torch.int32)
+        graph = base = None
+        if _on_card(unary_k, plain, host_loop):
+            # the moves' cuts add to this graph's counters; the cycle reads
+            # take them with the labels' numbers
+            graph = loops.cut_graph(unary_k.device, *labels.shape,
+                                    unary_k.dtype, plain)
+            base = graph.totals.clone()
+        e, hist_t = _energy_hist(labels, unary_k, wmaps, mask, beta, n_states)
+        got = _read(torch.cat([e.sum().view(1), hist_t.double()]), stats,
+                    "moves")
+        e_start = prev_e = e_now = got[0]
+        hist = [int(v) for v in got[1:]]
 
-    if method == "expansion":
-        moves = [(a,) for a in range(n_states)]
-    else:
-        moves = [(a, b) for a in range(n_states)
-                 for b in range(a + 1, n_states)]
-    kw = dict(max_sweeps=max_sweeps, plain=plain, host_loop=host_loop,
-              stats=None if graph is not None else stats)
+        if method == "expansion":
+            moves = [(a,) for a in range(n_states)]
+        else:
+            moves = [(a, b) for a in range(n_states)
+                     for b in range(a + 1, n_states)]
+        kw = dict(max_sweeps=max_sweeps, plain=plain, host_loop=host_loop,
+                  stats=None if graph is not None else stats)
 
-    last_run = {}        # move -> move counter at its last run
-    changed_actual = {}  # label (or "any") -> counter of its last change
-    totals = None        # the graph's counters at the last cycle read
-    t = 0
-    for _ in range(max_cycles):
-        maybe = [v > 0 for v in hist]
-        changed_opt = dict(changed_actual)
-        pending = []     # (move, counter, n_changed (R,) on the device)
-        for mv in moves:
-            lr = last_run.get(mv)
-            if method == "expansion":
-                if lr is not None and changed_opt.get("any", -1) <= lr:
-                    continue
-                labels, nch = _expansion_move_batch(
-                    labels, unary_k, wmaps, mask, mv[0], beta, wsum, **kw)
-                changed_opt["any"] = t
-            else:
-                a, b = mv
-                # skippable while both labels are provably empty; a run
-                # may repopulate either, so both are marked
-                if not (maybe[a] or maybe[b]):
-                    continue
-                if lr is not None and changed_opt.get(a, -1) <= lr \
-                        and changed_opt.get(b, -1) <= lr:
-                    continue
-                labels, nch = _swap_move_batch(
-                    labels, unary_k, wmaps, mask, a, b, beta, wsum, **kw)
-                changed_opt[a] = changed_opt[b] = t
-                maybe[a] = maybe[b] = True
-            last_run[mv] = t
-            pending.append((mv, t, nch))
-            t += 1
-        if not pending:
-            break
+        last_run = {}        # move -> move counter at its last run
+        changed_actual = {}  # label (or "any") -> counter of its last change
+        totals = None        # the graph's counters at the last cycle read
+        t = cycles = 0
+        for _ in range(max_cycles):
+            maybe = [v > 0 for v in hist]
+            changed_opt = dict(changed_actual)
+            pending = []     # (move, counter, n_changed (R,) on the device)
+            for mv in moves:
+                lr = last_run.get(mv)
+                if method == "expansion":
+                    if lr is not None and changed_opt.get("any", -1) <= lr:
+                        continue
+                    labels, nch = _expansion_move_batch(
+                        labels, unary_k, wmaps, mask, mv[0], beta, wsum, **kw)
+                    changed_opt["any"] = t
+                else:
+                    a, b = mv
+                    # skippable while both labels are provably empty; a run
+                    # may repopulate either, so both are marked
+                    if not (maybe[a] or maybe[b]):
+                        continue
+                    if lr is not None and changed_opt.get(a, -1) <= lr \
+                            and changed_opt.get(b, -1) <= lr:
+                        continue
+                    labels, nch = _swap_move_batch(
+                        labels, unary_k, wmaps, mask, a, b, beta, wsum, **kw)
+                    changed_opt[a] = changed_opt[b] = t
+                    maybe[a] = maybe[b] = True
+                last_run[mv] = t
+                pending.append((mv, t, nch))
+                t += 1
+            if not pending:
+                break
+            cycles += 1
 
-        # one host read per cycle: energy, histogram, change counts (and
-        # the cut counters), as one float64 vector (every count is exact)
-        e, hist_t = _energy_hist(labels, unary_k, wmaps, mask, beta,
-                                 n_states)
-        parts = [e.sum().view(1), hist_t.double(),
-                 torch.stack([p[2] for p in pending]).double().flatten()]
-        if graph is not None:
-            parts.append((graph.totals - base).double())
-        got = _read(torch.cat(parts), stats)
-        e_now = got[0]
-        hist = [int(v) for v in got[1:1 + n_states]]
-        R = labels.shape[0]
-        nch_all = got[1 + n_states:1 + n_states + R * len(pending)]
-        if graph is not None:
-            totals = got[1 + n_states + R * len(pending):]
-        total_changed = 0
-        for i, (mv, tt, _) in enumerate(pending):
-            n_tot = int(sum(nch_all[i * R:(i + 1) * R]))
-            total_changed += n_tot
-            if n_tot > 0:
-                for lab in (mv if method != "expansion" else ("any",)):
-                    changed_actual[lab] = max(changed_actual.get(lab, -1), tt)
-        if total_changed == 0:
-            break
-        if prev_e - e_now <= tol * max(1.0, abs(prev_e)):
-            break
-        prev_e = e_now
-    if stats is not None:
-        if totals is not None:
-            stats.add_totals(totals)
-        stats.energy_start += e_start
-        stats.energy_end += e_now
-    return labels
+            # one host read per cycle: energy, histogram, change counts (and
+            # the cut counters), as one float64 vector (every count is exact)
+            e, hist_t = _energy_hist(labels, unary_k, wmaps, mask, beta,
+                                     n_states)
+            parts = [e.sum().view(1), hist_t.double(),
+                     torch.stack([p[2] for p in pending]).double().flatten()]
+            if graph is not None:
+                parts.append((graph.totals - base).double())
+            got = _read(torch.cat(parts), stats, "moves")
+            e_now = got[0]
+            hist = [int(v) for v in got[1:1 + n_states]]
+            R = labels.shape[0]
+            nch_all = got[1 + n_states:1 + n_states + R * len(pending)]
+            if graph is not None:
+                totals = got[1 + n_states + R * len(pending):]
+            total_changed = 0
+            for i, (mv, tt, _) in enumerate(pending):
+                n_tot = int(sum(nch_all[i * R:(i + 1) * R]))
+                total_changed += n_tot
+                if n_tot > 0:
+                    for lab in (mv if method != "expansion" else ("any",)):
+                        changed_actual[lab] = max(
+                            changed_actual.get(lab, -1), tt)
+            if total_changed == 0:
+                break
+            if prev_e - e_now <= tol * max(1.0, abs(prev_e)):
+                break
+            prev_e = e_now
+        if stats is not None:
+            if totals is not None:
+                stats.add_totals(totals)
+            stats.energy_start += e_start
+            stats.energy_end += e_now
+        if sp.on:
+            sp.add(cycles=cycles, moves_run=t)
+            if before is not None:
+                sp.add(**{k: v - before[k]
+                          for k, v in dataclasses.asdict(stats).items()})
+        return labels
 
 
 def _icm_pick(unary_k, wmaps, mask, proposal, warm, beta: float,

@@ -337,17 +337,30 @@ def test_cli_matches_jax_cli(tmp_path, datasets):
 
 def test_torch_trace_writes_chrome_trace(tmp_path):
     """``--profile_dir``'s scope: a Chrome trace of the work inside it,
-    nothing when the directory is empty."""
+    with the spans of a fit traced inside it as ranges; nothing when the
+    directory is empty."""
+    from phylo_hmrf_tpu_torch import PhyloHMRF
+    from phylo_hmrf_tpu_torch.config import PhyloHMRFConfig as TorchConfig
+    from phylo_hmrf_tpu_torch.synth import chr21_problem
     from phylo_hmrf_tpu_torch.utils.profiling import torch_trace
 
     with torch_trace(""):
         torch.ones(4).sum()
+    tree, region, *_ = chr21_problem(0, h0=16, K=2)
+    model = PhyloHMRF(tree, [region], TorchConfig(
+        n_states=2, max_iter=2, seed=0, mstep_iters=4), device="cpu")
     out = tmp_path / "trace"
     with torch_trace(str(out)):
         torch.ones(64, 64).matmul(torch.ones(64, 64))
+        model.fit(verbose=False, trace=True)
     (path,) = list(out.iterdir())
     with open(path) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    assert events
+    names = {e.get("name") for e in events}
+    assert {s.name for s in model.timer.spans} <= names
+    assert {"fit", "em_iter", "estep", "mstep_dispatch", "wait",
+            "polish"} <= names
 
 
 def test_cli_device_cuda_without_cuda_raises(tmp_path):

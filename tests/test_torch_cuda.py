@@ -1191,3 +1191,53 @@ def test_halo_icm_graph_matches_host_loop(dev, name, dtype):
         (0, 2) if plain else (2, 0))
     key = "K8" if name == "offdiag" else "K2"
     assert (loops.kernel_launches()[key] > before[key]) == (not plain)
+
+
+def test_fit_trace_device_spans(dev, monkeypatch):
+    """A fit traced on the card: its solves and E-steps carry device
+    times inside the fit's window on the host clock, each M-step solve
+    its step replays, each capture its seconds and pool; the same fit
+    untraced makes no timing event and no profiler range, and gives the
+    same labels."""
+    from phylo_hmrf_tpu_torch import PhyloHMRF
+    from phylo_hmrf_tpu_torch.config import PhyloHMRFConfig
+    from phylo_hmrf_tpu_torch.synth import chr21_problem
+
+    tree, region, *_ = chr21_problem(0, h0=96, K=4)
+    cfg = PhyloHMRFConfig(n_states=4, max_iter=3, seed=0, min_iter=0,
+                          threshold=1e-12)
+    model = PhyloHMRF(tree, [region], cfg, device=dev)
+    res = model.fit(verbose=False, trace=True)
+    tr = model.timer
+    fit = tr.spans[0]
+    slack = 1_000_000     # ns: the anchor's offset and the events' rounding
+    timed = [s for s in tr.spans if s.name in ("solve", "estep")]
+    assert {s.name for s in timed} == {"solve", "estep"}
+    for s in timed:
+        assert s.device_ns > 0 and s.events is None
+        assert s.t0 - slack <= s.d0 <= s.d1 <= fit.t1 + slack
+    mstep_solves = [s for s in tr.spans if s.name == "solve"
+                    and tr.spans[s.parent].name == "mstep_dispatch"]
+    assert len(mstep_solves) == res.n_iters     # no stop before max_iter
+    assert all(s.counts["replays"] >= 1 and s.counts["host_reads"] == 0
+               for s in mstep_solves)
+    caps = [s for s in tr.spans if s.name == "graph_capture"]
+    assert caps and all(s.counts["capture_s"] > 0 for s in caps)
+
+    made = []
+    event0 = torch.cuda.Event
+
+    def event(*a, **k):
+        made.append(bool(k.get("enable_timing")))
+        return event0(*a, **k)
+
+    def refuse(*a, **k):
+        raise AssertionError("a profiler range with the trace off")
+
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    again = PhyloHMRF(tree, [region], cfg, device=dev)
+    res2 = again.fit(verbose=False)
+    assert made and not any(made)    # the read-backs' events only
+    assert again.timer.spans == []
+    np.testing.assert_array_equal(res.labels, res2.labels)
