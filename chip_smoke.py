@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the eight kernels from ``phylo_hmrf_tpu_torch/csrc`` with nvcc (one
+Builds the nine kernels from ``phylo_hmrf_tpu_torch/csrc`` with nvcc (one
 process per source, in parallel), holds each against its plain PyTorch
 version and times both: the four E-step kernels at the chr21 shapes (R=1,
 K=10, H=672, W=768, F=4) on the E-step's operands (the tile kernels K1 and
@@ -32,13 +32,21 @@ enqueued before the M-step's results are read) and ``False``, in this
 process: both fits' SHA-256 digests (cost rows, every iteration's labels,
 polished labels, params) equal ``[fit]``'s. It runs the first M-step
 solve and the first init solve of those runs again through the plain
-L-BFGS driver and through its captured CUDA graphs, in float32 and
-float64: byte for byte equal, with the walls, the graph replays and host
-reads a solve, the capture seconds and the memory the graphs hold; the
-init's graph with and without its read of the rows' flags a chunk; and
-``mstep_dispatch`` under ``torch.cuda.set_sync_debug_mode("error")``.
+L-BFGS driver and through its captured CUDA graphs (the route of a tree
+above the fused kernel's caps, forced), in float32 and float64: byte for
+byte equal, with the walls, the graph replays and host reads a solve, the
+capture seconds and the memory the graphs hold; the init's graph with and
+without its read of the rows' flags a chunk; and ``mstep_dispatch`` under
+``torch.cuda.set_sync_debug_mode("error")``. The same two solves hold the
+fused kernel L (``csrc/lbfgs.cu``, the route every configuration takes)
+to the plain driver: 1-5 steps in float64 within 1e-9 relative, and the
+150-step solve's loss, in float32 and float64, no higher than the plain
+driver's by more than twice what the plain driver's own twins (starts one
+ulp away) land from it (``[pipeline]``'s ``fused``); L's row of the
+kernel table is timed there, and its launches are the command line fit's.
 The fresh launch-counting process profiles one chr21 M-step solve on
-both drivers (``[pipeline] mstep launches``: kernels, device busy time).
+the three routes (``[pipeline] mstep launches``: kernels, device busy
+time).
 
 From the ``[fit]`` phase's init state, ``[labelers]`` fits the chr21
 problem with every other E-step labeler: ``swap_tpu`` and
@@ -150,6 +158,7 @@ and the ms per fit lost to the bound); the last line is
 that.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -180,6 +189,10 @@ KERNELS = {
                          "phylo_hmrf_tpu/ops/mf_pallas.py:67"),
     "K8_icm_sweep_halo": ("phylo_hmrf_tpu_torch/csrc/icm.cu",
                           "phylo_hmrf_tpu/ops/icm_pallas.py:26"),
+    # the M-step's and the init's L-BFGS solve; no TPU kernel: the JAX
+    # package's solve is a vmapped while_loop that XLA compiles
+    "L_lbfgs_ou": ("phylo_hmrf_tpu_torch/csrc/lbfgs.cu",
+                   "none (phylo_hmrf_tpu/ops/lbfgs.py:141)"),
 }
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
@@ -485,9 +498,11 @@ def count_launches_main() -> int:
 def mstep_launches(dev):
     """Device kernels and busy seconds of one chr21 M-step solve (K=10,
     the statistics of the true labels, params from a seed) through the
-    plain driver and through its captured graphs (after the capture), by
-    ``torch.profiler``; the graph's replays. A profiler that sees no
-    kernel of the graph replays records None there."""
+    plain driver, through its captured graphs (after the capture; the
+    route of a tree above the fused kernel's caps, forced here) and
+    through the fused kernel, by ``torch.profiler``; the graph's replays.
+    A profiler that sees no kernel of the graph replays records None
+    there."""
     import numpy as np
     import torch
 
@@ -508,14 +523,18 @@ def mstep_launches(dev):
     args = (torch.as_tensor(p0, dtype=torch.float32, device=dev), *stats,
             float(X.shape[0]), cfg.lambda_0, cfg.min_covar)
     graphs = {}
-    hm._mstep_solve_full(*args, graphs=graphs, **kw)   # the capture
+    with _graph_route(hm):
+        hm._mstep_solve_full(*args, graphs=graphs, **kw)   # the capture
     (solve,) = graphs.values()
     out = {}
-    for name, gr in (("plain", None), ("graph", graphs)):
+    for name, gr in (("plain", None), ("graph", graphs), ("fused", {})):
         r0 = solve.replays
+        route = (_graph_route(hm) if name == "graph"
+                 else contextlib.nullcontext())
         try:
-            busy_s, n, _ = _device_busy_s(
-                lambda: hm._mstep_solve_full(*args, graphs=gr, **kw))
+            with route:
+                busy_s, n, _ = _device_busy_s(
+                    lambda: hm._mstep_solve_full(*args, graphs=gr, **kw))
         except AssertionError:
             if gr is None:
                 raise
@@ -523,6 +542,18 @@ def mstep_launches(dev):
         out[name] = dict(kernels=n, device_busy_s=busy_s,
                          replays=solve.replays - r0)
     return out
+
+
+@contextlib.contextmanager
+def _graph_route(hm):
+    """The model module's solves take the captured graphs (the route of
+    a tree above the fused kernel's caps) while inside."""
+    route0 = hm.solve_route
+    hm.solve_route = lambda *a: "graph"
+    try:
+        yield
+    finally:
+        hm.solve_route = route0
 
 
 def _halo_units(x, n_sweeps, n_phases, n_shards=4):
@@ -1465,8 +1496,8 @@ def _counters():
     """The launch counter of every kernel wrapper, by kernel name, and of
     every loop graph (its launches, host side: the K2, K5 and K6 launches
     inside a graph are counted on the card, `_graph_kernels`)."""
-    from phylo_hmrf_tpu_torch.ops import finish_kernels, icm_kernels, loops
-    from phylo_hmrf_tpu_torch.ops import mf_kernels, mincut_kernels
+    from phylo_hmrf_tpu_torch.ops import finish_kernels, icm_kernels, lbfgs
+    from phylo_hmrf_tpu_torch.ops import loops, mf_kernels, mincut_kernels
 
     return {"K1_mf_sweep": mf_kernels.mf_sweeps,
             "K2_icm_phase": icm_kernels.icm_sweep_pair,
@@ -1476,6 +1507,7 @@ def _counters():
             "K6_bfs_sweeps": mincut_kernels.bfs_sweeps,
             "K7_mf_sweeps_halo": mf_kernels.mf_sweeps_halo,
             "K8_icm_sweep_halo": icm_kernels.icm_sweep_halo_,
+            "L_lbfgs_ou": lbfgs.fused_ou_solve,
             "G_icm_loop": loops.run_icm, "G_cut_loop": loops.run_cut,
             "G_bfs_loop": loops.run_bfs,
             "G_halo_icm_loop": loops.run_unit_loop}
@@ -1751,6 +1783,8 @@ def _solve_pair(tree, fn, args, kw, dtype, device):
 
     from phylo_hmrf_tpu_torch.models.ou import tree_tensors
 
+    import phylo_hmrf_tpu_torch.models.hmrf as hm
+
     args = [a.to(dtype) if torch.is_tensor(a) else a for a in args]
     kw = dict(kw, tt=tree_tensors(tree, device, dtype))
     walls, outs = {}, {}
@@ -1759,7 +1793,11 @@ def _solve_pair(tree, fn, args, kw, dtype, device):
                     ("graph", graphs)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs[name] = fn(*args, **dict(kw, graphs=g))
+        with _graph_route(hm):
+            # the tensors of the result (an M-step's steps: None off the
+            # fused route)
+            outs[name] = [t for t in fn(*args, **dict(kw, graphs=g))
+                          if t is not None]
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
         if name == "graph_first":
@@ -1777,14 +1815,184 @@ def _solve_pair(tree, fn, args, kw, dtype, device):
         capture_s=solve.capture_s, pool_bytes=solve.pool_bytes)
 
 
+def _ops_ou_eval(n_nodes, n_leaves):
+    """Operations of one value and gradient of the OU objective (a
+    line-search point of ``csrc/lbfgs.cuh``), counted from its forward
+    arithmetic: the recursion (12 a node), each leaf pair's covariance (2
+    a node and 2), the Cholesky (F^3 / 3 + 2 F^2), the log-determinant
+    (2 F + 2), Sn (6 F^2), the two triangular solves and the trace (2 F^3
+    + 2 F^2 + F), the ridge (2 P) and f (5); the reverse pass at twice
+    the forward one."""
+    n, F = n_nodes, n_leaves
+    Q, P = F * (F - 1) // 2, 3 * n - 1
+    fwd = (12 * (n - 1) + Q * (2 * (n - 1) + 2) + F ** 3 // 3 + 2 * F * F
+           + 2 * F + 2 + 6 * F * F + 2 * F ** 3 + 2 * F * F + F + 2 * P + 5)
+    return 3 * fwd
+
+
+def _ops_lbfgs(n_nodes, n_leaves, steps, rows, memory=10, etas=10):
+    """Operations of a fused solve of ``rows`` rows that took ``steps``
+    steps in all: the objective at each start, then per step and row the
+    ``etas`` line-search points (6 a coordinate for the point and its
+    sigmoid, and the objective), the two-loop recursion (8 a coordinate
+    and memory slot), gamma, the accepted step and s.y (12 a
+    coordinate)."""
+    P = 3 * n_nodes - 1
+    ev = _ops_ou_eval(n_nodes, n_leaves)
+    step = etas * (ev + 6 * P) + 8 * memory * P + 12 * P
+    return rows * ev + steps * step
+
+
+def check_fused_solves(tree, seen, device, reps=20):
+    """The fused L-BFGS kernel L on the first M-step and init solves of
+    the ``[pipeline]`` fits (``seen``: their arguments), against the plain
+    driver on the same inputs: 1-5 steps in float64, every output within
+    1e-9 relative and every row taking the steps it was given; whole
+    solves (the configured cap) in float32 and float64, compared by loss
+    in float64 at each one's params: the fused loss no higher than the
+    plain driver's by more than twice the largest gap of the plain
+    driver's own twins (its solves from the start moved by one ulp: up,
+    down, and by a random sign a coordinate), relative to the plain
+    driver's loss, or 1e-4 / 1e-9 where that is larger. Returns the
+    record and L's kernel row, timed on the float32 M-step solve: the
+    device time of one launch (CUDA events around ``reps`` queued
+    launches), one call with its host work, and the plain driver's
+    solve."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    import phylo_hmrf_tpu_torch.models.hmrf as hm
+    from phylo_hmrf_tpu_torch.models.ou import (ou_nll_init, ou_nll_stats,
+                                                ridge_coef, tree_tensors)
+    from phylo_hmrf_tpu_torch.ops import lbfgs
+
+    def rel(a, b):
+        b = b.double()
+        scale = float(b.abs().max())
+        diff = float((a.double() - b).abs().max())
+        return diff / scale if scale > 0 else diff
+
+    tt64 = tree_tensors(tree, device, torch.float64)
+    rec, row = {}, None
+    for name in ("_mstep_solve_full", "_init_solve"):
+        fn = getattr(hm, name)
+        args0, kw0 = seen[name]
+        kind = name.strip("_").split("_")[0]
+
+        def loss(p, args):
+            a = [x.double() if torch.is_tensor(x) else x for x in args]
+            if kind == "mstep":
+                return ou_nll_stats(p.double(), *a[1:4], tt64, *a[4:7])
+            return ou_nll_init(p.double(), *a[1:3], tt64, a[3])
+
+        for dtype in (torch.float64, torch.float32):
+            args = [a.to(dtype) if torch.is_tensor(a) else a for a in args0]
+            kw = dict(kw0, tt=tree_tensors(tree, device, dtype))
+            r = rec[f"{kind}_{str(dtype)[6:]}"] = {}
+
+            def solve(p0, fused, iters=kw["iters"]):
+                return fn(p0, *args[1:], **dict(kw, iters=iters,
+                                                 graphs={} if fused else None))
+
+            if dtype == torch.float64:
+                worst, err = 0.0, 0.0
+                for iters in range(1, 6):
+                    plain = solve(args[0], False, iters)
+                    fused = solve(args[0], True, iters)
+                    for a, b in zip(fused, plain):
+                        if b is None:
+                            continue
+                        if b.is_floating_point():
+                            worst = max(worst, rel(a, b))
+                            err = max(err, float((a - b).abs().max()))
+                        else:
+                            _check(torch.equal(a, b),
+                                   f"[pipeline] fused {name}, {iters} "
+                                   f"steps: {a} vs the plain {b}")
+                    if kind == "mstep":
+                        _check(bool((fused[4] == iters).all()),
+                               f"[pipeline] fused {name}: rows took "
+                               f"{fused[4].tolist()} of {iters} steps")
+                    _check(worst <= 1e-9,
+                           f"[pipeline] fused {name}, {iters} steps in "
+                           f"float64: {worst} from the plain driver (rel)")
+                r.update(short_max_rel=worst, short_max_abs_err=err)
+            f_plain = loss(solve(args[0], False)[0], args)
+            out = solve(args[0], True)
+            f_fused = loss(out[0], args)
+            ulp = float(torch.finfo(dtype).eps)
+            g = torch.Generator().manual_seed(0)
+            signs = (1.0, -1.0, torch.randint(0, 2, tuple(args[0].shape),
+                                              generator=g).to(
+                args[0].device, dtype) * 2 - 1)
+            twin = 0.0
+            for sg in signs:
+                f_twin = loss(solve(args[0] * (1 + sg * ulp), False)[0], args)
+                twin = max(twin, float(((f_twin - f_plain).abs()
+                                        / f_plain.abs()).max()))
+            excess = float(((f_fused - f_plain) / f_plain.abs()).max())
+            floor = 1e-9 if dtype == torch.float64 else 1e-4
+            r.update(loss_excess=excess, twin_gap=twin,
+                     bound=max(floor, 2 * twin))
+            if kind == "mstep":
+                steps = out[4]
+                r.update(steps_max=int(steps.max()),
+                         steps_mean=float(steps.float().mean()))
+            _check(excess <= r["bound"],
+                   f"[pipeline] fused {name} in {dtype}: its loss is "
+                   f"{excess} above the plain driver's (rel), its twins "
+                   f"land {twin} from it")
+            if kind == "mstep" and dtype == torch.float32:
+                p0, post, obs, obs2, n_samples, lambda_0, min_covar = args
+                tt = kw["tt"]
+
+                def launch():
+                    return lbfgs.fused_ou_solve(
+                        p0, tt.index, tt.A2T, obs, obs2, post,
+                        n_samples=n_samples,
+                        coef=ridge_coef(dtype, n_samples, lambda_0),
+                        min_covar=min_covar, lo=kw["lo"], hi=kw["hi"],
+                        n_iters=kw["iters"])
+
+                before = lbfgs.fused_ou_solve.launches
+                launch()
+                per_call = lbfgs.fused_ou_solve.launches - before
+                objective = functools.partial(
+                    ou_nll_stats, tt=tt, n_samples=n_samples,
+                    lambda_0=lambda_0, min_covar=min_covar)
+                K = p0.shape[0]
+                row = dict(
+                    ms=_time_ms(launch, reps=reps, queued=True),
+                    call_ms=_time_ms(launch, reps=reps),
+                    plain_ms=_time_ms(lambda: lbfgs.minimize_boxed(
+                        lambda p: objective(p, post, obs, obs2), p0,
+                        kw["lo"], kw["hi"], kw["iters"]), reps=1),
+                    launches_per_unit=per_call,
+                    nbytes=_nbytes(p0, post, obs, obs2, tt.index, tt.A2T,
+                                   out[0], out[4], out[0][:, 0]),
+                    ops=_ops_lbfgs(tree.n_nodes, tree.n_leaves,
+                                   int(out[4].sum()), K),
+                    unit=(f"one M-step solve: the [pipeline] fit's first, "
+                          f"K={K}, float32, at most {kw['iters']} steps; "
+                          f"max_abs_err: 1-5 steps in float64"))
+    row["max_abs_err"] = max(rec[k]["short_max_abs_err"]
+                             for k in ("mstep_float64", "init_float64"))
+    _check(row["launches_per_unit"] == 1,
+           f"[pipeline] {row['launches_per_unit']} launches a fused solve")
+    return rec, row
+
+
 def check_pipeline(tree, region, run, fit_digests, device):
     """``[pipeline]``: the chr21 default fit from the ``[fit]`` init state
     with ``em_pipeline=True`` and ``False``, in this process, digests
     equal to each other and to ``[fit]``'s; a fresh model's init; the
     first M-step and init solves of those runs again through the plain
-    driver and the captured graphs, in float32 and float64, bitwise; the
-    init's graph with and without its read a chunk; ``mstep_dispatch``
-    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    driver and the captured graphs, in float32 and float64, bitwise, and
+    through the fused kernel (`check_fused_solves`); the init's graph with
+    and without its read a chunk; ``mstep_dispatch`` under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
     import torch
 
     import phylo_hmrf_tpu_torch.models.hmrf as hm
@@ -1848,6 +2056,8 @@ def check_pipeline(tree, region, run, fit_digests, device):
     rec["solves"] = solves
     _check(solves["mstep_solve_full_float32"]["host_reads_per_solve"] == 0,
            "[pipeline] the M-step graph read the device")
+    rec["fused"], rec["fused_kernel"] = check_fused_solves(tree, seen,
+                                                           device)
     # the init's graph with and without a read of the rows' flags after
     # each chunk: bitwise the same, replays and walls
     p0, xbar, xxT = init_args[:3]
@@ -1867,7 +2077,7 @@ def check_pipeline(tree, region, run, fit_digests, device):
            "[pipeline] the init graph's early exit changed the result")
     rec["init_early_exit"] = exits
 
-    # no host sync in mstep_dispatch (the model's graphs are captured)
+    # no host sync in mstep_dispatch (the fused kernel's launch)
     m = fits[True].model
     _, stats, _, _ = m.estep(m.means_, m.covars_, m.labels_local)
     torch.cuda.synchronize()
@@ -2010,7 +2220,8 @@ def check_f64(tree, region, state, fit_launches, device):
     the walls of its phases, its peak device memory and the launches of
     K1-K8 from its init to its polish (all 0: the float64 mode runs the
     plain versions, as the JAX engine runs its jnp paths in float64),
-    beside the ``[fit]`` phase's (non-zero). Checks: the float64 unary of
+    beside the ``[fit]`` phase's (non-zero), and of L (its OU solves, the
+    init's and one an M-step at least, in double). Checks: the float64 unary of
     the ``[fit]`` init moments against the float64 host
     ``_gauss_logpdf_np`` (rtol 1e-9, atol 1e-9, the JAX gate);
     ``cost1 == pairwise + unary`` on every iteration; one float64 E-step
@@ -2042,7 +2253,11 @@ def check_f64(tree, region, state, fit_launches, device):
     res, model = run.res, run.model
     _check(model._dtype == torch.float64 and not model._use_kernels,
            "the float64 model chose the kernels")
-    _check(not any(run.launches.values()),
+    # its OU solves take the fused L-BFGS kernel in double; no other
+    _check(run.launches["L_lbfgs_ou"] > res.n_iters,
+           f"the float64 fit's solves did not all take the fused kernel: "
+           f"{run.launches}")
+    _check(not any(v for k, v in run.launches.items() if k != "L_lbfgs_ou"),
            f"the float64 fit launched kernels: {run.launches}")
     _check(all(fit_launches[k] > 0 for k in list(KERNELS)[:6]),
            "the [fit] phase did not launch K1-K6")
@@ -2089,6 +2304,8 @@ def check_f64(tree, region, state, fit_launches, device):
         return (m._flat_labels(grids), p, o, o2, costs,
                 time.perf_counter() - t0)
 
+    for fn in _counters().values():
+        fn.launches = 0
     one, two = estep("float64"), estep("float64")
     _check(all(np.array_equal(a, b) for a, b in zip(one[:5], two[:5])),
            "the float64 E-step is not bitwise repeatable")
@@ -3422,6 +3639,9 @@ def main() -> int:
                final_polish_s=summ["final_polish"]["total_s"],
                polish=polish, phases=summ, launches=run.launches,
                best_match_accuracy=acc, cost_vec=res.cost_vec.tolist())
+    _check(run.launches["L_lbfgs_ou"] >= res.n_iters,
+           f"{run.launches['L_lbfgs_ou']} fused L-BFGS solves in "
+           f"{res.n_iters} M-steps")
     fit["rollbacks"] = model._mstep_rollbacks_
     fit["graphs"] = _graph_stats(model)
     fit_digests = _fit_digests(res, run.grids)
@@ -3431,6 +3651,7 @@ def main() -> int:
     # the pipelined and the sequential EM loop, the captured solves
     pipe = check_pipeline(tree, region, run, fit_digests, dev)
     pipe["estep_defer"] = estep_queues(model)
+    kernels["L_lbfgs_ou"] = pipe.pop("fused_kernel")
     print(f"[pipeline] {json.dumps(pipe)}")
     # every labeler of the port from the [fit] phase's init state, and
     # the host C++ swap against the device swap on a reduced region

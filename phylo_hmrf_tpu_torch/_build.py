@@ -122,6 +122,7 @@ def build() -> str:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # C entry points: name -> argtypes (every one returns int = cudaError_t)
 _SIGNATURES = {
@@ -179,6 +180,14 @@ _SIGNATURES = {
     # a unit loop: the captured unit, loop word, counters, the counter of
     #     its launches, launches a body
     "phmrf_graph_unit_loop": [_P, _P, _P, _I, _I, _P],
+    # the fused L-BFGS solve of the OU parameters (lbfgs.cu): p0, w (may be
+    #     null), obs, obs2, tree index, A2T, B, n_nodes, n_leaves, n_pairs,
+    #     n_iters, n_samples, coef, min_covar, lo, span, p_out, f_out,
+    #     steps, grad_only, stream
+    "phmrf_lbfgs_ou_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                           _F, _F, _F, _F, _P, _P, _P, _I, _P],
+    "phmrf_lbfgs_ou_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D,
+                           _D, _D, _D, _D, _P, _P, _P, _I, _P],
     # executable graph, stream
     "phmrf_graph_launch": [_P, _P],
     "phmrf_graph_destroy": [_P],

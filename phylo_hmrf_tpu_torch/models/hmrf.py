@@ -28,9 +28,14 @@ strict-parity mode) in float64. Per EM iteration:
 * M-step (`mstep_dispatch`, then `mstep_finalize`): one batched boxed
   L-BFGS solve of the OU parameters of all K states on the device, the
   validity check and the OU moments, with the reference's retry ladder and
-  the fallback to the init params. On a CUDA device the solve is replayed
-  from CUDA graphs (``ops/lbfgs.py::GraphSolve``, one per solve shape,
-  kept by the model) and enqueued with no host read; on the CPU the plain
+  the fallback to the init params. On a CUDA device the solve is enqueued
+  with no host read: for a tree within the kernel's caps (16 nodes, 8
+  leaves; every configuration the port runs) in float32 or float64 it is
+  one launch of the hand-written kernel ``csrc/lbfgs.cu``
+  (``ops/lbfgs.py::fused_ou_solve``, every row stopping on its own), for a
+  larger tree it is replayed from CUDA graphs (``GraphSolve``, one per
+  solve shape, kept by the model). ``ops/lbfgs.py::solve_route`` decides
+  from the tree's size, the dtype and the device. On the CPU the plain
   driver runs. The k-means init's OU fits take the same route.
 
 With ``em_pipeline=True`` (the default) `fit` runs the JAX engine's
@@ -108,13 +113,14 @@ from phylo_hmrf_tpu_torch.models.emission import (gaussian_logpdf,
                                                   gaussian_logpdf_kmajor)
 from phylo_hmrf_tpu_torch.models.ou import (
     TreeTensors, check_params, ou_moments_batch, ou_nll_init, ou_nll_stats,
-    propagate_mean_guess, tree_tensors)
+    propagate_mean_guess, ridge_coef, tree_tensors)
 from phylo_hmrf_tpu_torch.ops import loops
 from phylo_hmrf_tpu_torch.ops.finish_kernels import (
     cost_vec_from_sums, finish_stats)
 from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
 from phylo_hmrf_tpu_torch.ops.kmeans import kmeans
-from phylo_hmrf_tpu_torch.ops.lbfgs import GraphSolve, minimize_boxed
+from phylo_hmrf_tpu_torch.ops.lbfgs import (GraphSolve, fused_ou_solve,
+                                            minimize_boxed, solve_route)
 from phylo_hmrf_tpu_torch.ops.lbp import lbp_labels
 from phylo_hmrf_tpu_torch.ops.maxflow import (
     CutStats, _icm_pick, _start_batch, exact_labels_batched)
@@ -286,33 +292,55 @@ def _solve_key(kind, p0, args, *scalars):
             p0.dtype, p0.device) + scalars
 
 
+def _fused(tt: TreeTensors, p0) -> bool:
+    """Whether a solve of ``tt``'s tree from p0 takes the fused kernel."""
+    return solve_route(tt.tree.n_nodes, tt.tree.n_leaves, p0.dtype,
+                       p0.device) == "fused"
+
+
 def _mstep_solve_full(p0, post, obs, obs2, n_samples, lambda_0, min_covar, *,
                       tt: TreeTensors, lo, hi, iters, graphs=None):
     """M-step solve for all K states, validity and OU moments, on the
-    device: (solved, valid, means, covars + jitter). With ``graphs`` (a
-    dict the model keeps) the solve replays CUDA graphs, enqueued with no
-    host read; without, the plain driver runs."""
+    device: (solved, valid, means, covars + jitter, steps). With
+    ``graphs`` (a dict the model keeps, on a CUDA device) the solve is
+    enqueued with no host read: the fused kernel, whose rows' step counts
+    are ``steps`` (K,) int32, or, for a tree above its caps, CUDA graphs
+    kept in ``graphs``; without, the plain driver runs. ``steps`` is None
+    on those two routes."""
     objective = functools.partial(ou_nll_stats, tt=tt, n_samples=n_samples,
                                   lambda_0=lambda_0, min_covar=min_covar)
     finish = functools.partial(_mstep_finish, tt=tt, min_covar=min_covar)
     args = (post, obs, obs2)
+    if graphs is not None and _fused(tt, p0):
+        solved, f, steps = fused_ou_solve(
+            p0, tt.index, tt.A2T, obs, obs2, post,
+            n_samples=n_samples,
+            coef=ridge_coef(p0.dtype, n_samples, lambda_0),
+            min_covar=min_covar, lo=lo, hi=hi, n_iters=iters)
+        return (*finish(solved, f, *args), steps)
     if graphs is not None:
         key = _solve_key("mstep", p0, args, n_samples, lambda_0, min_covar,
                          lo, hi, iters)
-        return _graph_solve(graphs, key, objective, p0, args, lo, hi, iters,
-                            finish=finish)
+        return (*_graph_solve(graphs, key, objective, p0, args, lo, hi,
+                              iters, finish=finish), None)
     solved, f = minimize_boxed(lambda p: objective(p, *args), p0, lo, hi,
                                iters)
-    return finish(solved, f, *args)
+    return (*finish(solved, f, *args), None)
 
 
 def _init_solve(p0, xbar, xxT, min_covar, *, tt: TreeTensors, lo, hi, iters,
                 graphs=None):
     """Per-cluster OU init fits, all clusters in one batched solve:
-    (solved, f). With ``graphs`` the solve replays CUDA graphs and reads
-    the rows' flags once a chunk (the init reads its result at once)."""
+    (solved, f). With ``graphs`` the solve is the fused kernel's launch
+    or, for a tree above its caps, replays CUDA graphs and reads the
+    rows' flags once a chunk (the init reads its result at once)."""
     objective = functools.partial(ou_nll_init, tt=tt, min_covar=min_covar)
     args = (xbar, xxT)
+    if graphs is not None and _fused(tt, p0):
+        solved, f, _ = fused_ou_solve(
+            p0, tt.index, tt.A2T, xbar, xxT,
+            min_covar=min_covar, lo=lo, hi=hi, n_iters=iters)
+        return solved, f
     if graphs is not None:
         key = _solve_key("init", p0, args, min_covar, lo, hi, iters)
         return _graph_solve(graphs, key, objective, p0, args, lo, hi, iters,
@@ -515,7 +543,8 @@ class PhyloHMRF:
         # device twins of (means_, covars_) published by `mstep_dispatch`
         self._moments_dev = None
         # the captured L-BFGS solves (ops/lbfgs.py::GraphSolve) by key, on
-        # a CUDA device; None: the plain driver
+        # a CUDA device (empty where every solve takes the fused kernel);
+        # None: the plain driver
         self._graphs = {} if self.device.type == "cuda" else None
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
@@ -921,9 +950,11 @@ class PhyloHMRF:
     def mstep_dispatch(self, stats) -> dict:
         """Enqueue the attempt-0 M-step solve and return a handle for
         `mstep_finalize`, without waiting for the device: on CUDA the
-        inputs go up from pinned memory, the captured solve and the
-        moments are replayed, and the results start down into pinned
-        memory behind a CUDA event. The solve's device moments are
+        inputs go up from pinned memory, the solve (the fused kernel,
+        or the captured graphs for a tree above its caps) and the
+        moments are enqueued, and the results (on the fused route with
+        the rows' step counts) start down into pinned memory behind a
+        CUDA event. The solve's device moments are
         published at once in ``self._moments_dev``, so the caller may
         enqueue the next E-step against them before their validity is
         known (`mstep_finalize` rolls that back when a state failed)."""
@@ -931,6 +962,7 @@ class PhyloHMRF:
             post, obs, obs2 = self._global_stats(stats)
             out = self._solve_full_dev(self._blend_guess(), post, obs, obs2)
             self._moments_dev = (out[2], out[3])
+            # the fused solve's step counts come down with the results
             return {"fetch": _HostCopy(out, what="mstep"),
                     "stats": (post, obs, obs2)}
 
@@ -941,7 +973,7 @@ class PhyloHMRF:
         state failed attempt 0): ``_moments_dev``, ``means_``,
         ``covars_`` and ``params_vec`` are then corrected, and an E-step
         enqueued against the published moments must be enqueued again."""
-        with span("mstep_finalize"):
+        with span("mstep_finalize") as sp:
             cfg = self.cfg
             post, obs, obs2 = handle["stats"]
             params = self.params_vec.copy()
@@ -955,7 +987,10 @@ class PhyloHMRF:
                     got = _read_host(*self._solve_full_dev(
                         self._blend_guess(), post, obs, obs2),
                         what="mstep_retry")
-                solved, valid, means_d, covars_d = got
+                solved, valid, means_d, covars_d, steps = got
+                if attempt == 0 and steps is not None:   # the fused route
+                    sp.add(steps_max=int(steps.max()),
+                           steps_mean=float(steps.mean()))
                 solved = np.asarray(solved, np.float64)
                 valid = np.asarray(valid, bool)
                 take = pending & valid
@@ -1414,25 +1449,27 @@ def _read_host(*tensors, what: str) -> list:
     """Host numpy copies of ``tensors``: a ``wait`` span of the fit's
     trace."""
     with span("wait", what=what):
-        return [_to_numpy(t) for t in tensors]
+        return [None if t is None else _to_numpy(t) for t in tensors]
 
 
 class _HostCopy:
     """A read-back of ``tensors`` under way: on CUDA the copies into fresh
     pinned host buffers start at construction, behind one CUDA event, and
     `get` waits for the event and returns numpy arrays (views of the
-    buffers, which nothing else reuses); on the CPU `get` copies. The
-    wait is a ``wait`` span of the fit's trace, counted as ``what``."""
+    buffers, which nothing else reuses); on the CPU `get` copies. A None
+    among ``tensors`` stays None. The wait is a ``wait`` span of the
+    fit's trace, counted as ``what``."""
 
     def __init__(self, tensors, what: str = "copy"):
         self._tensors = list(tensors)
         self._what = what
         self._event = None
         if self._tensors and self._tensors[0].device.type == "cuda":
-            self._host = [torch.empty(t.shape, dtype=t.dtype,
-                                      pin_memory=True) for t in tensors]
+            self._host = [None if t is None else torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
             for h, t in zip(self._host, self._tensors):
-                h.copy_(t, non_blocking=True)
+                if t is not None:
+                    h.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
             self._event.record(
                 torch.cuda.current_stream(self._tensors[0].device))
@@ -1442,7 +1479,7 @@ class _HostCopy:
             return _read_host(*self._tensors, what=self._what)
         with span("wait", what=self._what):
             self._event.synchronize()
-        return [h.numpy() for h in self._host]
+        return [None if h is None else h.numpy() for h in self._host]
 
 
 def _host_labels(grid) -> np.ndarray:

@@ -44,6 +44,23 @@ class TreeTensors:
     pair_cols: torch.Tensor
     leaf_nodes: torch.Tensor
     leaf_pos: torch.Tensor   # arange(n_leaves)
+    index: torch.Tensor      # int32 `kernel_index`, for the fused solve
+
+
+def kernel_index(tree: PhyloTree) -> np.ndarray:
+    """The tree's index arrays as the fused L-BFGS kernel reads them
+    (``csrc/lbfgs.cu``), int32: parent, topo_order, leaf_nodes, pair_mrca,
+    then the (L, L) table of each leaf pair's index in the pair list (-1
+    on the diagonal). `build_tree` lists every pair."""
+    L = tree.n_leaves
+    pair_of = np.full((L, L), -1, np.int64)
+    for q, (r, c) in enumerate(zip(tree.pair_rows, tree.pair_cols)):
+        pair_of[r, c] = pair_of[c, r] = q
+    if (pair_of < 0).sum() != L:
+        raise ValueError("the tree's pair list misses a pair of leaves")
+    return np.concatenate([np.asarray(a, np.int64).ravel() for a in (
+        tree.parent, tree.topo_order, tree.leaf_nodes, tree.pair_mrca,
+        pair_of)]).astype(np.int32)
 
 
 def tree_tensors(tree: PhyloTree, device, dtype=torch.float32) -> TreeTensors:
@@ -55,7 +72,8 @@ def tree_tensors(tree: PhyloTree, device, dtype=torch.float32) -> TreeTensors:
                             device=device),
         pair_mrca=idx(tree.pair_mrca), pair_rows=idx(tree.pair_rows),
         pair_cols=idx(tree.pair_cols), leaf_nodes=idx(tree.leaf_nodes),
-        leaf_pos=idx(np.arange(tree.n_leaves)))
+        leaf_pos=idx(np.arange(tree.n_leaves)),
+        index=torch.as_tensor(kernel_index(tree), device=device))
 
 
 def split_params(params: torch.Tensor, n_nodes: int):
@@ -178,13 +196,17 @@ def ou_nll_stats(params, post_c, obs_c, obs2_c, tt: TreeTensors,
     Sn = (obs2_c - obsmean - obsmean.transpose(-1, -2)
           + post_c[..., None, None] * _outer(m, m))
     logdet, trace_term = _logdet_trace_solve(V, Sn)
-    # lambda_0 / sqrt(n) in the params' dtype, the order the JAX objective
-    # uses
-    ft = np.float64 if params.dtype == torch.float64 else np.float32
-    lam1 = ft(1.0) / np.sqrt(ft(n_samples))
-    coef = float(ft(lambda_0) * lam1)
+    coef = ridge_coef(params.dtype, n_samples, lambda_0)
     return (post_c * logdet / n_samples + trace_term / n_samples
             + coef * torch.sum(params * params, dim=-1))
+
+
+def ridge_coef(dtype, n_samples: float, lambda_0: float) -> float:
+    """The M-step's ridge coefficient lambda_0 / sqrt(n) in ``dtype``, the
+    order the JAX objective uses."""
+    ft = np.float64 if dtype == torch.float64 else np.float32
+    lam1 = ft(1.0) / np.sqrt(ft(n_samples))
+    return float(ft(lambda_0) * lam1)
 
 
 def ou_nll_init(params, xbar, xxT, tt: TreeTensors, min_covar: float):

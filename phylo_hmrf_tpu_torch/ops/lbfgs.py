@@ -17,8 +17,9 @@ tensor work, no host read) under one of two drivers:
 
 * `minimize_lbfgs`, the plain driver: a Python loop that reads one flag a
   step from the device (the exit check). The CPU route, and the reference
-  the graph route is held to.
-* `GraphSolve`, the CUDA driver: the carry's initialisation, a chunk of
+  the graph route and the fused kernel are held to.
+* `GraphSolve`, the CUDA driver of any objective: the carry's
+  initialisation, a chunk of
   ``GRAPH_CHUNK`` steps and the decode of the result, each captured once
   as a ``torch.cuda.CUDAGraph`` and replayed. A stopped row keeps its
   carry (every field passes through ``torch.where(active, new, old)``,
@@ -26,6 +27,14 @@ tensor work, no host read) under one of two drivers:
   replayed after every row stopped change no bit: ``ceil(n_iters /
   GRAPH_CHUNK)`` replays with no host read equal the plain driver's
   early-exit loop, bitwise.
+
+The OU objectives of the M-step and the init (``models/ou.py``) have a
+third route: `fused_ou_solve`, the whole boxed solve of every row as one
+launch of a hand-written CUDA kernel (``csrc/lbfgs.cu``), the same steps
+in the same dtype with each row stopping on its own. `solve_route` says
+which route a solve of a tree takes: "plain" off CUDA, "fused" on a CUDA
+device in float32 / float64 for a tree within the kernel's caps, "graph"
+(`GraphSolve`) for any other.
 """
 
 from __future__ import annotations
@@ -36,12 +45,15 @@ from typing import NamedTuple
 
 import torch
 
+from phylo_hmrf_tpu_torch import _build
 from phylo_hmrf_tpu_torch.utils.profiling import span
 
 _LS_ETAS = (4.0, 2.0, 1.0, 0.5, 0.25, 0.1, 0.04, 0.015, 0.005, 0.001)
 _BOXED_TOL = 1e-7     # the boxed solve's early-exit threshold
 _PATIENCE = 5         # steps without gain before a row stops
 GRAPH_CHUNK = 10      # L-BFGS steps a captured graph replays
+FUSED_MAX_NODES = 16  # the fused kernel's tree caps (csrc/lbfgs.cu)
+FUSED_MAX_LEAVES = 8
 
 
 def box_encode(p: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -294,7 +306,7 @@ class GraphSolve:
 
     def __call__(self, p0: torch.Tensor, *args, early_exit: bool = False):
         replays, reads = self.replays, self.host_reads
-        with span("solve", device=True) as sp:
+        with span("solve", device=True, route="graph") as sp:
             self.p0.copy_(p0)
             for dst, src in zip(self.args, args):
                 dst.copy_(src)
@@ -312,3 +324,83 @@ class GraphSolve:
             sp.add(replays=self.replays - replays,
                    host_reads=self.host_reads - reads)
         return out
+
+
+def solve_route(n_nodes: int, n_leaves: int, dtype, device) -> str:
+    """The route of a boxed OU solve of a tree of ``n_nodes`` nodes and
+    ``n_leaves`` leaves in ``dtype`` on ``device``: "plain" off CUDA;
+    on CUDA "fused" (`fused_ou_solve`) for float32 or float64 and a tree
+    within the kernel's caps, else "graph" (`GraphSolve`)."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    if (dtype in (torch.float32, torch.float64)
+            and 2 <= n_nodes <= FUSED_MAX_NODES
+            and 2 <= n_leaves <= FUSED_MAX_LEAVES):
+        return "fused"
+    return "graph"
+
+
+def _fused_launch(p0, index, a2t, obs, obs2, w, n_samples, coef, min_covar,
+                  lo, hi, n_iters, grad_only):
+    B, P = p0.shape
+    F = obs.shape[1]
+    n, Q = a2t.shape
+    dt = p0.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"fused_ou_solve: {dt} operands")
+    if P != 3 * n - 1 or Q != F * (F - 1) // 2:
+        raise ValueError(f"fused_ou_solve: {P} params, A2T {tuple(a2t.shape)}"
+                         f" and {F} leaves do not describe one tree")
+    specs = dict(p0=(p0, dt, (B, P)), obs=(obs, dt, (B, F)),
+                 obs2=(obs2, dt, (B, F, F)),
+                 index=(index, torch.int32, (2 * n + F + Q + F * F,)),
+                 a2t=(a2t, dt, (n, Q)))
+    if w is not None:
+        specs["w"] = (w, dt, (B,))
+    _build.check_tensors("fused_ou_solve", **specs)
+    lib = _build.load()
+    entry = (lib.phmrf_lbfgs_ou_f64 if dt == torch.float64
+             else lib.phmrf_lbfgs_ou_f32)
+    p_out = torch.empty_like(p0)
+    f_out = torch.empty(B, dtype=dt, device=p0.device)
+    steps = torch.empty(B, dtype=torch.int32, device=p0.device)
+    with _build.on_device(p0):
+        _build.check(entry(
+            p0.data_ptr(), None if w is None else w.data_ptr(),
+            obs.data_ptr(), obs2.data_ptr(), index.data_ptr(),
+            a2t.data_ptr(), B, n, F, Q, int(n_iters), float(n_samples),
+            float(coef), float(min_covar), float(lo), float(hi - lo),
+            p_out.data_ptr(), f_out.data_ptr(), steps.data_ptr(),
+            int(grad_only), _build.stream_of(p0)), "fused_ou_solve")
+    return p_out, f_out, steps
+
+
+def fused_ou_solve(p0, index, a2t, obs, obs2, w=None, *, n_samples=1.0,
+                   coef=0.0, min_covar, lo, hi, n_iters):
+    """`minimize_boxed` of ``models/ou.py::ou_nll_stats`` (posterior
+    weights ``w`` (B,), ``n_samples``, the ridge ``coef``) or, with ``w``
+    None, 1.0 samples and ``coef`` 0, of ``ou_nll_init``, over the rows
+    of p0 (B, P) on a CUDA device: one launch of ``csrc/lbfgs.cu``, no
+    host read. ``index`` is the tree's ``TreeTensors.index``, ``a2t`` its
+    ``A2T`` in the dtype of p0; obs (B, F), obs2 (B, F, F). Returns (p
+    (B, P), f (B,), the steps each row took (B,) int32). A traced fit
+    sees a ``solve`` span timed on the device too (``route`` "fused")."""
+    with span("solve", device=True, route="fused") as sp:
+        out = _fused_launch(p0, index, a2t, obs, obs2, w, n_samples, coef,
+                            min_covar, lo, hi, n_iters, False)
+        fused_ou_solve.launches += 1
+        sp.add(launches=1, host_reads=0)
+    return out
+
+
+fused_ou_solve.launches = 0   # kernel launches, one a solve
+
+
+def fused_ou_value_grad(p, index, a2t, obs, obs2, w=None, *, n_samples=1.0,
+                        coef=0.0, min_covar):
+    """The objective of `fused_ou_solve` and its gradient at params p
+    (B, P), as the kernel computes them at each line-search point: (f
+    (B,), d f / d p (B, P))."""
+    g, f, _ = _fused_launch(p, index, a2t, obs, obs2, w, n_samples, coef,
+                            min_covar, 0.0, 1.0, 0, True)
+    return f, g

@@ -866,11 +866,16 @@ def test_rowsharded_estep_on_the_card(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_graph_solve_matches_plain_driver(dev, dtype):
     """The M-step solve (K=10, chr21 tree) through its captured CUDA
-    graphs equals the plain driver bitwise, on new inputs at every call
-    and with device allocations between the calls (the graphs read only
-    tensors that live as long as they do), and makes no host read."""
-    from phylo_hmrf_tpu_torch.models.hmrf import _mstep_solve_full
-    from phylo_hmrf_tpu_torch.models.ou import tree_tensors
+    graphs (the route of a tree above the fused kernel's caps, driven
+    here directly) equals the plain driver bitwise, on new inputs at
+    every call and with device allocations between the calls (the graphs
+    read only tensors that live as long as they do), and makes no host
+    read."""
+    import functools
+
+    from phylo_hmrf_tpu_torch.models.hmrf import (
+        _graph_solve, _mstep_finish, _mstep_solve_full)
+    from phylo_hmrf_tpu_torch.models.ou import ou_nll_stats, tree_tensors
     from phylo_hmrf_tpu_torch.synth import bench_tree
 
     tree = bench_tree()
@@ -878,6 +883,9 @@ def test_graph_solve_matches_plain_driver(dev, dtype):
     rng = np.random.default_rng(3)
     K, F, n = 10, tree.n_leaves, 5000
     graphs = {}
+    objective = functools.partial(ou_nll_stats, tt=tt, n_samples=float(n),
+                                  lambda_0=1.0, min_covar=1e-3)
+    finish = functools.partial(_mstep_finish, tt=tt, min_covar=1e-3)
     for call in range(3):
         X = np.abs(rng.normal(size=(n, F))) * 0.5 + 0.2
         g = rng.dirichlet(np.ones(K), size=n)
@@ -887,8 +895,8 @@ def test_graph_solve_matches_plain_driver(dev, dtype):
         kw = dict(tt=tt, lo=1e-16, hi=100.0, iters=40)
         plain = _mstep_solve_full(*args, float(n), 1.0, 1e-3, **kw)
         junk = [torch.randn(4096, device=dev) for _ in range(64)]
-        graph = _mstep_solve_full(*args, float(n), 1.0, 1e-3, graphs=graphs,
-                                  **kw)
+        graph = _graph_solve(graphs, "mstep", objective, args[0], args[1:],
+                             1e-16, 100.0, 40, finish=finish)
         del junk
         for a, b in zip(plain, graph):
             assert a.dtype == b.dtype and torch.equal(
@@ -1195,10 +1203,11 @@ def test_halo_icm_graph_matches_host_loop(dev, name, dtype):
 
 def test_fit_trace_device_spans(dev, monkeypatch):
     """A fit traced on the card: its solves and E-steps carry device
-    times inside the fit's window on the host clock, each M-step solve
-    its step replays, each capture its seconds and pool; the same fit
-    untraced makes no timing event and no profiler range, and gives the
-    same labels."""
+    times inside the fit's window on the host clock; each solve is the
+    fused kernel's one launch with no host read (no graph is captured),
+    and each M-step's finalize carries its rows' largest and mean step
+    counts; the same fit untraced makes no timing event and no profiler
+    range, and gives the same labels."""
     from phylo_hmrf_tpu_torch import PhyloHMRF
     from phylo_hmrf_tpu_torch.config import PhyloHMRFConfig
     from phylo_hmrf_tpu_torch.synth import chr21_problem
@@ -1219,10 +1228,16 @@ def test_fit_trace_device_spans(dev, monkeypatch):
     mstep_solves = [s for s in tr.spans if s.name == "solve"
                     and tr.spans[s.parent].name == "mstep_dispatch"]
     assert len(mstep_solves) == res.n_iters     # no stop before max_iter
-    assert all(s.counts["replays"] >= 1 and s.counts["host_reads"] == 0
-               for s in mstep_solves)
-    caps = [s for s in tr.spans if s.name == "graph_capture"]
-    assert caps and all(s.counts["capture_s"] > 0 for s in caps)
+    solves = [s for s in tr.spans if s.name == "solve"]
+    assert len(solves) > len(mstep_solves)      # the init's solve too
+    assert all(s.counts["route"] == "fused" and s.counts["launches"] == 1
+               and s.counts["host_reads"] == 0 for s in solves)
+    assert not [s for s in tr.spans if s.name == "graph_capture"]
+    assert model._graphs == {}
+    fins = [s for s in tr.spans if s.name == "mstep_finalize"]
+    assert len(fins) == res.n_iters
+    assert all(1 <= s.counts["steps_mean"] <= s.counts["steps_max"] <= 150
+               for s in fins)
 
     made = []
     event0 = torch.cuda.Event

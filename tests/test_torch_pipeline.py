@@ -205,11 +205,11 @@ def _failing_solve(fail_at):
     calls = {"n": 0}
 
     def solve(*a, **k):
-        solved, valid, means, covars = real(*a, **k)
+        solved, valid, means, covars, steps = real(*a, **k)
         calls["n"] += 1
         if calls["n"] == fail_at:
             valid = torch.zeros_like(valid)
-        return solved, valid, means, covars
+        return solved, valid, means, covars, steps
     return solve
 
 
