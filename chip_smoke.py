@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the nine kernels from ``phylo_hmrf_tpu_torch/csrc`` with nvcc (one
+Builds the eleven kernels from ``phylo_hmrf_tpu_torch/csrc`` with nvcc (one
 process per source, in parallel), holds each against its plain PyTorch
 version and times both: the four E-step kernels at the chr21 shapes (R=1,
 K=10, H=672, W=768, F=4) on the E-step's operands (the tile kernels K1 and
@@ -55,6 +55,11 @@ exact E-step's energy no higher than its K1-K3 start's), the hybrids
 ``mf_icm+swap@2`` and ``mf_icm+expansion@2`` (5 iterations), ``icm`` (K2
 and K4 launched) and ``lbp`` (3 iterations), each with its cost rows, E-step
 walls and launches, moves per exact E-step and peak device memory.
+``[moves]`` keeps the operands of the first swap E-step of such a fit:
+M1 builds every swap pair's and every expansion's cut graph from its
+start bit for bit as the tensor code, M2 writes a move's labels as the
+tensor update; their kernel rows, and the host's launches a move on the
+kernel route (``torch.profiler``'s runtime events).
 ``[host_swap]`` runs one E-step of the host C++ swap and one of
 ``swap_tpu`` on a 223 x 223 region of the same kind (24,976 samples): the
 device energy within 0.1% of the C++ one's.
@@ -193,6 +198,12 @@ KERNELS = {
     # package's solve is a vmapped while_loop that XLA compiles
     "L_lbfgs_ou": ("phylo_hmrf_tpu_torch/csrc/lbfgs.cu",
                    "none (phylo_hmrf_tpu/ops/lbfgs.py:141)"),
+    # an exact move's cut graph and its labels; no TPU kernel: the JAX
+    # package's move graphs are XLA code inside its move loop
+    "M1_move_build": ("phylo_hmrf_tpu_torch/csrc/moves.cu",
+                      "none (phylo_hmrf_tpu/ops/maxflow_tpu.py:273, :357)"),
+    "M2_move_apply": ("phylo_hmrf_tpu_torch/csrc/moves.cu",
+                      "none (phylo_hmrf_tpu/ops/maxflow_tpu.py:471, :495)"),
 }
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
@@ -1498,6 +1509,7 @@ def _counters():
     inside a graph are counted on the card, `_graph_kernels`)."""
     from phylo_hmrf_tpu_torch.ops import finish_kernels, icm_kernels, lbfgs
     from phylo_hmrf_tpu_torch.ops import loops, mf_kernels, mincut_kernels
+    from phylo_hmrf_tpu_torch.ops import move_kernels
 
     return {"K1_mf_sweep": mf_kernels.mf_sweeps,
             "K2_icm_phase": icm_kernels.icm_sweep_pair,
@@ -1508,6 +1520,8 @@ def _counters():
             "K7_mf_sweeps_halo": mf_kernels.mf_sweeps_halo,
             "K8_icm_sweep_halo": icm_kernels.icm_sweep_halo_,
             "L_lbfgs_ou": lbfgs.fused_ou_solve,
+            "M1_move_build": move_kernels.build_move,
+            "M2_move_apply": move_kernels.apply_move,
             "G_icm_loop": loops.run_icm, "G_cut_loop": loops.run_cut,
             "G_bfs_loop": loops.run_bfs,
             "G_halo_icm_loop": loops.run_unit_loop}
@@ -2160,6 +2174,132 @@ def check_labelers(tree, region, state, device):
         print(f"[labelers] {labeler} {json.dumps(rec)}")
         recs[labeler] = rec
     return recs
+
+
+# operations a pixel: M1 (the in-play tests of the pixel and its 8
+# neighbours, 16 t-link terms, the 8 arcs, the clamps), M2 (the side test
+# and the update)
+OPS_BUILD, OPS_APPLY = 64, 4
+# the host's launch calls in torch.profiler's runtime events
+LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
+                 "cudaMemsetAsync", "cudaMemcpyAsync", "cuMemsetD8Async",
+                 "cuMemsetD32Async", "cuMemcpyAsync")
+
+
+def check_moves(tree, region, state, device):
+    """``[moves]``: the first swap E-step of a chr21 ``swap_tpu`` fit from
+    ``state`` (the [fit] phase's init), its exact moves' operands kept at
+    the first ``_optimize_batched`` call. From its start labels M1 builds
+    every swap pair's graph and every expansion's bit for bit as
+    ``_swap_graph`` / ``_expansion_graph`` (raw bits of excess0, cap_t0,
+    the 8 arc planes and in_play; h = 0; the pr word's first test and
+    limit). Returns the kernel rows of M1 (one swap move's graph, the
+    move with the most pixels in play) and M2 (its labels), timed against
+    the tensor code they replace, and the record: pairs and expansions
+    checked, the host's launches a swap move on the kernel route (the
+    profiler's runtime events over every pair: M1, the cut graph, M2)."""
+    import torch
+
+    from phylo_hmrf_tpu_torch import PhyloHMRFConfig
+    from phylo_hmrf_tpu_torch.ops import loops, maxflow as mf, move_kernels
+    from phylo_hmrf_tpu_torch.ops.finish_kernels import _f32
+
+    seen, undo = _spy_first_calls(mf, ["_optimize_batched"])
+    try:
+        fit_model(tree, [region], PhyloHMRFConfig(
+            n_states=10, max_iter=1, seed=0, labeler="swap_tpu"),
+            device=device, state=state)
+    finally:
+        undo()
+    unary, w, mask, init, beta, K, method = seen["_optimize_batched"][0][:7]
+    _check(method == "swap", f"the first exact moves are {method}")
+    beta = _f32(beta)
+    lab = torch.where(mask, init, 0).to(torch.int32)
+    wsum = mf._incident_wsum(w, beta)
+    R, _, H, W = unary.shape
+    N = R * H * W
+    graph = loops.cut_graph(unary.device, R, H, W)
+    mp = move_kernels.MovePass(graph, lab, unary, w, mask, wsum, beta, 1)
+    pairs = [(a, b) for a in range(K) for b in range(a + 1, K)]
+
+    def tensor_graph(a, b):
+        if b >= 0:
+            return mf._swap_graph(lab, unary, w, mask, a, b, beta, wsum)
+        return mf._expansion_graph(lab, unary, w, mask, a, beta, wsum)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    bad, in_play = [], {}
+    for a, b in pairs + [(a, -1) for a in range(K)]:
+        move_kernels.build_move(mp, a, b, 3000)
+        want = tensor_graph(a, b)
+        e, h, cap_t, caps = graph.a
+        for name, got, ref in zip(("excess0", "cap_t0", "caps0", "in_play"),
+                                  (e, cap_t, caps, mp.in_play), want):
+            if not torch.equal(bits(got), bits(ref)):
+                bad.append((a, b, name))
+        word = graph.pr.tolist()
+        if int(h.abs().max()) != 0 or word[loops.LOOP_GO] != int(
+                torch.any(want[0] > loops.CUT_EPS)) \
+                or word[loops.LOOP_LIMIT] != 3000:
+            bad.append((a, b, "h or pr word"))
+        in_play[(a, b)] = int(want[3].sum())
+    _check(not bad, f"[moves] M1 differs from the tensor build: {bad[:8]}")
+
+    a, b = max(pairs, key=lambda p: in_play[p])
+    rows = {"M1_move_build": _with_bound(dict(
+        max_abs_err=0.0,
+        **_timed(lambda: move_kernels.build_move(mp, a, b, 3000),
+                 lambda: tensor_graph(a, b)),
+        unit=f"one swap move's graph ({a}, {b}), {in_play[(a, b)]} pixels "
+             f"in play", launches_per_unit=1, nbytes=78 * N,
+        ops=OPS_BUILD * N))}
+    # M2 on a copy of the labels, after the cut of that move
+    move_kernels.build_move(mp, a, b, 3000)
+    graph.launch_filled()
+    side = graph.d[0] >= graph.n
+    mp2 = move_kernels.MovePass(graph, lab.clone(), unary, w, mask, wsum,
+                                beta, 1)
+    mp2.in_play.copy_(mp.in_play)
+
+    def plain_apply():
+        new = torch.where(mp.in_play, torch.where(side, a, b).to(
+            torch.int32), lab)
+        return new, torch.sum(new != lab, dim=(1, 2))
+    want_lab, want_n = plain_apply()
+    move_kernels.apply_move(mp2, a, b, 0)
+    _check(torch.equal(mp2.labels, want_lab)
+           and torch.equal(mp2.counts[0].long(), want_n),
+           "[moves] M2 differs from the tensor update")
+    rows["M2_move_apply"] = _with_bound(dict(
+        max_abs_err=0.0,
+        **_timed(lambda: move_kernels.apply_move(mp2, a, b, 0), plain_apply),
+        unit=f"one swap move's labels ({a}, {b}), {int(want_n.sum())} "
+             f"changed", launches_per_unit=1,
+        nbytes=9 * N + 4 * int(want_n.sum()), ops=OPS_APPLY * N))
+
+    # the host's launches a move: every pair as the kernel route runs it
+    mp3 = move_kernels.MovePass(graph, lab.clone(), unary, w, mask, wsum,
+                                beta, len(pairs))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for t, (a, b) in enumerate(pairs):
+            move_kernels.build_move(mp3, a, b, 3000)
+            graph.launch_filled()
+            move_kernels.apply_move(mp3, a, b, t)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.name in LAUNCH_EVENTS]
+    _check(names.count("cudaGraphLaunch") + names.count("cuGraphLaunch")
+           == len(pairs), f"[moves] the profiler saw {sorted(set(names))}")
+    rec = dict(pairs_checked=len(pairs), expansions_checked=K,
+               bitwise=True, valid_pixels=int(mask.sum()),
+               host_launches_per_move=len(names) / len(pairs),
+               launch_names=sorted(set(names)),
+               in_play_max=max(in_play.values()))
+    return rows, rec
 
 
 def check_host_swap(device, h0=HOST_SWAP_H0, beta=1.0, beta1=0.5,
@@ -3656,6 +3796,11 @@ def main() -> int:
     # every labeler of the port from the [fit] phase's init state, and
     # the host C++ swap against the device swap on a reduced region
     check_labelers(tree, region, run.state, dev)
+    moves_rows, moves = check_moves(tree, region, run.state, dev)
+    kernels.update(moves_rows)
+    print(f"[moves] {json.dumps(moves)}")
+    for name, k in moves_rows.items():
+        print(_point_line(name, k))
     print(f"[host_swap] {json.dumps(check_host_swap(dev))}")
     # the float64 mode: its fit on the chr21 cell, then its polish against
     # the C++ expansion on the [host_swap] problem

@@ -164,6 +164,13 @@ _SIGNATURES = {
     # K6: d, d_out, caps, R, H, W, n, n_inner, loop word (may be null),
     #     stream
     "phmrf_bfs_sweeps": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # M1 (moves.cu): labels, unary, w, mask, wsum, e, h, cap_t, caps,
+    #     in_play, pr word, R, K, H, W, a, b (-1: the expansion of a), beta,
+    #     max_sweeps, stream
+    "phmrf_move_build": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _I, _I, _I, _I, _F, _I, _P],
+    # M2: labels, d, in_play, counts (R,), R, H, W, n, a, b, stream
+    "phmrf_move_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # the loop graphs (loops.cu), each writing its executable graph to the
     # last pointer; `units`: null (kernel nodes) or an array of captured
     # graphs (child nodes). BFS fixpoint: d0, d1, caps, R, H, W, n, bfs

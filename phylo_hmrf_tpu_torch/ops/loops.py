@@ -369,9 +369,16 @@ class CutGraph(_Graph):
         self.pr[LOOP_GO:LOOP_GO + 1].copy_(
             torch.any(excess0 > CUT_EPS).view(1))
         _fill(self.pr, LOOP_LIMIT, max_sweeps)
-        self.launch(e)
-        _count(run_cut, self.plain)
+        self.launch_filled()
         return self.d[0] >= self.n
+
+    def launch_filled(self) -> None:
+        """Launch the cut on a carry and pr word (GO, LIMIT) that the
+        caller filled (`run`, or the exact moves' M1 kernel,
+        ``ops/move_kernels.py``): the source side ends as ``self.d[0] >=
+        self.n``."""
+        self.launch(self.a[0])
+        _count(run_cut, self.plain)
 
 
 class BfsGraph(_Graph):

@@ -14,10 +14,14 @@ device program. Its bodies are K5/K6 in float32, or with ``plain=True``
 code captured into the same program. ``grid_mincut_host`` keeps the loop
 on the host, with a read of the kernels' loop word (or of ``torch.any``
 on the plain path) per test: the route of CPU tensors and of
-``host_loop=True`` (`loops.route`). Everything else here is plain tensor
-code, as it is XLA code in the JAX package: the move graphs (alpha-beta
-swap and alpha-expansion, with dominance freezing), the move loop with
-GCO-style pruning, and the energies.
+``host_loop=True`` (`loops.route`). The move graphs (alpha-beta swap and
+alpha-expansion, with dominance freezing) and the label updates are plain
+tensor code, as they are XLA code in the JAX package, except where the
+cut runs K5/K6 (`build_route`): there each move's graph is built by one
+kernel, M1, straight into the cut graph's buffers, and its labels written
+by another, M2 (``ops/move_kernels.py``, ``csrc/moves.cu``; M1 bitwise
+the tensor code). The move loop with GCO-style pruning and the energies
+are tensor code.
 
 Layouts carry a leading region-batch axis, as the JAX batched entry points
 do: labels, mask (R, H, W); unary_k (R, K, H, W) K-major; wmaps
@@ -38,7 +42,7 @@ import dataclasses
 import torch
 
 from phylo_hmrf_tpu_torch.data.regions import DIRS
-from phylo_hmrf_tpu_torch.ops import loops
+from phylo_hmrf_tpu_torch.ops import loops, move_kernels
 from phylo_hmrf_tpu_torch.ops.finish_kernels import (
     _f32, energy_from_rows, energy_rows, potts_energy_pair)
 from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
@@ -84,6 +88,16 @@ def _read(x, stats, what: str = "cut"):
 def _on_card(t, plain: bool, host_loop: bool) -> bool:
     """Whether a loop on ``t`` takes a graph route (`loops.route`)."""
     return loops.route(t.device, t.dtype, plain, host_loop) != "host"
+
+
+def build_route(device, dtype, plain: bool, host_loop: bool) -> str:
+    """How `_optimize_batched` builds its moves' cut graphs and applies
+    their labels: "kernel" (M1 and M2, ``ops/move_kernels.py``) exactly
+    where the cut graph runs kernels (`loops.route` "kernels": a CUDA
+    device, float32, neither ``plain`` nor ``host_loop``), else "plain"
+    (`_swap_graph` / `_expansion_graph` and the tensor update)."""
+    return ("kernel" if loops.route(device, dtype, plain, host_loop)
+            == "kernels" else "plain")
 
 
 def _bfs_fixpoint(d, caps, n: int, plain: bool, stats, spare=None,
@@ -389,8 +403,12 @@ def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
     histogram) and once at the end of each cycle (change counts, energy,
     histogram and, on the graph route, the cut counters), as JAX's does:
     on the graph route a move's cut reads nothing. A cycle with no change,
-    or an energy drop within ``tol`` (relative), ends the pass. In a
-    traced fit the pass is a ``moves`` span, its reads ``wait`` spans."""
+    or an energy drop within ``tol`` (relative), ends the pass. On the
+    kernel route (`build_route`) a move is three launches: M1 builds its
+    graph into the cut graph's buffers, the cut graph, M2 writes the labels
+    in place and the change counts into a row of the pass's counter. In a
+    traced fit the pass is a ``moves`` span (``build``: the route,
+    ``builds``: the moves M1 built), its reads ``wait`` spans."""
     with span("moves", method=method) as sp:
         before = (dataclasses.asdict(stats) if sp.on and stats is not None
                   else None)
@@ -399,24 +417,31 @@ def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
         beta = _f32(beta) if unary_k.dtype == torch.float32 else float(beta)
         wsum = _incident_wsum(wmaps, beta)
         labels = torch.where(mask, init_labels, 0).to(torch.int32)
-        graph = base = None
+        if method == "expansion":
+            moves = [(a,) for a in range(n_states)]
+        else:
+            moves = [(a, b) for a in range(n_states)
+                     for b in range(a + 1, n_states)]
+        build = (build_route(unary_k.device, unary_k.dtype, plain, host_loop)
+                 if labels.numel() else "plain")
+        builds0 = move_kernels.build_move.launches
+        graph = base = card = None
         if _on_card(unary_k, plain, host_loop):
             # the moves' cuts add to this graph's counters; the cycle reads
             # take them with the labels' numbers
             graph = loops.cut_graph(unary_k.device, *labels.shape,
                                     unary_k.dtype, plain)
             base = graph.totals.clone()
+            if build == "kernel":
+                card = move_kernels.MovePass(graph, labels, unary_k, wmaps,
+                                             mask, wsum, beta,
+                                             max_cycles * len(moves))
         e, hist_t = _energy_hist(labels, unary_k, wmaps, mask, beta, n_states)
         got = _read(torch.cat([e.sum().view(1), hist_t.double()]), stats,
                     "moves")
         e_start = prev_e = e_now = got[0]
         hist = [int(v) for v in got[1:]]
 
-        if method == "expansion":
-            moves = [(a,) for a in range(n_states)]
-        else:
-            moves = [(a, b) for a in range(n_states)
-                     for b in range(a + 1, n_states)]
         kw = dict(max_sweeps=max_sweeps, plain=plain, host_loop=host_loop,
                   stats=None if graph is not None else stats)
 
@@ -427,14 +452,14 @@ def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
         for _ in range(max_cycles):
             maybe = [v > 0 for v in hist]
             changed_opt = dict(changed_actual)
-            pending = []     # (move, counter, n_changed (R,) on the device)
+            # (move, counter, n_changed (R,) on the device; on the kernel
+            # route None: the counts are row `counter` of card.counts)
+            pending = []
             for mv in moves:
                 lr = last_run.get(mv)
                 if method == "expansion":
                     if lr is not None and changed_opt.get("any", -1) <= lr:
                         continue
-                    labels, nch = _expansion_move_batch(
-                        labels, unary_k, wmaps, mask, mv[0], beta, wsum, **kw)
                     changed_opt["any"] = t
                 else:
                     a, b = mv
@@ -445,10 +470,20 @@ def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
                     if lr is not None and changed_opt.get(a, -1) <= lr \
                             and changed_opt.get(b, -1) <= lr:
                         continue
-                    labels, nch = _swap_move_batch(
-                        labels, unary_k, wmaps, mask, a, b, beta, wsum, **kw)
                     changed_opt[a] = changed_opt[b] = t
                     maybe[a] = maybe[b] = True
+                nch = None
+                if card is not None:
+                    ab = mv if len(mv) == 2 else (mv[0], -1)
+                    move_kernels.build_move(card, *ab, max_sweeps)
+                    graph.launch_filled()
+                    move_kernels.apply_move(card, *ab, t)
+                elif method == "expansion":
+                    labels, nch = _expansion_move_batch(
+                        labels, unary_k, wmaps, mask, mv[0], beta, wsum, **kw)
+                else:
+                    labels, nch = _swap_move_batch(
+                        labels, unary_k, wmaps, mask, *mv, beta, wsum, **kw)
                 last_run[mv] = t
                 pending.append((mv, t, nch))
                 t += 1
@@ -460,8 +495,10 @@ def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
             # the cut counters), as one float64 vector (every count is exact)
             e, hist_t = _energy_hist(labels, unary_k, wmaps, mask, beta,
                                      n_states)
+            nch = (card.counts[t - len(pending):t] if card is not None
+                   else torch.stack([p[2] for p in pending]))
             parts = [e.sum().view(1), hist_t.double(),
-                     torch.stack([p[2] for p in pending]).double().flatten()]
+                     nch.double().flatten()]
             if graph is not None:
                 parts.append((graph.totals - base).double())
             got = _read(torch.cat(parts), stats, "moves")
@@ -490,7 +527,8 @@ def _optimize_batched(unary_k, wmaps, mask, init_labels, beta: float,
             stats.energy_start += e_start
             stats.energy_end += e_now
         if sp.on:
-            sp.add(cycles=cycles, moves_run=t)
+            sp.add(cycles=cycles, moves_run=t, build=build,
+                   builds=move_kernels.build_move.launches - builds0)
             if before is not None:
                 sp.add(**{k: v - before[k]
                           for k, v in dataclasses.asdict(stats).items()})

@@ -2,17 +2,19 @@
 """The default chr21 fit of two source trees, in turns, each in a fresh
 process, on one NVIDIA GPU.
 
-    python3 tools/fit_ab.py OTHER_TREE [--turns 3]
+    python3 tools/fit_ab.py OTHER_TREE [--turns 3] [--labeler swap_tpu]
 
 OTHER_TREE is a checkout of another commit (``git archive`` unpacked in a
 git-ignored directory of this repo). Each turn runs OTHER_TREE's fit, then
 this tree's, each as ``python3 tools/fit_ab.py --one TREE`` in its own
 process: ``PhyloHMRF(tree, [chr21 region], PhyloHMRFConfig(n_states=10,
 max_iter=5, seed=0)).fit()``, the ``chip_smoke.py`` fit without the phases
-that run before it there. Prints one JSON line per fit: fit seconds, init,
-seconds per EM iteration (E-step + M-step), the final polish, the
-SHA-256 of the cost rows (float64) and of the final labels (int32), so
-two trees' fits compare bitwise; with
+that run before it there; ``--labeler`` sets the config's labeler (e.g.
+``swap_tpu``: exact swap moves every E-step, no final polish). Prints one
+JSON line per fit: fit seconds, init, seconds per EM iteration (E-step +
+M-step), the final polish (0 without one), the SHA-256 of the cost rows
+(float64) and of the final labels (int32), so two trees' fits compare
+bitwise; with
 ``--cuts`` (the first turn of this tree) also the wall of the first three
 whole min cuts of the chr21 move graph in the process, before the fit.
 """
@@ -25,7 +27,7 @@ import sys
 import time
 
 
-def one(tree: str, cuts: bool) -> None:
+def one(tree: str, cuts: bool, labeler: str | None) -> None:
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
     os.chdir(root)
@@ -37,7 +39,7 @@ def one(tree: str, cuts: bool) -> None:
     _build.load()
     dev = torch.device("cuda")
     tree_, region, means, covs, warm, _ = chr21_problem(0)
-    rec = dict(tree=tree)
+    rec = dict(tree=tree, labeler=labeler or PhyloHMRFConfig().labeler)
     if cuts:
         from phylo_hmrf_tpu_torch.ops import maxflow as mf
         from phylo_hmrf_tpu_torch.synth import kernel_inputs
@@ -57,8 +59,9 @@ def one(tree: str, cuts: bool) -> None:
             mf.grid_mincut(*graph)
             torch.cuda.synchronize()
             rec["first_cuts_ms"].append((time.perf_counter() - t0) * 1e3)
+    cfg = dict(labeler=labeler) if labeler else {}
     model = PhyloHMRF(tree_, [region], PhyloHMRFConfig(
-        n_states=10, max_iter=5, seed=0), device=dev)
+        n_states=10, max_iter=5, seed=0, **cfg), device=dev)
     t0 = time.perf_counter()
     res = model.fit(verbose=False)
     rec["fit_s"] = time.perf_counter() - t0
@@ -66,7 +69,7 @@ def one(tree: str, cuts: bool) -> None:
     rec.update(init_s=s["init"]["total_s"],
                s_per_em_iter=(s["estep"]["total_s"] + s["mstep"]["total_s"])
                / res.n_iters,
-               final_polish_s=s["final_polish"]["total_s"],
+               final_polish_s=s.get("final_polish", {}).get("total_s", 0.0),
                cost_vec_sha256=hashlib.sha256(
                    res.cost_vec.astype("<f8").tobytes()).hexdigest(),
                labels_sha256=hashlib.sha256(
@@ -76,8 +79,10 @@ def one(tree: str, cuts: bool) -> None:
 
 def main() -> int:
     args = sys.argv[1:]
+    labeler = (args[args.index("--labeler") + 1] if "--labeler" in args
+               else None)
     if args and args[0] == "--one":
-        one(args[1], "--cuts" in args)
+        one(args[1], "--cuts" in args, labeler)
         return 0
     other = args[0]
     turns = int(args[args.index("--turns") + 1]) if "--turns" in args else 3
@@ -87,6 +92,8 @@ def main() -> int:
                          text=True).stdout.strip(), flush=True)
     for t in range(turns):
         for tree, extra in ((other, []), (here, ["--cuts"] if t == 0 else [])):
+            if labeler:
+                extra = [*extra, "--labeler", labeler]
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--one", tree,
                  *extra], capture_output=True, text=True)
