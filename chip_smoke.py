@@ -3,167 +3,72 @@
 
     python3 chip_smoke.py
 
-Builds the eleven kernels from ``phylo_hmrf_tpu_torch/csrc`` with nvcc (one
-process per source, in parallel), holds each against its plain PyTorch
-version and times both: the four E-step kernels at the chr21 shapes (R=1,
-K=10, H=672, W=768, F=4) on the E-step's operands (the tile kernels K1 and
-K2 also bitwise against their chained one-sweep / one-phase route, timed
-beside it, and again at K=30; the reductions K3 and K4 bitwise over three
-calls, K3's two-labeling entry bitwise its single calls, again at K=30 and
-on the single-device operands of the 10 kb region below, and one kernel
-launch a call each, counted by ``torch.profiler`` in a fresh process at
-the end of the run), the two min-cut kernels
-(K5 push-relabel, K6 BFS relabel) on a real expansion-move graph of the
-chr21 start labels, bitwise, and the whole min cut on both paths (the same
-cut). Then it checks one whole E-step on the kernel path against the plain
-path and for bitwise determinism, holds the exact expansion polish against
-the C++ expansion oracle on the same unary, weights and start, runs one
-cycle of the polish on both paths (identical labels), profiles one polish
-pass (``[polish_profile]``: device busy time, idle share, K5/K6 device
-time, host reads per move) and one pass of swap moves, those of a
-``swap_tpu`` E-step (``[swap_profile]``), and fits the chr21 problem
-(653 x 653 bins, 4 species, K=10, seed 0) for five EM iterations with the
-default config (``final_polish=True``, ``polish_method="expansion"``)
-through ``PhyloHMRF.fit`` and checks the result.
+The kernels' unit tests are ``tests/test_torch_cuda.py``,
+``tests/test_torch_lbfgs_kernel.py`` and ``tests/test_torch_moves_kernel.py``
+(``python -m pytest <files> -q --noconftest`` on the GPU machine), and
+the benchmark (``BENCHMARK.json``, ``bench_port/``) profiles whole fits.
+This script holds what neither does, in this order, one line a phase:
 
-``[pipeline]`` fits the chr21 problem again from the ``[fit]`` phase's
-init state with ``em_pipeline=True`` (the default: the next E-step is
-enqueued before the M-step's results are read) and ``False``, in this
-process: both fits' SHA-256 digests (cost rows, every iteration's labels,
-polished labels, params) equal ``[fit]``'s. It runs the first M-step
-solve and the first init solve of those runs again through the plain
-L-BFGS driver and through its captured CUDA graphs (the route of a tree
-above the fused kernel's caps, forced), in float32 and float64: byte for
-byte equal, with the walls, the graph replays and host reads a solve, the
-capture seconds and the memory the graphs hold; the init's graph with and
-without its read of the rows' flags a chunk; and ``mstep_dispatch`` under
-``torch.cuda.set_sync_debug_mode("error")``. The same two solves hold the
-fused kernel L (``csrc/lbfgs.cu``, the route every configuration takes)
-to the plain driver: 1-5 steps in float64 within 1e-9 relative, and the
-150-step solve's loss, in float32 and float64, no higher than the plain
-driver's by more than twice what the plain driver's own twins (starts one
-ulp away) land from it (``[pipeline]``'s ``fused``); L's row of the
-kernel table is timed there, and its launches are the command line fit's.
-The fresh launch-counting process profiles one chr21 M-step solve on
-the three routes (``[pipeline] mstep launches``: kernels, device busy
-time).
+- ``[build]``, ``[ptxas]``: the nvcc build of ``phylo_hmrf_tpu_torch/csrc``
+  and each kernel's registers, shared memory and spills.
+- The kernel table: K1-K8, L, M1 and M2 each timed alone at the shapes of
+  the fits (K1-K4 at chr21: R=1, K=10, H=672, W=768, F=4, and at K=30;
+  K5/K6 on the chr21 expansion move with the most pixels in play; K7/K8
+  on the spatial fit's 4 x 6 x 768 off-diagonal shards and on 4 816-row
+  shards of a 10 kb region; K3/K4 at 10 kb; L on the ``[pipeline]`` fit's
+  first M-step solve; M1/M2 on the first swap move of a ``swap_tpu``
+  fit): device ms of one unit (launches queued behind a sleep), call ms,
+  the plain version's ms, max abs error against it, the least time of
+  the unit's bytes and operations (``bench_port/roofline.py``), launches
+  per unit and units per fit. K5/K6 also hold their loop word against
+  the plain result and a stopped launch passing its input through; L
+  holds 5 float64 steps of the M-step and init solves within 1e-9 of the
+  plain driver and their whole float32 and float64 solves by loss
+  against its one-ulp twins; M1 is bitwise ``_swap_graph`` /
+  ``_expansion_graph`` for every pair and expansion of that move set.
+- ``[mincut]``, ``[estep]``: the whole min cut and the chr21 E-step on
+  the kernel route against the plain route, on the kernel table's
+  operands: the same cut and work; labels, statistics and costs within
+  the E-step's gates.
+- ``[bucket]``: a kernel E-step of two chr21 regions bitwise each
+  region's own, what the multi-process parity rests on.
+- ``[oracle]`` (K=10 on chr21, K=20 on a 223 x 223 region),
+  ``[host_swap]``, ``[f64_oracle]``: the card's expansion polish and
+  ``swap_tpu`` E-step against the C++ expansion and swap of
+  ``phylo_hmrf_tpu_torch.native``, energy within 0.1%.
+- ``[fit]``: the default-config chr21 fit (5 iterations): K1-K6 and L
+  launched, ``cost1 == pairwise + unary``, the ``.mat`` round trip, the
+  polish lowering the energy; its SHA-256 digests.
+- ``[postprocess]``: smoothing, state files, the PNG and the comparisons
+  on the ``[fit]`` output.
+- ``[pipeline]``: the same fit with ``em_pipeline`` True and False, both
+  bitwise ``[fit]``'s digests; ``mstep_dispatch`` and ``estep(...,
+  defer=True)`` under ``torch.cuda.set_sync_debug_mode("error")``.
+- ``[labelers]``: a chr21 fit with every other labeler from the
+  ``[fit]`` init state: cost rows, E-step walls, launches, exact moves.
+- ``[f64]``: the float64 fit: no K1-K8 launch, the unary at the JAX gate,
+  one E-step bitwise repeatable and bitwise over 4 spatial shards.
+- ``[cli]``/``[resume]``: the command line at chr21 scale and its resumed
+  rerun, bitwise. ``[multiproc]``: the chr21+chr22 command line as one
+  process and as two sharing the card, the merged ``.mat`` equal.
+- ``[mesh]``, ``[split]``, ``[spatial_estep]``, ``[region_estep]``,
+  ``[mesh_exact]``, ``[spatial_fit]``, ``[xmesh]``: 4 shards on the card.
+  The split identities of K7/K8 and K1/K2 on the 10 kb grid; the 10 kb
+  spatial E-step against the single-device one and its device busy time;
+  the region-sharded E-step of 4 chr21 regions; a region-mode
+  ``swap_tpu`` E-step equal to each region's own; a 3-iteration spatial
+  fit launching all eight kernels; that E-step and fit again over a mesh
+  whose shards live in two processes (``--xmesh-rank``), every digest
+  the one-process mesh's.
+- ``[launch_counts]``: K3 (both entries), K4, K7 and K8 are one kernel
+  launch a call, counted by ``torch.profiler`` in a fresh process
+  (``--count-launches``).
 
-From the ``[fit]`` phase's init state, ``[labelers]`` fits the chr21
-problem with every other E-step labeler: ``swap_tpu`` and
-``expansion_tpu`` (3 iterations; K1-K6 launched, no final polish, every
-exact E-step's energy no higher than its K1-K3 start's), the hybrids
-``mf_icm+swap@2`` and ``mf_icm+expansion@2`` (5 iterations), ``icm`` (K2
-and K4 launched) and ``lbp`` (3 iterations), each with its cost rows, E-step
-walls and launches, moves per exact E-step and peak device memory.
-``[moves]`` keeps the operands of the first swap E-step of such a fit:
-M1 builds every swap pair's and every expansion's cut graph from its
-start bit for bit as the tensor code, M2 writes a move's labels as the
-tensor update; their kernel rows, and the host's launches a move on the
-kernel route (``torch.profiler``'s runtime events).
-``[host_swap]`` runs one E-step of the host C++ swap and one of
-``swap_tpu`` on a 223 x 223 region of the same kind (24,976 samples): the
-device energy within 0.1% of the C++ one's.
-
-``[postprocess]`` smooths the ``[fit]`` output's states, writes its
-per-bin-pair state file and a PNG state map (read back equal to
-``states_to_rgb``), compares the fit's ``.mat`` with itself (NMI, ARI and
-the matched accuracy 1.0) and its labels with the truth. ``[f64]`` fits
-the chr21 problem with the default config at ``dtype="float64"`` (3
-iterations, from its own init): its phase walls, peak memory and K1-K8
-launches (all 0: the float64 mode runs the plain versions), the float64
-unary at the JAX gate against the host's, one float64 E-step from the
-``[fit]`` init state bitwise repeatable, bitwise equal over 4 spatial
-shards, and >= 0.99 label agreement with the float32 E-step.
-``[f64_oracle]`` holds one float64 expansion polish on the card against
-the C++ expansion on the ``[host_swap]`` problem (energy within 0.1%).
-The float64 loops run as CUDA graphs of captured plain units:
-``[f64_profile]`` times one float64 expansion polish pass at chr21 (the
-problem's own moments, its K1-K3 start in float64) on that graph route
-(wall, device time by CUDA events around the graph launches, idle share,
-host reads; the kernels and device time of one plain K5 and K6 unit);
-``python3 chip_smoke.py --f64-profile host_loop`` runs that phase alone
-on the host-read route (plus one whole cut under ``torch.profiler``).
-``[f64_loops]`` runs the same pass on the graph and host-read routes in
-turns (labels and ``CutStats`` bitwise, host reads 1 + cycles against
-one a test, walls, device time) and one float64 ``icm_kmajor`` run and
-one float64 cut under ``set_sync_debug_mode("error")``, each bitwise
-its host loop.
-
-The command line drives the same problem from files (``[cli]``): the
-port's writer puts a chr21-scale input (657 bins, 4 species, ~194k contact
-rows a species) in the reference's layout into a fresh temporary working
-directory, and ``phylo_hmrf_tpu_torch.cli.main`` runs the default config
-on it (5 iterations, K=10, seed 0) with a checkpoint every 2 iterations
-and a run artifact: K1-K6 launched, the C++ hole fill, the ``.mat`` keys,
-its 213,531 samples and ``cost1 == pairwise + unary``, the artifact's
-backend and card. Then (``[resume]``) garbage is appended to the
-checkpoint's ``.hist`` and ``python -m phylo_hmrf_tpu_torch.cli`` reruns
-with the same flags and ``--reload 1`` in a subprocess: it resumes from
-iteration 4 and writes bitwise the first run's ``cost_vec`` and
-``state_vec``. ``[multiproc]`` writes the chr21+chr22 input (two 653 x
-653 regions, 427,062 samples) and runs the command line on it
-(``-n 10 --chromvec 21,22 --miter 5 --seed 0``) once as one process and
-once as two processes sharing the card (``--coordinator 127.0.0.1:<free
-port> --num_processes 2``, gloo, ``PHMRF_COLLECTIVE_TIMEOUT_S=300``),
-each process a fresh ``python3 chip_smoke.py --cli-rank <flags>`` that
-prints its launches, walls, collective calls and peak memory: both ranks
-launch K1-K6, process 0 writes the one merged ``.mat``, whose
-``len_vec`` and ``state_vec`` equal the single run's and whose costs and
-params are within rtol 1e-7 / 1e-6 (bitwise equality reported).
-``[bucket]`` holds one kernel E-step of a bucket of two chr21 regions
-(seeds 0 and 1) bitwise against each region's own E-step, what the
-multi-process parity rests on; ``[oracle] K=20`` holds the expansion
-polish at K=20 on the ``[host_swap]`` region against the C++ expansion.
-
-The multi-device paths run over a mesh of 4 shards (all on the one card
-when it is the only one): the row-shard kernels K7 (mean-field sweeps)
-and K8 (ICM phases), one launch over the 4 shards of the card, bitwise
-against the per-shard route they replaced (timed beside them), with every
-neighbour row marked remote bitwise against the same-device route, and
-against their plain versions: a temperature's 8 sweeps and a sweep's 4
-phases on the 4 6-row shards of the spatial fit's 24-row off-diagonal
-block (the shapes the fit gives them) and, as a scale point, one sweep
-and one phase on the 4 816-row shards of a 10 kb-scale region (3264 x
-3264 bins padded to 3264 x 3328, the ``bench.py --stress`` shapes); their
-split identities on the 10 kb grid (K7 on 4 shards equals one K1 sweep of
-the whole grid, K8 with the global parity each phase of the whole grid,
-K1's 8 sweeps and K2's sweep pair on 8-row halos those of the whole grid,
-bitwise; K1 on a shard's slab bitwise its chained route); the
-row-sharded E-step of that region against the single-device E-step and for
-bitwise repeats (and the device busy time of both under
-``torch.profiler``); that E-step and the thin block's (``[spatial_loops]``)
-with their ICM loops as one CUDA graph a run against the host-read loops,
-in turns: bitwise, walls, synchronizing calls per E-step; the
-region-sharded E-step of a 4-region chr21 bucket
-against the single-device bucket; a region-mode ``swap_tpu`` E-step over
-a bucket of two chr21 regions (``[mesh_exact]``), its labels equal to each
-region's own on one device; and a default-config spatial fit of the
-chr21 region with a 20 x 653 off-diagonal block (its 24 rows give 6-row
-shards, the K7/K8 branch), whose first E-step is held against the
-single-device one region by region. ``[xmesh]`` then runs that 10 kb
-E-step and that spatial fit (from the same inputs and state) over a mesh
-whose 4 shards live in two processes sharing the card, 2 each
-(``make_mesh((4,), processes=True)`` after ``initialize_distributed``,
-gloo on localhost, each a fresh ``python3 chip_smoke.py --xmesh-rank``
-process): every output's SHA-256 equal to the one-process mesh's on both
-ranks, K1-K8 launched (K7/K8 on the remote route: a launch a sweep /
-phase after each exchange), the exchanges counted. The fresh process that counts
-launches with ``torch.profiler`` (K3/K4 a call, K7/K8 a unit) first
-profiles that block's spatial E-step alone (``[thin_estep]``: walls,
-device busy, idle share, kernel launches and host ops per E-step). Every
-phase that fails raises; the script exits 0 only if all passed.
-
-The second-to-last line of stdout is a JSON object with one entry per
-kernel (launches on the path that runs it, max abs error against the plain
-version, kernel and plain times in ms of one unit of work, the bound: the
-least time of the same work on the card, from the bytes it must move and
-the operations it must do; then the launches per unit, the units per fit
-and the ms per fit lost to the bound); the last line is
-``{"ok": true, "device": {...}}``. Without CUDA it exits 1 before any of
-that.
+Every phase that fails raises. The second-to-last line of stdout is the
+kernel table as JSON (``{"kernels": [...]}``); the last is ``{"ok": true,
+"device": {...}}``. Without CUDA it exits 1 before any of that.
 """
 
-import contextlib
 import json
 import os
 import re
@@ -206,10 +111,6 @@ KERNELS = {
                       "none (phylo_hmrf_tpu/ops/maxflow_tpu.py:471, :495)"),
 }
 
-# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
-# bytes/s and float32 operations/s outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_OPS_S = 67e12
 SHARDS = 4   # shards of the multi-device phases
 
 
@@ -244,10 +145,10 @@ def _time_ms(fn, reps=5, queued=False):
 def _timed(fn, plain_fn, chained_fn=None):
     """The timings of a kernel row: ``ms`` the device time of one unit
     (queued launches), ``call_ms`` one call with its host work in the
-    window (how this script timed every kernel before), ``plain_ms`` the
-    plain version's call; with ``chained_fn``, ``chained_ms`` the device
-    time of the same unit on the one-sweep / one-phase kernel (K1, K2's
-    route before their tile kernels), queued like ``ms``."""
+    window, ``plain_ms`` the plain version's call; with ``chained_fn``,
+    ``chained_ms`` the device time of the same unit on the per-shard
+    route (K7, K8's route before their one-launch kernels), queued like
+    ``ms``."""
     out = dict(ms=_time_ms(fn, queued=True), call_ms=_time_ms(fn),
                plain_ms=_time_ms(plain_fn))
     if chained_fn is not None:
@@ -264,10 +165,14 @@ def _nbytes(*ts):
 
 
 def _bound(nbytes, ops):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over the float32 rate."""
-    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    """(bound_ms, bound_by): the least time of ``nbytes`` and ``ops`` on
+    the card (``bench_port/roofline.py``'s peaks) and which of the two
+    sets it."""
+    from bench_port import roofline
+
+    by_bytes = nbytes / roofline.PEAK_BYTES_S >= ops / roofline.PEAK_F32_OPS_S
+    return (roofline.least_s(nbytes, ops) * 1e3,
+            "bytes" if by_bytes else "operations")
 
 
 def _point_line(tag, k):
@@ -309,81 +214,56 @@ def _ops_finish(K, F):
 
 
 def check_k1(x, beta=1.0):
-    """K1 (the tile kernel) on the operands ``x``: bitwise equal to the
-    chained one-sweep kernel for every n_inner 1..8, within rtol 2e-4,
-    atol 1e-6 of the plain version at 8 sweeps; the row of one
-    temperature's 8 sweeps, timed beside the chained route and the plain
-    version."""
+    """K1 (the tile kernel) on the operands ``x``: one temperature's 8
+    sweeps within rtol 2e-4, atol 1e-6 of the plain version; the row of
+    that unit, timed beside the plain version."""
     import torch
 
     from phylo_hmrf_tpu_torch.ops.mf_kernels import (
-        mf_sweeps, mf_sweeps_chained, mf_sweeps_plain, mf_tile_plan)
+        mf_sweeps, mf_sweeps_plain, mf_tile_plan)
 
     R, K, H, W = x["q0"].shape
     k1 = (x["q0"], x["base"], x["w"], 1.0, 0.5, beta)
-    for n_inner in range(1, 9):
-        got = mf_sweeps(*k1, n_inner=n_inner)
-        want = mf_sweeps_chained(*k1, n_inner=n_inner)
-        _check(torch.equal(got, want),
-               f"K1 at K={K}, {n_inner} sweeps: not bitwise the chained "
-               f"kernel (max abs diff {_max_abs(got, want)})")
+    got = mf_sweeps(*k1, n_inner=8)
     want = mf_sweeps_plain(*k1, 8)
     torch.cuda.synchronize()
     _check(torch.allclose(got, want, rtol=2e-4, atol=1e-6),
            f"K1 disagrees: max abs err {_max_abs(got, want)}")
     plan = mf_tile_plan(K, 8)
     return dict(
-        max_abs_err=_max_abs(got, want), bitwise_chained="n_inner 1..8",
+        max_abs_err=_max_abs(got, want),
         **_timed(lambda: mf_sweeps(*k1, n_inner=8),
-                 lambda: mf_sweeps_plain(*k1, 8),
-                 lambda: mf_sweeps_chained(*k1, n_inner=8)),
+                 lambda: mf_sweeps_plain(*k1, 8)),
         unit="8 sweeps at one temperature",
         launches_per_unit=plan.launches, plan=plan._asdict(),
-        tolerance="bitwise the chained kernel; rtol 2e-4, atol 1e-6 "
-                  "against plain",
+        tolerance="rtol 2e-4, atol 1e-6 against plain",
         nbytes=_nbytes(x["q0"], x["base"], x["w"], x["q0"]),
         ops=8 * OPS_MF * K * R * H * W)
 
 
 def check_k2(x, beta=1.0):
-    """K2 (the tile kernel) on the operands ``x``: one sweep pair at row
-    parities 0 and 1, labels identical to the 8 chained phase launches and
-    to the plain version, the loop word's GO that of the labels, and a
-    pair whose loop has stopped passing the labels through; the row of
-    one pair, timed beside the chained route and the plain version."""
+    """K2 (the tile kernel) on the operands ``x``: one sweep pair, labels
+    identical to the plain version's; the row of that pair, timed beside
+    the plain version."""
     import torch
 
-    from phylo_hmrf_tpu_torch.ops.icm_kernels import (
-        icm_sweep_pair, icm_sweep_pair_chained, icm_tile_plan)
-    from phylo_hmrf_tpu_torch.ops.loops import LOOP_GO, new_loop
+    from phylo_hmrf_tpu_torch.ops.icm_kernels import (icm_sweep_pair,
+                                                      icm_tile_plan)
 
     R, K, H, W = x["unary_k"].shape
     lab0 = torch.where(x["mask"], x["warm"], 0).to(torch.int32).contiguous()
     k2 = (lab0, x["unary_k"], x["w"], x["mask_i"], beta)
-    for ro in (0, 1):
-        loop = new_loop(lab0.device)
-        got = icm_sweep_pair(*k2, row_offset=ro, loop=loop)
-        want = icm_sweep_pair_chained(*k2, row_offset=ro)
-        _check(torch.equal(got, want),
-               f"K2 at K={K}, row offset {ro}: "
-               f"{int((got != want).sum())} labels differ from the chained "
-               "phases")
-        _check(bool(loop[LOOP_GO]) == bool(torch.any(want != lab0)),
-               "K2: the loop word differs from the labels'")
-        loop[LOOP_GO] = 0
-        _check(torch.equal(icm_sweep_pair(*k2, row_offset=ro, loop=loop),
-                           lab0), "K2: a stopped pair changed the labels")
-        ref = icm_sweep_pair(*k2, row_offset=ro, plain=True)
-        _check(torch.equal(got, ref),
-               f"K2 sweep pair: {int((got != ref).sum())} labels differ "
-               "from the plain version")
-    return dict(max_abs_err=0.0,
+    got = icm_sweep_pair(*k2)
+    ref = icm_sweep_pair(*k2, plain=True)
+    _check(torch.equal(got, ref),
+           f"K2 sweep pair: {int((got != ref).sum())} labels differ from "
+           "the plain version")
+    return dict(max_abs_err=_max_abs(got, ref),
                 **_timed(lambda: icm_sweep_pair(*k2),
-                         lambda: icm_sweep_pair(*k2, plain=True),
-                         lambda: icm_sweep_pair_chained(*k2)),
+                         lambda: icm_sweep_pair(*k2, plain=True)),
                 unit="one sweep pair (8 phases)", launches_per_unit=1,
                 plan=icm_tile_plan(K)._asdict(),
-                tolerance="identical labels (chained phases, plain)",
+                tolerance="identical labels (plain)",
                 nbytes=_nbytes(lab0, x["unary_k"], x["w"], x["mask_i"],
                                lab0),
                 ops=2 * OPS_ICM * K * R * H * W)
@@ -399,32 +279,15 @@ def k30_inputs(dev):
 
 
 def check_kernels(x, beta=1.0):
-    """Each kernel against its plain version on the same device tensors.
-    Returns {kernel: {"max_abs_err", "ms", "plain_ms", "unit"}}."""
-    import torch
-
-    from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
+    """The rows of K1-K4 on the same device tensors: {kernel: row}. K3
+    scores the warm labels and K1's mean-field labels."""
     from phylo_hmrf_tpu_torch.ops.mf_kernels import mean_field_kmajor
 
-    out = {}
-    out["K1_mf_sweep"] = check_k1(x, beta)
     lab = mean_field_kmajor(x["unary_k"], x["w"], beta)
-    lab_p = mean_field_kmajor(x["unary_k"], x["w"], beta, plain=True)
-    agree = float((lab == lab_p).float().mean())
-    _check(agree > 0.999, f"K1 mean-field labels agree on only {agree}")
-    out["K1_mf_sweep"]["label_agreement"] = agree
-
-    # K2: the sweep pair and the whole ICM loop; identical labels
-    out["K2_icm_phase"] = check_k2(x, beta)
-    full = icm_kmajor(x["unary_k"], x["w"], x["mask"], x["warm"], beta, 60)
-    full_p = icm_kmajor(x["unary_k"], x["w"], x["mask"], x["warm"], beta, 60,
-                        plain=True)
-    _check(torch.equal(full, full_p),
-           f"K2 ICM loop: {int((full != full_p).sum())} labels differ")
-
-    out["K3_potts_energy"] = check_k3(x, lab, beta)
-    out["K4_finish_stats"] = check_k4(x, beta)
-    return out
+    return {"K1_mf_sweep": check_k1(x, beta),
+            "K2_icm_phase": check_k2(x, beta),
+            "K3_potts_energy": check_k3(x, lab, beta),
+            "K4_finish_stats": check_k4(x, beta)}
 
 
 def launch_counts(attempts=3):
@@ -469,11 +332,8 @@ def count_launches_main() -> int:
 
     if not torch.cuda.is_available():
         return 1
-    from phylo_hmrf_tpu_torch.parallel.mesh import make_mesh
-
     dev = torch.device("cuda")
-    # first, while the process is young (the profiler's short sessions)
-    out = {"thin_estep": thin_estep(make_mesh((SHARDS,)), dev)}
+    out = {}
     for point, kw in (("chr21", {}), ("k30", dict(K=30)),
                       ("10kb", dict(h0=3264))):
         _, region, means, covs, warm, _ = chr21_problem(0, **kw)
@@ -501,70 +361,8 @@ def count_launches_main() -> int:
         fn()
     out["offdiag"] = {name: list(_kernel_launches(fn))
                       for name, fn in fns.items()}
-    out["mstep"] = mstep_launches(dev)
     print(json.dumps(out))
     return 0
-
-
-def mstep_launches(dev):
-    """Device kernels and busy seconds of one chr21 M-step solve (K=10,
-    the statistics of the true labels, params from a seed) through the
-    plain driver, through its captured graphs (after the capture; the
-    route of a tree above the fused kernel's caps, forced here) and
-    through the fused kernel, by ``torch.profiler``; the graph's replays.
-    A profiler that sees no kernel of the graph replays records None
-    there."""
-    import numpy as np
-    import torch
-
-    import phylo_hmrf_tpu_torch.models.hmrf as hm
-    from phylo_hmrf_tpu_torch import PhyloHMRFConfig
-    from phylo_hmrf_tpu_torch.models.ou import tree_tensors
-    from phylo_hmrf_tpu_torch.synth import chr21_problem
-
-    tree, region, _, _, _, true = chr21_problem(0)
-    X = region.flat_values().astype(np.float64)
-    K, cfg = 10, PhyloHMRFConfig()
-    g = np.eye(K)[true]
-    stats = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
-        g.sum(0), g.T @ X, np.einsum("nk,nf,ng->kfg", g, X, X))]
-    p0 = np.random.default_rng(0).random((K, tree.n_params)) * 0.8 + 0.2
-    kw = dict(tt=tree_tensors(tree, dev), lo=cfg.param_lo, hi=cfg.param_hi,
-              iters=cfg.mstep_iters)
-    args = (torch.as_tensor(p0, dtype=torch.float32, device=dev), *stats,
-            float(X.shape[0]), cfg.lambda_0, cfg.min_covar)
-    graphs = {}
-    with _graph_route(hm):
-        hm._mstep_solve_full(*args, graphs=graphs, **kw)   # the capture
-    (solve,) = graphs.values()
-    out = {}
-    for name, gr in (("plain", None), ("graph", graphs), ("fused", {})):
-        r0 = solve.replays
-        route = (_graph_route(hm) if name == "graph"
-                 else contextlib.nullcontext())
-        try:
-            with route:
-                busy_s, n, _ = _device_busy_s(
-                    lambda: hm._mstep_solve_full(*args, graphs=gr, **kw))
-        except AssertionError:
-            if gr is None:
-                raise
-            busy_s = n = None
-        out[name] = dict(kernels=n, device_busy_s=busy_s,
-                         replays=solve.replays - r0)
-    return out
-
-
-@contextlib.contextmanager
-def _graph_route(hm):
-    """The model module's solves take the captured graphs (the route of
-    a tree above the fused kernel's caps) while inside."""
-    route0 = hm.solve_route
-    hm.solve_route = lambda *a: "graph"
-    try:
-        yield
-    finally:
-        hm.solve_route = route0
 
 
 def _halo_units(x, n_sweeps, n_phases, n_shards=4):
@@ -611,11 +409,10 @@ def _k3_nbytes(x, *labelings):
 
 
 def check_k3(x, other, beta=1.0):
-    """K3 on the operands ``x``: the warm labels and ``other`` (the K1
-    start labels), within rtol 1e-6 of the plain version (both sum float32
-    terms in float64); three calls bitwise equal; the pair entry's rows
-    bitwise the single calls. The row of one call, with the pair's times
-    and bound beside it; its launches a call are counted by
+    """K3 on the operands ``x``: the warm labels within rtol 1e-6 of the
+    plain version (both sum float32 terms in float64). The row of one
+    call, with the times and bound of the pair entry (the warm labels and
+    ``other``) beside it; its launches a call are counted by
     `launch_counts`."""
     import torch
 
@@ -626,41 +423,31 @@ def check_k3(x, other, beta=1.0):
     R, K, H, W = x["unary_k"].shape
     k3 = (x["unary_k"], x["mask_i"], x["warm"], x["w"], beta)
     pair = (x["unary_k"], x["mask_i"], x["warm"], other, x["w"], beta)
-    got = [potts_energy(*k3) for _ in range(3)]
+    got = potts_energy(*k3)
     want = potts_energy_plain(*k3)
-    _check(torch.allclose(got[0], want, rtol=1e-6, atol=0),
-           f"K3 disagrees: {got[0].tolist()} vs {want.tolist()}")
-    _check(all(torch.equal(g, got[0]) for g in got),
-           "K3: repeated calls differ")
-    two = potts_energy_pair(*pair)
-    _check(torch.allclose(two, potts_energy_pair_plain(*pair), rtol=1e-6,
-                          atol=0), "K3 pair disagrees with its plain version")
-    _check(torch.equal(two[0], got[0]) and torch.equal(
-        two[1], potts_energy(x["unary_k"], x["mask_i"], other, x["w"], beta)),
-        "K3: the pair's energies are not bitwise the single calls'")
+    _check(torch.allclose(got, want, rtol=1e-6, atol=0),
+           f"K3 disagrees: {got.tolist()} vs {want.tolist()}")
     t_pair = _timed(lambda: potts_energy_pair(*pair),
                     lambda: potts_energy_pair_plain(*pair))
     pair_bound, _ = _bound(_k3_nbytes(x, x["warm"], other),
                            2 * OPS_ENERGY * R * H * W)
     return dict(
-        max_abs_err=_max_abs(got[0], want),
+        max_abs_err=_max_abs(got, want),
         **_timed(lambda: potts_energy(*k3), lambda: potts_energy_plain(*k3)),
         pair_ms=t_pair["ms"], pair_call_ms=t_pair["call_ms"],
         pair_plain_ms=t_pair["plain_ms"], pair_bound_ms=pair_bound,
         pair_share_of_bound=pair_bound / t_pair["ms"],
-        unit="one call", bitwise_repeat=3,
-        tolerance="rtol 1e-6; the pair bitwise the single calls",
+        unit="one call", tolerance="rtol 1e-6",
         nbytes=_k3_nbytes(x, x["warm"]), ops=OPS_ENERGY * R * H * W)
 
 
 def check_k4(x, beta=1.0):
     """K4 on the operands ``x`` (the unary in, ``negate``): within rtol
-    2e-5, atol 1e-6 of the plain version on every output; three calls
-    bitwise equal; the float64 sums round to the float32 outputs bitwise.
-    The row of one call (its launches a call are counted by
-    `launch_counts`); its bound counts what the valid pixels need (the
-    kernel skips 32-pixel batches with none): the mask, then a valid
-    pixel's K fields, F features, label and 4 weights, and the outputs."""
+    2e-5, atol 1e-6 of the plain version on every output. The row of one
+    call (its launches a call are counted by `launch_counts`); its bound
+    counts what the valid pixels need (the kernel skips 32-pixel batches
+    with none): the mask, then a valid pixel's K fields, F features,
+    label and 4 weights, and the outputs."""
     import torch
 
     from phylo_hmrf_tpu_torch.config import SMALL_EPS
@@ -670,41 +457,21 @@ def check_k4(x, beta=1.0):
     R, K, H, W = x["unary_k"].shape
     k4 = (x["unary_k"], x["img_f"], x["mask_i"], x["warm"], x["w"], beta,
           SMALL_EPS)
-    got = [finish_stats(*k4, negate=True) for _ in range(3)]
+    got = finish_stats(*k4, negate=True)
     want = finish_stats_plain(*k4, negate=True)
-    for a, b in zip(got[0], want):
+    for a, b in zip(got, want):
         _check(torch.allclose(a, b, rtol=2e-5, atol=1e-6),
                f"K4 disagrees: max abs err {_max_abs(a, b)}")
-    _check(all(torch.equal(a, b) for g in got[1:] for a, b in zip(g, got[0])),
-           "K4: repeated calls differ")
-    got64 = finish_stats(*k4, negate=True, float64=True)
-    _check(all(torch.equal(a.float(), b) for a, b in zip(got64, got[0])),
-           "K4: the float64 sums do not round to the float32 outputs")
     F = x["img_f"].shape[1]
     valid = int((x["mask_i"] != 0).sum())
     return dict(
-        max_abs_err=max(_max_abs(a, b) for a, b in zip(got[0], want)),
+        max_abs_err=max(_max_abs(a, b) for a, b in zip(got, want)),
         **_timed(lambda: finish_stats(*k4, negate=True),
                  lambda: finish_stats_plain(*k4, negate=True)),
-        unit="one call", bitwise_repeat=3,
-        tolerance="rtol 2e-5, atol 1e-6", valid_pixels=valid,
-        nbytes=(_nbytes(x["mask_i"], *got[0])
-                + 4 * valid * (K + F + 1 + 4)),
+        unit="one call", tolerance="rtol 2e-5, atol 1e-6",
+        valid_pixels=valid,
+        nbytes=(_nbytes(x["mask_i"], *got) + 4 * valid * (K + F + 1 + 4)),
         ops=_ops_finish(K, F) * valid)
-
-
-def _cut_cost(side, excess, cap_t, caps):
-    """Cost of a cut (float64): source-side pixels pay their sink arcs,
-    sink-side ones their source arcs, arcs leaving the source side pay
-    their capacity."""
-    import torch
-
-    from phylo_hmrf_tpu_torch.ops.mincut_kernels import _nb
-
-    c = torch.where(side, cap_t, excess).double().sum()
-    for a in range(8):
-        c = c + (caps[:, a].double() * (side & ~_nb(side, a, True))).sum()
-    return float(c)
 
 
 def _loop_ms(fn, device):
@@ -721,10 +488,12 @@ def _loop_ms(fn, device):
 
 
 def check_mincut(x, n_states, beta=1.0):
-    """K5 and K6 against their plain versions on the graph of the chr21
-    expansion move with the most pixels in play (from the K1-K3 start),
-    then the whole min cut on both paths. Returns ({kernel: row}, cut
-    record, start labels)."""
+    """The rows of K5 and K6 on the graph of the chr21 expansion move with
+    the most pixels in play (from the K1-K3 start), each against its
+    plain version: bitwise, the loop word's GO that of the plain result,
+    a launch of a stopped loop passing its input through; then the whole
+    min cut on the kernel route against the plain one: the same cut and
+    the same work. Returns ({kernel: row}, cut record, start labels)."""
     import dataclasses
 
     import torch
@@ -747,11 +516,10 @@ def check_mincut(x, n_states, beta=1.0):
     R, H, W = excess0.shape
     n = H * W + 2
     d0 = torch.where(cap_t0 > EPS, 1, n).to(torch.int32).contiguous()
+    move = f"expansion move {alpha}, {in_play[alpha]} pixels in play"
     out = {}
 
-    # K6: 8 Jacobi sweeps in one launch, bitwise, the loop word's GO that
-    # of the plain result, a launch of a stopped loop passing d through;
-    # then the fixpoint (its graph, its host loop): identical distances
+    # K6: 8 Jacobi sweeps in one launch from the sink seed
     loop = new_loop(d0.device)
     d8, _ = bfs_sweeps(d0, caps0, n, n_inner=8, loop=loop)
     want = bfs_sweeps_plain(d0, caps0, n, 8)
@@ -762,33 +530,27 @@ def check_mincut(x, n_states, beta=1.0):
     _check(torch.equal(bfs_sweeps(d0, caps0, n, n_inner=8, loop=loop)[0], d0),
            "K6: a stopped launch changed the distances")
     fix = mf._bfs_fixpoint(d0.clone(), caps0, n, False, None)
-    fix_h = mf._bfs_fixpoint(d0.clone(), caps0, n, False, None,
-                             host_loop=True)
-    fix_p = mf._bfs_fixpoint(d0.clone(), caps0, n, True, None)
-    _check(torch.equal(fix, fix_p) and torch.equal(fix_h, fix_p),
-           f"K6 fixpoint: {int((fix != fix_p).sum())} distances differ")
     out["K6_bfs_sweeps"] = dict(
         max_abs_err=float((d8 - want).abs().max()),
         **_timed(lambda: bfs_sweeps(d0, caps0, n, n_inner=8, out=d8),
                  lambda: bfs_sweeps_plain(d0, caps0, n, 8)),
         loop_ms=_loop_ms(lambda w: bfs_sweeps(d0, caps0, n, n_inner=8,
                                               out=d8, loop=w), d0.device),
-        unit="8 BFS sweeps", launches_per_unit=1,
+        unit=f"8 BFS sweeps ({move})", launches_per_unit=1,
         tolerance="identical int32 distances",
         reachable=int((fix < n).sum()),
         nbytes=_nbytes(d0, caps0, d0), ops=8 * OPS_BFS * R * H * W)
 
-    # K5: 4 iterations in one launch from the relabelled state (h = BFS
-    # distance), three calls in a row. Same operations in the same order
-    # with round-to-nearest intrinsics: bitwise, with the plain result's
-    # active flag
+    # K5: 4 iterations in one launch, three calls in a row from the
+    # relabelled state (h = BFS distance), each with the plain result's
+    # active flag; timed from where they end
     st = want = (excess0, fix, cap_t0, caps0)
     for call in (1, 2, 3):
         loop = new_loop(d0.device)
         st, _ = pr_iterations(*st, n, n_inner=4, loop=loop)
         want = pr_iterations_plain(*want, n, 4)
-        diff = [int((a != b).sum()) for a, b in zip(st, want)]
-        _check(not any(diff), f"K5 call {call}: values differ {diff}")
+        _check(all(torch.equal(a, b) for a, b in zip(st, want)),
+               f"K5 call {call}: 4 iterations differ from the plain version")
         _check(bool(loop[LOOP_GO]) == bool(torch.any((want[0] > EPS)
                                                      & (want[1] < n))),
                "K5: the loop word differs from the plain result's")
@@ -796,596 +558,76 @@ def check_mincut(x, n_states, beta=1.0):
     _check(all(torch.equal(a, b) for a, b in zip(
         pr_iterations(*st, n, n_inner=4, loop=loop)[0], st)),
            "K5: a stopped launch changed the state")
-    err = max(_max_abs(a, b) for a, b in zip(st, want))
     spare = tuple(torch.empty_like(t) for t in st)
     out["K5_pr_iterations"] = dict(
-        max_abs_err=err, bitwise=True,
+        max_abs_err=max(_max_abs(a, b) for a, b in zip(st, want)),
         **_timed(lambda: pr_iterations(*st, n, n_inner=4, out=spare),
                  lambda: pr_iterations_plain(excess0, fix, cap_t0, caps0, n,
                                              4)),
         loop_ms=_loop_ms(lambda w: pr_iterations(*st, n, n_inner=4,
                                                  out=spare, loop=w),
                          d0.device),
-        unit="4 push-relabel iterations", launches_per_unit=1,
+        unit=f"4 push-relabel iterations ({move})", launches_per_unit=1,
         tolerance="bitwise e, h, cap_t, caps",
         nbytes=2 * _nbytes(excess0, fix, cap_t0, caps0),
         ops=4 * OPS_PR * R * H * W)
 
-    # the whole min cut: with K5/K6 bitwise and the same schedule, the
-    # same cut and the same work on the four routes (a graph, of the
-    # kernels or of the captured plain units, reads the host once, for its
-    # counters; a host loop reads every test)
+    # the whole min cut: the loop graphs of the kernels against the plain
+    # units (K5/K6 bitwise, the same schedule), each reading the host once
     runs = {}
-    for name, kw in (("kernel", {}), ("host_loop", dict(host_loop=True)),
-                     ("plain", dict(plain=True)),
-                     ("plain_host_loop", dict(plain=True, host_loop=True))):
+    for name, plain in (("kernel", False), ("plain", True)):
         stats = mf.CutStats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        side = mf.grid_mincut(excess0, cap_t0, caps0, stats=stats, **kw)
+        side = mf.grid_mincut(excess0, cap_t0, caps0, stats=stats,
+                              plain=plain)
         torch.cuda.synchronize()
         runs[name] = (side, time.perf_counter() - t0, stats)
-    for name in ("kernel", "host_loop", "plain_host_loop"):
-        _check(torch.equal(runs[name][0], runs["plain"][0]),
-               f"min cut: the {name} route's cut differs from the plain "
-               "path's")
-        _check(dataclasses.replace(runs[name][2], host_reads=0)
-               == dataclasses.replace(runs["plain"][2], host_reads=0),
-               f"min cut: the routes did different work: {runs}")
-    _check(runs["kernel"][2].host_reads == runs["plain"][2].host_reads == 1
-           and runs["host_loop"][2].host_reads
-           == runs["plain_host_loop"][2].host_reads, "min cut: host reads")
-    cost = _cut_cost(runs["kernel"][0], excess0, cap_t0, caps0)
-    cut = dict(alpha=alpha, in_play=in_play[alpha], cost=cost,
-               kernel_s=runs["kernel"][1], host_loop_s=runs["host_loop"][1],
-               plain_s=runs["plain"][1],
-               plain_host_loop_s=runs["plain_host_loop"][1],
-               stats=dataclasses.asdict(runs["kernel"][2]),
-               host_loop_stats=dataclasses.asdict(runs["host_loop"][2]))
+    (side, kernel_s, stats), (side_p, plain_s, stats_p) = runs.values()
+    _check(torch.equal(side, side_p),
+           "min cut: the kernel route's cut differs from the plain one")
+    _check(dataclasses.replace(stats, host_reads=0)
+           == dataclasses.replace(stats_p, host_reads=0)
+           and stats.host_reads == stats_p.host_reads == 1,
+           f"min cut: the routes did different work: {stats} vs {stats_p}")
+    cut = dict(alpha=alpha, in_play=in_play[alpha], kernel_s=kernel_s,
+               plain_s=plain_s, stats=dataclasses.asdict(stats))
     return out, cut, start
 
 
-def check_polish_paths(x, start, n_states, beta=1.0):
-    """One cycle of exact expansion moves from the chr21 start on the
-    kernel path and on the plain path (the polish of
-    ``exact_labels_batched`` after its start): identical labels and the
-    same work."""
-    import dataclasses
-
+def check_estep(x, dmaps, means, covs):
+    """``[estep]``: the chr21 kernel E-step (the ICM graph of K2 and its
+    loop, K1, K3, K4) against the plain path on the same device: labels
+    agreeing on at least 99.9% of the pixels, statistics and costs within
+    1e-3 relative. (``test_estep_kernels_are_deterministic`` holds its
+    bitwise repeat.)"""
     import torch
 
-    from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, _optimize_batched
+    from phylo_hmrf_tpu_torch.models.hmrf import _estep_bucket
 
-    runs = {}
-    for name, plain in (("kernel", False), ("plain", True)):
-        stats = CutStats()
+    def run(plain):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lab = _optimize_batched(x["unary_k"], x["w"], x["mask"], start, beta,
-                                n_states, "expansion", 1, plain=plain,
-                                stats=stats)
+        out = _estep_bucket(x["img"], x["mask"], dmaps, x["warm"], means,
+                            covs, 1.0, 0.5, weighted_pp=False, max_sweeps=60,
+                            plain=plain)
         torch.cuda.synchronize()
-        runs[name] = (lab, time.perf_counter() - t0, stats)
-    _check(torch.equal(runs["kernel"][0], runs["plain"][0]),
-           "polish: the kernel path's labels differ from the plain path's: "
-           f"{int((runs['kernel'][0] != runs['plain'][0]).sum())} pixels")
-    _check(dataclasses.replace(runs["kernel"][2], host_reads=0)
-           == dataclasses.replace(runs["plain"][2], host_reads=0),
-           "polish: the paths did different work")
-    return dict(max_cycles=1, identical_labels=True,
-                relabeled=int((runs["kernel"][0] != start).sum()),
-                kernel_s=runs["kernel"][1], plain_s=runs["plain"][1],
-                stats=dataclasses.asdict(runs["kernel"][2]))
+        return out, time.perf_counter() - t0
 
-
-def profile_polish(x, start, n_states, max_cycles, beta=1.0,
-                   method="expansion"):
-    """One `_optimize_batched` pass of ``method`` moves from the chr21
-    start (the fit's polish cycles; with "swap", a ``swap_tpu`` E-step's
-    moves) under ``torch.profiler``, on the graph route and on the host
-    loop: device busy seconds, the idle share against an unprofiled run's
-    wall, K5 and K6 device ms and launches by kernel name (beside the
-    graph's own count of its K5 / K6 launches), the kernel count, host
-    reads a pass and a move."""
-    import torch
-
-    from phylo_hmrf_tpu_torch.ops import loops
-    from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, _optimize_batched
-
-    out = {}
-    for route in ("graph", "host_loop"):
-        stats = CutStats()
-
-        def run(st=None):
-            return _optimize_batched(x["unary_k"], x["w"], x["mask"], start,
-                                     beta, n_states, method, max_cycles,
-                                     host_loop=route == "host_loop",
-                                     stats=st)
-        run()     # the graphs are built (the first pass of a shape)
-        torch.cuda.synchronize()
-        with _graph_spans() as spans:
-            t0 = time.perf_counter()
-            run(stats)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        in_graphs = _graph_kernels()
-        busy, n, by_name = _device_busy_s(run)
-        now = _graph_kernels()
-        k5 = [v for k, v in by_name.items() if "pr_tile_kernel" in k]
-        k6 = [v for k, v in by_name.items() if "bfs_tile_kernel" in k]
-        # the profiler records some of the kernels a WHILE body runs, not
-        # all: the graphs' device time is their launches' event spans
-        graph_s = spans.seconds()
-        outside = sum(v[0] for k, v in by_name.items()
-                      if route == "host_loop"
-                      or not k.startswith(IN_GRAPH)) * 1e-6
-        busy_all = outside + graph_s
-        out[route] = dict(
-            wall_s=wall, device_busy_s=busy_all, kernels=n,
-            graph_span_s=graph_s, outside_graphs_busy_s=outside,
-            profiler_busy_s=busy,
-            idle_share=max(0.0, 1.0 - busy_all / wall),
-            k5_device_ms=sum(v[0] for v in k5) * 1e-3,
-            k5_launches=sum(v[1] for v in k5),
-            k6_device_ms=sum(v[0] for v in k6) * 1e-3,
-            k6_launches=sum(v[1] for v in k6),
-            graph_k5_launches=now["K5"] - in_graphs["K5"],
-            graph_k6_launches=now["K6"] - in_graphs["K6"],
-            moves=stats.moves, host_reads=stats.host_reads,
-            host_reads_per_move=stats.host_reads / stats.moves,
-            pr_iterations_per_move=stats.pr_iterations / stats.moves,
-            bfs_sweeps_per_move=stats.bfs_sweeps / stats.moves)
-    out["graph_builds"] = dict(loops.stats)
-    return out
-
-
-def f64_inputs(region, means, covs, warm, device, beta1=0.5):
-    """The float64 operands of the polish on ``region`` (R = 1), as the
-    float64 E-step forms them: unary_k, w, mask and the warm labels."""
-    import numpy as np
-    import torch
-
-    from phylo_hmrf_tpu_torch.models.emission import gaussian_logpdf_kmajor
-    from phylo_hmrf_tpu_torch.ops.potts import weight_maps
-
-    def dev(a, dtype=torch.float64):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    return dict(
-        unary_k=-gaussian_logpdf_kmajor(dev(region.img[None]), dev(means),
-                                        dev(covs)).contiguous(),
-        w=weight_maps(dev(region.dmaps[None]), beta1).contiguous(),
-        mask=dev(region.mask[None], torch.bool),
-        warm=dev(region.labels_to_grid(warm)[None], torch.int32))
-
-
-def profile_f64_polish(x, start, n_states, max_cycles, beta=1.0,
-                       routes=("graph", "host_loop")):
-    """``[f64_profile]``: one float64 expansion polish pass (the plain
-    versions, ``plain=True``) from ``start`` on the float64 operands
-    ``x``, on each route of ``routes`` (``graph``: the captured plain
-    units in the loop graphs; ``host_loop``: a host read a test):
-    wall, host reads, the pass's counts. Per route: its device time, on
-    the graph route the CUDA-event spans of the graph launches (the
-    moves' tensor code outside them is not in it), on the host-read
-    route the units' device time (K5 units x one unit's, K6 units x one
-    unit's, by ``torch.profiler``); the idle share against the wall. On
-    the host-read route also one whole cut (the move with the most
-    pixels in play) profiled: its wall, device busy and idle share. And
-    the kernels one plain K5 unit (4 iterations) and one plain K6 unit (8
-    sweeps) launch, with their device time."""
-    import dataclasses
-
-    import torch
-
-    from phylo_hmrf_tpu_torch.ops import loops
-    from phylo_hmrf_tpu_torch.ops import maxflow as mf
-    from phylo_hmrf_tpu_torch.ops.mincut_kernels import (
-        EPS, bfs_sweeps, pr_iterations)
-
-    wsum = mf._incident_wsum(x["w"], beta)
-    in_play = [int(mf._expansion_graph(start, x["unary_k"], x["w"],
-                                       x["mask"], a, beta, wsum)[3].sum())
-               for a in range(n_states)]
-    alpha = max(range(n_states), key=in_play.__getitem__)
-    excess0, cap_t0, caps0, _ = mf._expansion_graph(
-        start, x["unary_k"], x["w"], x["mask"], alpha, beta, wsum)
-    R, H, W = excess0.shape
-    n = H * W + 2
-    h0 = torch.zeros((R, H, W), dtype=torch.int32, device=excess0.device)
-    d0 = torch.where(cap_t0 > EPS, 1, n).to(torch.int32)
-    k5_s, k5_n, _ = _device_busy_s(lambda: pr_iterations(
-        excess0, h0, cap_t0, caps0, n, n_inner=4, plain=True,
-        loop=loops.new_loop(excess0.device)))
-    k6_s, k6_n, _ = _device_busy_s(lambda: bfs_sweeps(
-        d0, caps0, n, n_inner=8, plain=True,
-        loop=loops.new_loop(excess0.device)))
-    out = dict(shape=[R, H, W], alpha=alpha, in_play=in_play[alpha],
-               k5_unit_kernels=k5_n, k5_unit_device_ms=k5_s * 1e3,
-               k6_unit_kernels=k6_n, k6_unit_device_ms=k6_s * 1e3)
-    labels = {}
-    for route in routes:
-        stats = mf.CutStats()
-
-        def run(st=None):
-            return mf._optimize_batched(
-                x["unary_k"], x["w"], x["mask"], start, beta, n_states,
-                "expansion", max_cycles, plain=True,
-                host_loop=route == "host_loop", stats=st)
-        if route == "graph":
-            run()     # the graphs are built (the first pass of a shape)
-        torch.cuda.synchronize()
-        with _graph_spans() as spans:
-            t0 = time.perf_counter()
-            labels[route] = run(stats)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rec = dict(wall_s=wall, host_reads=stats.host_reads,
-                   stats=dataclasses.asdict(stats))
-        if route == "graph":
-            busy = spans.seconds()
-            rec.update(graph_launches=len(spans.pairs), graph_span_s=busy)
-        else:
-            busy = (stats.pr_iterations / 4 * k5_s
-                    + stats.bfs_sweeps / 8 * k6_s)
-            rec["units_device_s"] = busy
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mf.grid_mincut_host(excess0, cap_t0, caps0, plain=True)
-            torch.cuda.synchronize()
-            cut_wall = time.perf_counter() - t0
-            cut_busy, cut_n, _ = _device_busy_s(lambda: mf.grid_mincut_host(
-                excess0, cap_t0, caps0, plain=True))
-            rec["one_cut"] = dict(wall_s=cut_wall, device_busy_s=cut_busy,
-                                  kernels=cut_n, idle_share=max(
-                                      0.0, 1.0 - cut_busy / cut_wall))
-        rec["idle_share"] = max(0.0, 1.0 - busy / wall)
-        out[route] = rec
-    if len(labels) == 2:
-        _check(torch.equal(labels["graph"], labels["host_loop"]),
-               "[f64_profile] the routes' labels differ")
-    return out
-
-
-def check_f64_loops(x, start, n_states, cycles, turns=1, beta=1.0):
-    """``[f64_loops]``: the float64 loops on the card as graphs of
-    captured plain units (``plain=True``) against their host-read plain
-    routes, on the float64 operands ``x`` of the chr21 problem: the
-    expansion polish pass (``cycles`` cycles from ``start``) on the graph
-    route and on the host loop in turns (``turns`` of each; one keeps
-    the smoke in its time: a host-read pass is ~25-30 s), labels
-    bitwise and the same ``CutStats`` but host reads (1 + cycles on the
-    graph route), walls, the graph route's device time (CUDA events
-    around each graph launch) and idle share; one ``icm_kmajor`` run in
-    float64 from the warm labels, bitwise its host loop, and one float64
-    cut of the pass's first move, each launched under
-    ``torch.cuda.set_sync_debug_mode("error")``; the graphs built, their
-    seconds and pool bytes."""
-    import dataclasses
-
-    import torch
-
-    from phylo_hmrf_tpu_torch.ops import loops
-    from phylo_hmrf_tpu_torch.ops import maxflow as mf
-    from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
-
-    runs = {"graph": [], "host_loop": []}
-    for route in ("graph", "host_loop") * turns:
-        stats = mf.CutStats()
-        torch.cuda.synchronize()
-        with _graph_spans() as spans:
-            t0 = time.perf_counter()
-            lab = mf._optimize_batched(
-                x["unary_k"], x["w"], x["mask"], start, beta, n_states,
-                "expansion", cycles, plain=True,
-                host_loop=route == "host_loop", stats=stats)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        runs[route].append(dict(labels=lab, wall_s=wall, stats=stats,
-                                graph_s=spans.seconds(),
-                                graph_launches=len(spans.pairs)))
-    ref = runs["host_loop"][0]
-    for route, rs in runs.items():
-        for r in rs:
-            _check(torch.equal(r["labels"], ref["labels"]),
-                   f"[f64_loops] the {route} route's labels differ in "
-                   f"{int((r['labels'] != ref['labels']).sum())} pixels")
-            _check(_same_work(r["stats"], ref["stats"]),
-                   f"[f64_loops] the {route} route did other work: "
-                   f"{r['stats']} vs {ref['stats']}")
-    st = ref["stats"]
-    loop_reads = st.moves + st.pr_iterations // 4 + st.bfs_sweeps // 8
-    n_cycles = st.host_reads - loop_reads - 1
-    graph = runs["graph"]
-    _check(all(r["stats"].host_reads == 1 + n_cycles for r in graph),
-           f"[f64_loops] host reads on the graph route: "
-           f"{[r['stats'].host_reads for r in graph]}, {n_cycles} cycles")
-    _check(all(r["graph_launches"] == st.moves for r in graph),
-           "[f64_loops] a move was not one graph launch")
-    rec = dict(
-        cycles=n_cycles, moves=st.moves, bitwise=True,
-        graph_s=[r["wall_s"] for r in graph],
-        host_loop_s=[r["wall_s"] for r in runs["host_loop"]],
-        graph_device_s=[r["graph_s"] for r in graph],
-        graph_idle_share=[max(0.0, 1.0 - r["graph_s"] / r["wall_s"])
-                          for r in graph],
-        host_reads_graph=graph[0]["stats"].host_reads,
-        host_reads_host_loop=st.host_reads,
-        stats=dataclasses.asdict(graph[0]["stats"]))
-
-    # one ICM run and one cut, each a graph launch with no synchronization
-    args = (x["unary_k"], x["w"], x["mask"], x["warm"], beta, 60)
-    want = icm_kmajor(*args, plain=True, host_loop=True)
-    icm_kmajor(*args, plain=True)        # the shape's graph, built
-    wsum = mf._incident_wsum(x["w"], beta)
-    excess0, cap_t0, caps0, _ = mf._expansion_graph(
-        start, x["unary_k"], x["w"], x["mask"], 0, beta, wsum)
-    cut_want = mf.grid_mincut(excess0, cap_t0, caps0, plain=True,
-                              host_loop=True)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        got = icm_kmajor(*args, plain=True)
-        cut = mf.grid_mincut(excess0, cap_t0, caps0, plain=True)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    _check(torch.equal(got, want), "[f64_loops] icm_kmajor: the graph's "
-           f"labels differ in {int((got != want).sum())} pixels")
-    _check(torch.equal(cut, cut_want), "[f64_loops] the float64 cut's "
-           "graph differs from its host loop")
-    walls = {"graph": [], "host_loop": []}
-    for route in ("host_loop", "graph", "graph", "host_loop"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        icm_kmajor(*args, plain=True, host_loop=route == "host_loop")
-        torch.cuda.synchronize()
-        walls[route].append(time.perf_counter() - t0)
-    rec["icm"] = dict(bitwise=True, sync_debug_error_ok=True,
-                      graph_s=walls["graph"], host_loop_s=walls["host_loop"])
-    rec["cut_sync_debug_error_ok"] = True
-    rec["graph_builds"] = dict(loops.stats)
-    rec["graphs"] = [dict(kind=type(g).__name__, plain=g.plain,
-                          pool_bytes=g.units.pool_bytes)
-                     for g in loops._cache.values() if g.units is not None]
-    return rec
-
-
-def _host_reads(fn):
-    """(the result of ``fn()``, the synchronizing CUDA calls it made:
-    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings, counted)."""
-    import warnings
-
-    import torch
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchronizing" in str(w.message) for w in seen)
-
-
-def check_spatial_loops(mesh, device, ten_kb, thin_reps=3):
-    """``[spatial_loops]``: the row-sharded E-step on one card with its ICM
-    loop as one graph (``parallel/halo.py::_icm_halo_graph``) against the
-    host-read loop (``host_loop=True``), in turns (host, graph, graph,
-    host), on the 10 kb region (4 shards of 816 rows: the K2 branch;
-    ``ten_kb`` = (img, mask, dmaps, warm, means, covs)) and on the
-    spatial fit's off-diagonal block (4 shards of 6 rows: the K8 branch):
-    labels, statistics and costs bitwise equal; walls; the synchronizing
-    calls an E-step makes (``_host_reads``: 0 from the ICM loops on the
-    graph route)."""
-    import torch
-
-    from phylo_hmrf_tpu_torch.ops import loops
-    from phylo_hmrf_tpu_torch.parallel.halo import make_rowsharded_estep
-
-    _, off, mo, co, wo, _ = offdiag_block()
-
-    def dev(a, dtype=None):
-        return torch.as_tensor(a, dtype=dtype, device=device)
-    thin = (dev(off.img), dev(off.mask), dev(off.dmaps),
-            dev(off.labels_to_grid(wo), torch.int32),
-            dev(mo, torch.float32), dev(co, torch.float32))
-    rec = {}
-    for name, args, reps in (("10kb", ten_kb, 1), ("thin", thin, thin_reps)):
-        fns = {route: make_rowsharded_estep(
-            mesh, weighted_pp=False, max_sweeps=60,
-            host_loop=route == "host_loop") for route in ("graph",
-                                                         "host_loop")}
-        full = (*args, 1.0, 0.5)
-        for fn in fns.values():         # the graphs built, the allocator
-            fn(*full)
-        walls = {"graph": [], "host_loop": []}
-        outs, reads = {}, {}
-        for route in ("host_loop", "graph", "graph", "host_loop"):
-            for _ in range(reps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fns[route](*full)
-                torch.cuda.synchronize()
-                walls[route].append(time.perf_counter() - t0)
-            outs.setdefault(route, out)
-        for route in fns:
-            _, reads[route] = _host_reads(lambda: fns[route](*full))
-        a, b = (_estep_digests(outs[r]) for r in ("graph", "host_loop"))
-        _check(a == b, f"[spatial_loops] {name}: the graph route's E-step "
-               f"differs from the host loop's: {a} vs {b}")
-        _check(reads["graph"] < reads["host_loop"],
-               f"[spatial_loops] {name}: host reads {reads}")
-        rec[name] = dict(shape=list(args[0].shape), shards=mesh.size,
-                         bitwise=True, graph_s=walls["graph"],
-                         host_loop_s=walls["host_loop"],
-                         syncs_per_estep=reads)
-    rec["graph_launches"] = loops.run_unit_loop.launches
-    rec["graph_builds"] = dict(loops.stats)
-    return rec
-
-
-def f64_profile_main() -> int:
-    """``python3 chip_smoke.py --f64-profile``: ``[f64_profile]`` alone
-    (the chr21 problem's own moments, its K1-K3 start in float64), on
-    the routes named after the flag (default both)."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    from phylo_hmrf_tpu_torch import PhyloHMRFConfig
-    from phylo_hmrf_tpu_torch.ops.maxflow import _start_batch
-    from phylo_hmrf_tpu_torch.synth import chr21_problem
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    routes = tuple(sys.argv[sys.argv.index("--f64-profile") + 1:]) or (
-        "graph", "host_loop")
-    _, region, means, covs, warm, _ = chr21_problem(0)
-    x = f64_inputs(region, means, covs, warm, torch.device("cuda"))
-    cfg = PhyloHMRFConfig()
-    start = _start_batch(x["unary_k"], x["w"], x["mask"], x["warm"], 1.0,
-                         cfg.icm_max_sweeps, plain=True)
-    rec = profile_f64_polish(x, start, means.shape[0], cfg.swap_tpu_cycles,
-                             routes=routes)
-    print(f"[f64_profile] {json.dumps(rec)}")
-    print(smi)
-    return 0
-
-
-# kernels that run inside the loop graphs (csrc/loops.cu and the node
-# makers of mincut.cu / icm.cu), by the start of their names
-IN_GRAPH = ("void pr_tile_kernel", "void bfs_tile_kernel", "pr_tile_kernel",
-            "bfs_tile_kernel", "icm_pair_kernel", "cut_", "bfs_begin",
-            "bfs_cond", "icm_begin", "icm_cond")
-
-
-class _graph_spans:
-    """Context: CUDA events recorded around every loop-graph launch; then
-    ``seconds()`` sums their device spans (each launch's time on the card,
-    its nodes' launch latency included)."""
-
-    def __enter__(self):
-        import torch
-
-        from phylo_hmrf_tpu_torch.ops import loops
-
-        self._orig, self.pairs = loops._Graph.launch, []
-
-        def launch(graph, like):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            self._orig(graph, like)
-            b.record()
-            self.pairs.append((a, b))
-        loops._Graph.launch = launch
-        return self
-
-    def __exit__(self, *exc):
-        from phylo_hmrf_tpu_torch.ops import loops
-
-        loops._Graph.launch = self._orig
-
-    def seconds(self):
-        import torch
-
-        torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in self.pairs) * 1e-3
-
-
-def _same_work(a, b):
-    import dataclasses
-
-    return dataclasses.replace(a, host_reads=0) == dataclasses.replace(
-        b, host_reads=0)
-
-
-def check_cut_loops(x, start, n_states, cycles, beta=1.0):
-    """``[cut_loops]``: the loops of the exact cut and of ICM as CUDA
-    graphs (``ops/loops.py``) against the host-read loops (``host_loop``)
-    on the chr21 problem: the polish's moves (expansion, ``cycles``
-    cycles from the K1-K3 start) and a ``swap_tpu`` E-step's moves
-    (swap), each run host, graph, graph, host in this process: labels
-    bitwise, the same ``CutStats`` but host reads, which the graph route
-    holds to 1 + cycles a pass and 0 inside a move; walls; then
-    ``icm_kmajor`` on the graph route under
-    ``torch.cuda.set_sync_debug_mode("error")``, bitwise its host loop,
-    timed in turns; the graphs built and their seconds; the CUDA
-    driver's version."""
-    import dataclasses
-
-    import torch
-
-    from phylo_hmrf_tpu_torch.ops import loops
-    from phylo_hmrf_tpu_torch.ops.icm_kernels import icm_kmajor
-    from phylo_hmrf_tpu_torch.ops.maxflow import CutStats, _optimize_batched
-
-    rec = dict(driver_version=loops.driver_version(),
-               route="A: conditional WHILE nodes")
-    for what, method in (("polish", "expansion"), ("swap_tpu", "swap")):
-        runs = {"graph": [], "host_loop": []}
-        for route in ("host_loop", "graph", "graph", "host_loop"):
-            stats = CutStats()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lab = _optimize_batched(
-                x["unary_k"], x["w"], x["mask"], start, beta, n_states,
-                method, cycles, host_loop=route == "host_loop", stats=stats)
-            torch.cuda.synchronize()
-            runs[route].append((lab, time.perf_counter() - t0, stats))
-        ref_lab, _, ref = runs["host_loop"][0]
-        for route, rs in runs.items():
-            for lab, _, st in rs:
-                _check(torch.equal(lab, ref_lab),
-                       f"[cut_loops] {what}: the {route} route's labels "
-                       f"differ in {int((lab != ref_lab).sum())} pixels")
-                _check(_same_work(st, ref), f"[cut_loops] {what}: the "
-                       f"{route} route did other work: {st} vs {ref}")
-        graph = runs["graph"][-1][2]
-        loop_reads = ref.moves + ref.pr_iterations // 4 \
-            + ref.bfs_sweeps // 8
-        n_cycles = ref.host_reads - loop_reads - 1
-        _check(graph.host_reads == 1 + n_cycles,
-               f"[cut_loops] {what}: {graph.host_reads} host reads on the "
-               f"graph route, {n_cycles} cycles")
-        rec[what] = dict(
-            method=method, cycles=n_cycles, bitwise=True,
-            graph_s=[r[1] for r in runs["graph"]],
-            host_loop_s=[r[1] for r in runs["host_loop"]],
-            host_reads_graph=graph.host_reads,
-            host_reads_host_loop=ref.host_reads,
-            host_reads_per_move_graph=0,
-            host_reads_per_move_host_loop=loop_reads / ref.moves,
-            stats=dataclasses.asdict(graph))
-
-    args = (x["unary_k"], x["w"], x["mask"], x["warm"], beta, 60)
-    want = icm_kmajor(*args, host_loop=True)
-    icm_kmajor(*args)        # the shape's graph, built
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        got = icm_kmajor(*args)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    _check(torch.equal(got, want), "[cut_loops] icm_kmajor: the graph's "
-           f"labels differ in {int((got != want).sum())} pixels")
-    walls = {"graph": [], "host_loop": []}
-    for route in ("host_loop", "graph", "graph", "host_loop"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        icm_kmajor(*args, host_loop=route == "host_loop")
-        torch.cuda.synchronize()
-        walls[route].append(time.perf_counter() - t0)
-    rec["icm"] = dict(bitwise=True, sync_debug_error_ok=True,
-                      graph_s=walls["graph"],
-                      host_loop_s=walls["host_loop"])
-    rec["graph_builds"] = dict(loops.stats)
-    return rec
+    (lab_k, st_k, cv_k, _), t_k = run(False)
+    (lab_p, st_p, cv_p, _), t_p = run(True)
+    m = x["mask"]
+    agree = float((lab_k == lab_p)[m].float().mean())
+    # near-tie labels may flip between the paths (K1's exp differs by an
+    # ulp); a flipped label moves the stats and costs by ~1/N
+    _check(agree >= 0.999, f"E-step labels agree on only {agree}")
+    stats_rel = max(float(((a - b).abs() / b.abs().clamp(min=1e-3)).max())
+                    for a, b in zip(st_k, st_p))
+    cost_rel = float(((cv_k - cv_p).abs() / cv_p.abs()).max())
+    _check(stats_rel < 1e-3, f"E-step stats rel err {stats_rel}")
+    _check(cost_rel < 1e-3, f"E-step cost rel err {cost_rel}")
+    return dict(label_agreement=agree, stats_max_rel=stats_rel,
+                cost_max_rel=cost_rel, kernel_s=t_k, plain_s=t_p)
 
 
 def estep_queues(model):
@@ -1464,43 +706,6 @@ def check_oracle(x, region, start, n_states, max_cycles, beta=1.0,
                 changed_from_start=int((port_f != start_f).sum()),
                 port_s=port_s, cpp_s=cpp_s, max_cycles=max_cycles,
                 stats=dataclasses.asdict(stats))
-
-
-def check_estep(x, dmaps, means, covs):
-    """Kernel E-step vs the plain path on the same device, then the kernel
-    E-step twice: bitwise equal labels, stats and costs."""
-    import torch
-
-    from phylo_hmrf_tpu_torch.models.hmrf import _estep_bucket
-
-    def run(plain):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = _estep_bucket(x["img"], x["mask"], dmaps, x["warm"], means,
-                            covs, 1.0, 0.5, weighted_pp=False, max_sweeps=60,
-                            plain=plain)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    (lab_k, st_k, cv_k, _), t_k = run(False)
-    (lab_p, st_p, cv_p, _), t_p = run(True)
-    m = x["mask"]
-    agree = float((lab_k == lab_p)[m].float().mean())
-    # near-tie labels may flip between the paths (K1's exp differs by an
-    # ulp); a flipped label moves the stats and costs by ~1/N
-    _check(agree >= 0.999, f"E-step labels agree on only {agree}")
-    stats_rel = max(float(((a - b).abs() / b.abs().clamp(min=1e-3)).max())
-                    for a, b in zip(st_k, st_p))
-    cost_rel = float(((cv_k - cv_p).abs() / cv_p.abs()).max())
-    _check(stats_rel < 1e-3, f"E-step stats rel err {stats_rel}")
-    _check(cost_rel < 1e-3, f"E-step cost rel err {cost_rel}")
-    (lab2, st2, cv2, nv2), t_k2 = run(False)
-    _check(torch.equal(lab_k, lab2) and torch.equal(cv_k, cv2)
-           and all(torch.equal(a, b) for a, b in zip(st_k, st2)),
-           "kernel E-step is not bitwise deterministic")
-    return dict(label_agreement=agree, stats_max_rel=stats_rel,
-                cost_max_rel=cost_rel, kernel_s=min(t_k, t_k2),
-                plain_s=t_p, bitwise_repeat=True)
 
 
 def _counters():
@@ -1749,25 +954,6 @@ def check_fit(res, model, true, grids):
     return float(best_match_accuracy(res.labels, true)), polish
 
 
-def _same_bits(a, b):
-    """Whether two tensors hold the same bytes (shape and dtype too)."""
-    import torch
-
-    return (a.dtype == b.dtype and a.shape == b.shape
-            and torch.equal(a.contiguous().view(torch.uint8),
-                            b.contiguous().view(torch.uint8)))
-
-
-def _graph_stats(model):
-    """The model's captured L-BFGS solves (``ops/lbfgs.py::GraphSolve``):
-    step-graph replays, host reads, capture seconds and the device memory
-    each capture reserved, by solve."""
-    return {f"{key[0]}{list(key[1])}": dict(
-        replays=g.replays, host_reads=g.host_reads, chunk=g.chunk,
-        capture_s=g.capture_s, pool_bytes=g.pool_bytes)
-        for key, g in (model._graphs or {}).items()}
-
-
 def _spy_first_calls(module, names):
     """Wrap ``module``'s functions ``names`` to keep the arguments of each
     one's first call (tensors cloned). Returns (the record, undo)."""
@@ -1785,48 +971,6 @@ def _spy_first_calls(module, names):
     for n in names:
         setattr(module, n, wrap(n))
     return seen, lambda: [setattr(module, n, f) for n, f in real.items()]
-
-
-def _solve_pair(tree, fn, args, kw, dtype, device):
-    """One captured solve (``fn``: ``_mstep_solve_full`` or
-    ``_init_solve``) against the plain driver on the same inputs, in
-    ``dtype``, bitwise: the walls (host clock, synchronized) of the plain
-    solve, the first graph solve (the capture included) and a second one,
-    and the graph's replays, host reads, capture seconds and memory."""
-    import torch
-
-    from phylo_hmrf_tpu_torch.models.ou import tree_tensors
-
-    import phylo_hmrf_tpu_torch.models.hmrf as hm
-
-    args = [a.to(dtype) if torch.is_tensor(a) else a for a in args]
-    kw = dict(kw, tt=tree_tensors(tree, device, dtype))
-    walls, outs = {}, {}
-    graphs = {}
-    for name, g in (("plain", None), ("graph_first", graphs),
-                    ("graph", graphs)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with _graph_route(hm):
-            # the tensors of the result (an M-step's steps: None off the
-            # fused route)
-            outs[name] = [t for t in fn(*args, **dict(kw, graphs=g))
-                          if t is not None]
-        torch.cuda.synchronize()
-        walls[name] = time.perf_counter() - t0
-        if name == "graph_first":
-            (solve,) = graphs.values()
-            replays, reads = solve.replays, solve.host_reads
-    bitwise = all(_same_bits(a, b) for name in ("graph_first", "graph")
-                  for a, b in zip(outs["plain"], outs[name]))
-    err = max(_max_abs(a, b) for a, b in zip(outs["plain"], outs["graph"])
-              if a.is_floating_point())
-    return solve, dict(
-        bitwise=bitwise, max_abs_err=err, plain_s=walls["plain"],
-        graph_first_s=walls["graph_first"], graph_s=walls["graph"],
-        replays_per_solve=solve.replays - replays,
-        host_reads_per_solve=solve.host_reads - reads, chunk=solve.chunk,
-        capture_s=solve.capture_s, pool_bytes=solve.pool_bytes)
 
 
 def _ops_ou_eval(n_nodes, n_leaves):
@@ -1857,24 +1001,23 @@ def _ops_lbfgs(n_nodes, n_leaves, steps, rows, memory=10, etas=10):
     return rows * ev + steps * step
 
 
-def check_fused_solves(tree, seen, device, reps=20):
-    """The fused L-BFGS kernel L on the first M-step and init solves of
-    the ``[pipeline]`` fits (``seen``: their arguments), against the plain
-    driver on the same inputs: 1-5 steps in float64, every output within
-    1e-9 relative and every row taking the steps it was given; whole
-    solves (the configured cap) in float32 and float64, compared by loss
-    in float64 at each one's params: the fused loss no higher than the
-    plain driver's by more than twice the largest gap of the plain
-    driver's own twins (its solves from the start moved by one ulp: up,
-    down, and by a random sign a coordinate), relative to the plain
-    driver's loss, or 1e-4 / 1e-9 where that is larger. Returns the
-    record and L's kernel row, timed on the float32 M-step solve: the
-    device time of one launch (CUDA events around ``reps`` queued
-    launches), one call with its host work, and the plain driver's
-    solve."""
+def lbfgs_row(tree, seen, reps=20):
+    """L on the first M-step and init solves of the ``[pipeline]`` fits
+    (``seen``: their arguments) against the plain driver on the same
+    inputs: 5 steps in float64, every output within 1e-9 relative and
+    every M-step row taking the 5 steps; whole solves (the configured
+    cap) in float32 and float64, compared by loss in float64 at each
+    one's params: the fused loss no higher than the plain driver's by
+    more than twice the largest gap of the plain driver's own twins (its
+    solves from the start moved by one ulp: up, down, and by a random
+    sign a coordinate), relative to the plain driver's loss, or 1e-4 /
+    1e-9 where that is larger. Returns the record and L's kernel row on
+    the float32 M-step solve: the device time of one launch (CUDA events
+    around ``reps`` queued launches), one call with its host work, the
+    plain driver's solve; max_abs_err that of the float64 5-step
+    solves."""
     import functools
 
-    import numpy as np
     import torch
 
     import phylo_hmrf_tpu_torch.models.hmrf as hm
@@ -1882,131 +1025,102 @@ def check_fused_solves(tree, seen, device, reps=20):
                                                 ridge_coef, tree_tensors)
     from phylo_hmrf_tpu_torch.ops import lbfgs
 
-    def rel(a, b):
-        b = b.double()
-        scale = float(b.abs().max())
-        diff = float((a.double() - b).abs().max())
-        return diff / scale if scale > 0 else diff
-
-    tt64 = tree_tensors(tree, device, torch.float64)
-    rec, row = {}, None
+    rec, err = {}, 0.0
     for name in ("_mstep_solve_full", "_init_solve"):
-        fn = getattr(hm, name)
-        args0, kw0 = seen[name]
-        kind = name.strip("_").split("_")[0]
+        fn, (args0, kw0) = getattr(hm, name), seen[name]
+        kind = "mstep" if name == "_mstep_solve_full" else "init"
+        tt64 = tree_tensors(tree, args0[0].device, torch.float64)
 
         def loss(p, args):
-            a = [x.double() if torch.is_tensor(x) else x for x in args]
+            a = [t.double() if torch.is_tensor(t) else t for t in args]
             if kind == "mstep":
                 return ou_nll_stats(p.double(), *a[1:4], tt64, *a[4:7])
             return ou_nll_init(p.double(), *a[1:3], tt64, a[3])
 
         for dtype in (torch.float64, torch.float32):
             args = [a.to(dtype) if torch.is_tensor(a) else a for a in args0]
-            kw = dict(kw0, tt=tree_tensors(tree, device, dtype))
-            r = rec[f"{kind}_{str(dtype)[6:]}"] = {}
+            kw = dict(kw0, tt=tree_tensors(tree, args0[0].device, dtype))
 
             def solve(p0, fused, iters=kw["iters"]):
                 return fn(p0, *args[1:], **dict(kw, iters=iters,
                                                  graphs={} if fused else None))
 
+            r = rec[f"{kind}_{str(dtype)[6:]}"] = {}
             if dtype == torch.float64:
-                worst, err = 0.0, 0.0
-                for iters in range(1, 6):
-                    plain = solve(args[0], False, iters)
-                    fused = solve(args[0], True, iters)
-                    for a, b in zip(fused, plain):
-                        if b is None:
-                            continue
-                        if b.is_floating_point():
-                            worst = max(worst, rel(a, b))
-                            err = max(err, float((a - b).abs().max()))
-                        else:
-                            _check(torch.equal(a, b),
-                                   f"[pipeline] fused {name}, {iters} "
-                                   f"steps: {a} vs the plain {b}")
-                    if kind == "mstep":
-                        _check(bool((fused[4] == iters).all()),
-                               f"[pipeline] fused {name}: rows took "
-                               f"{fused[4].tolist()} of {iters} steps")
-                    _check(worst <= 1e-9,
-                           f"[pipeline] fused {name}, {iters} steps in "
-                           f"float64: {worst} from the plain driver (rel)")
-                r.update(short_max_rel=worst, short_max_abs_err=err)
+                fused, plain = solve(args[0], True, 5), solve(args[0], False, 5)
+                worst = 0.0
+                for a, b in zip(fused, plain):
+                    if b is not None and b.is_floating_point():
+                        d = _max_abs(a, b)
+                        err = max(err, d)
+                        worst = max(worst, d / max(float(b.abs().max()),
+                                                   1e-300))
+                _check(worst <= 1e-9, f"L {kind}: 5 steps in float64 {worst} "
+                                      f"from the plain driver (rel)")
+                _check(kind == "init" or bool((fused[4] == 5).all()),
+                       f"L {kind}: rows took {fused[-1]} of 5 steps")
+                r["short_max_rel"] = worst
             f_plain = loss(solve(args[0], False)[0], args)
             out = solve(args[0], True)
-            f_fused = loss(out[0], args)
             ulp = float(torch.finfo(dtype).eps)
             g = torch.Generator().manual_seed(0)
-            signs = (1.0, -1.0, torch.randint(0, 2, tuple(args[0].shape),
-                                              generator=g).to(
-                args[0].device, dtype) * 2 - 1)
             twin = 0.0
-            for sg in signs:
+            for sg in (1.0, -1.0, torch.randint(
+                    0, 2, tuple(args[0].shape), generator=g).to(
+                        args[0].device, dtype) * 2 - 1):
                 f_twin = loss(solve(args[0] * (1 + sg * ulp), False)[0], args)
                 twin = max(twin, float(((f_twin - f_plain).abs()
                                         / f_plain.abs()).max()))
-            excess = float(((f_fused - f_plain) / f_plain.abs()).max())
+            excess = float(((loss(out[0], args) - f_plain)
+                            / f_plain.abs()).max())
             floor = 1e-9 if dtype == torch.float64 else 1e-4
             r.update(loss_excess=excess, twin_gap=twin,
                      bound=max(floor, 2 * twin))
-            if kind == "mstep":
-                steps = out[4]
-                r.update(steps_max=int(steps.max()),
-                         steps_mean=float(steps.float().mean()))
             _check(excess <= r["bound"],
-                   f"[pipeline] fused {name} in {dtype}: its loss is "
-                   f"{excess} above the plain driver's (rel), its twins "
-                   f"land {twin} from it")
-            if kind == "mstep" and dtype == torch.float32:
-                p0, post, obs, obs2, n_samples, lambda_0, min_covar = args
-                tt = kw["tt"]
+                   f"L {kind} in {dtype}: its loss is {excess} above the "
+                   f"plain driver's (rel), its twins land {twin} from it")
 
-                def launch():
-                    return lbfgs.fused_ou_solve(
-                        p0, tt.index, tt.A2T, obs, obs2, post,
-                        n_samples=n_samples,
-                        coef=ridge_coef(dtype, n_samples, lambda_0),
-                        min_covar=min_covar, lo=kw["lo"], hi=kw["hi"],
-                        n_iters=kw["iters"])
+    args, kw = seen["_mstep_solve_full"]
+    (p0, post, obs, obs2, n_samples, lambda_0, min_covar) = args
+    tt = tree_tensors(tree, p0.device, torch.float32)
 
-                before = lbfgs.fused_ou_solve.launches
-                launch()
-                per_call = lbfgs.fused_ou_solve.launches - before
-                objective = functools.partial(
-                    ou_nll_stats, tt=tt, n_samples=n_samples,
-                    lambda_0=lambda_0, min_covar=min_covar)
-                K = p0.shape[0]
-                row = dict(
-                    ms=_time_ms(launch, reps=reps, queued=True),
-                    call_ms=_time_ms(launch, reps=reps),
-                    plain_ms=_time_ms(lambda: lbfgs.minimize_boxed(
-                        lambda p: objective(p, post, obs, obs2), p0,
-                        kw["lo"], kw["hi"], kw["iters"]), reps=1),
-                    launches_per_unit=per_call,
-                    nbytes=_nbytes(p0, post, obs, obs2, tt.index, tt.A2T,
-                                   out[0], out[4], out[0][:, 0]),
-                    ops=_ops_lbfgs(tree.n_nodes, tree.n_leaves,
-                                   int(out[4].sum()), K),
-                    unit=(f"one M-step solve: the [pipeline] fit's first, "
-                          f"K={K}, float32, at most {kw['iters']} steps; "
-                          f"max_abs_err: 1-5 steps in float64"))
-    row["max_abs_err"] = max(rec[k]["short_max_abs_err"]
-                             for k in ("mstep_float64", "init_float64"))
-    _check(row["launches_per_unit"] == 1,
-           f"[pipeline] {row['launches_per_unit']} launches a fused solve")
-    return rec, row
+    def launch():
+        return lbfgs.fused_ou_solve(
+            p0, tt.index, tt.A2T, obs, obs2, post, n_samples=n_samples,
+            coef=ridge_coef(torch.float32, n_samples, lambda_0),
+            min_covar=min_covar, lo=kw["lo"], hi=kw["hi"],
+            n_iters=kw["iters"])
+
+    before = lbfgs.fused_ou_solve.launches
+    solved, _, steps = launch()
+    per_call = lbfgs.fused_ou_solve.launches - before
+    _check(per_call == 1, f"L: {per_call} launches a fused solve")
+    objective = functools.partial(ou_nll_stats, tt=tt, n_samples=n_samples,
+                                  lambda_0=lambda_0, min_covar=min_covar)
+    K = p0.shape[0]
+    return rec, dict(
+        max_abs_err=err,
+        ms=_time_ms(launch, reps=reps, queued=True),
+        call_ms=_time_ms(launch, reps=reps),
+        plain_ms=_time_ms(lambda: lbfgs.minimize_boxed(
+            lambda p: objective(p, post, obs, obs2), p0, kw["lo"],
+            kw["hi"], kw["iters"]), reps=1),
+        launches_per_unit=per_call,
+        nbytes=_nbytes(p0, post, obs, obs2, tt.index, tt.A2T, solved, steps,
+                       solved[:, 0]),
+        ops=_ops_lbfgs(tree.n_nodes, tree.n_leaves, int(steps.sum()), K),
+        unit=(f"one M-step solve: the [pipeline] fit's first, K={K}, "
+              f"float32, at most {kw['iters']} steps; max_abs_err: 5 "
+              f"steps in float64"))
 
 
 def check_pipeline(tree, region, run, fit_digests, device):
     """``[pipeline]``: the chr21 default fit from the ``[fit]`` init state
     with ``em_pipeline=True`` and ``False``, in this process, digests
-    equal to each other and to ``[fit]``'s; a fresh model's init; the
-    first M-step and init solves of those runs again through the plain
-    driver and the captured graphs, in float32 and float64, bitwise, and
-    through the fused kernel (`check_fused_solves`); the init's graph with
-    and without its read a chunk; ``mstep_dispatch`` under
-    ``torch.cuda.set_sync_debug_mode("error")``."""
+    equal to each other and to ``[fit]``'s; ``mstep_dispatch`` under
+    ``torch.cuda.set_sync_debug_mode("error")``; the fused L-BFGS kernel
+    on the first M-step solve of those fits and on a fresh model's init
+    solve (`lbfgs_row`). Returns the record and L's kernel row."""
     import torch
 
     import phylo_hmrf_tpu_torch.models.hmrf as hm
@@ -2031,17 +1145,9 @@ def check_pipeline(tree, region, run, fit_digests, device):
                 estep_s_per_iter=summ["estep"]["total_s"] / n,
                 final_polish_s=summ["final_polish"]["total_s"],
                 phases=summ, rollbacks=f.model._mstep_rollbacks_,
-                launches=f.launches, graphs=_graph_stats(f.model),
-                digests=_fit_digests(f.res, f.grids))
-        # a fresh model's init: k-means and the captured init solve
-        model = PhyloHMRF(tree, [region],
-                          PhyloHMRFConfig(n_states=10, seed=0),
-                          device=device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.initialize()
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
+                launches=f.launches, digests=_fit_digests(f.res, f.grids))
+        PhyloHMRF(tree, [region], PhyloHMRFConfig(n_states=10, seed=0),
+                  device=device).initialize()
     finally:
         undo()
     for pipe, f in fits.items():
@@ -2051,45 +1157,7 @@ def check_pipeline(tree, region, run, fit_digests, device):
         for name in list(KERNELS)[:6]:
             _check(f.launches[name] > 0,
                    f"[pipeline] {name} never launched (em_pipeline={pipe})")
-    rec = dict(fits={str(p): f.rec for p, f in fits.items()},
-               init_s=init_s, init_graphs=_graph_stats(model),
-               fit_init_s=run.init_s)
-
-    solves = {}
-    for dtype in (torch.float32, torch.float64):
-        for name in ("_mstep_solve_full", "_init_solve"):
-            args, kw = seen[name]
-            solve, r = _solve_pair(tree, getattr(hm, name), args, kw, dtype,
-                                   device)
-            solves[f"{name.strip('_')}_{str(dtype)[6:]}"] = r
-            _check(r["bitwise"], f"[pipeline] {name} in {dtype}: the graph "
-                                 f"route differs from the plain driver "
-                                 f"(max abs err {r['max_abs_err']})")
-            if name == "_init_solve" and dtype == torch.float32:
-                init_solve, init_args = solve, args
-    rec["solves"] = solves
-    _check(solves["mstep_solve_full_float32"]["host_reads_per_solve"] == 0,
-           "[pipeline] the M-step graph read the device")
-    rec["fused"], rec["fused_kernel"] = check_fused_solves(tree, seen,
-                                                           device)
-    # the init's graph with and without a read of the rows' flags after
-    # each chunk: bitwise the same, replays and walls
-    p0, xbar, xxT = init_args[:3]
-    exits = {}
-    for early in (False, True, False, True):
-        r0, h0 = init_solve.replays, init_solve.host_reads
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = init_solve(p0, xbar, xxT, early_exit=early)
-        torch.cuda.synchronize()
-        e = exits.setdefault(str(early), dict(walls_s=[], out=out))
-        e["walls_s"].append(time.perf_counter() - t0)
-        e.update(replays=init_solve.replays - r0,
-                 host_reads=init_solve.host_reads - h0)
-    _check(all(_same_bits(a, b) for a, b in zip(exits["True"].pop("out"),
-                                                 exits["False"].pop("out"))),
-           "[pipeline] the init graph's early exit changed the result")
-    rec["init_early_exit"] = exits
+    rec = dict(fits={str(p): f.rec for p, f in fits.items()})
 
     # no host sync in mstep_dispatch (the fused kernel's launch)
     m = fits[True].model
@@ -2102,7 +1170,8 @@ def check_pipeline(tree, region, run, fit_digests, device):
         torch.cuda.set_sync_debug_mode(0)
     m.mstep_finalize(handle)
     rec["dispatch_without_sync"] = True
-    return rec
+    rec["fused"], row = lbfgs_row(tree, seen)
+    return rec, row
 
 
 # labeler -> EM iterations of its [labelers] fit
@@ -2180,25 +1249,16 @@ def check_labelers(tree, region, state, device):
 # neighbours, 16 t-link terms, the 8 arcs, the clamps), M2 (the side test
 # and the update)
 OPS_BUILD, OPS_APPLY = 64, 4
-# the host's launch calls in torch.profiler's runtime events
-LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
-                 "cudaMemsetAsync", "cudaMemcpyAsync", "cuMemsetD8Async",
-                 "cuMemsetD32Async", "cuMemcpyAsync")
-
-
-def check_moves(tree, region, state, device):
-    """``[moves]``: the first swap E-step of a chr21 ``swap_tpu`` fit from
-    ``state`` (the [fit] phase's init), its exact moves' operands kept at
-    the first ``_optimize_batched`` call. From its start labels M1 builds
-    every swap pair's graph and every expansion's bit for bit as
-    ``_swap_graph`` / ``_expansion_graph`` (raw bits of excess0, cap_t0,
-    the 8 arc planes and in_play; h = 0; the pr word's first test and
-    limit). Returns the kernel rows of M1 (one swap move's graph, the
-    move with the most pixels in play) and M2 (its labels), timed against
-    the tensor code they replace, and the record: pairs and expansions
-    checked, the host's launches a swap move on the kernel route (the
-    profiler's runtime events over every pair: M1, the cut graph, M2)."""
+def moves_rows(tree, region, state, device):
+    """The kernel rows of M1 and M2 on the operands of the first exact
+    moves of a chr21 ``swap_tpu`` fit from ``state`` (the [fit] phase's
+    init), kept at its first ``_optimize_batched`` call. From its start
+    labels M1 builds every swap pair's graph and every expansion's bit
+    for bit as ``_swap_graph`` / ``_expansion_graph`` (raw bits of
+    excess0, cap_t0, the 8 arc planes and in_play; h = 0; the pr word's
+    first test and limit). M1's row times the swap move with the most
+    pixels in play, M2's writes its labels after its cut, equal to the
+    tensor update; each is timed beside the tensor code it replaces."""
     import torch
 
     from phylo_hmrf_tpu_torch import PhyloHMRFConfig
@@ -2221,6 +1281,7 @@ def check_moves(tree, region, state, device):
     N = R * H * W
     graph = loops.cut_graph(unary.device, R, H, W)
     mp = move_kernels.MovePass(graph, lab, unary, w, mask, wsum, beta, 1)
+
     pairs = [(a, b) for a in range(K) for b in range(a + 1, K)]
 
     def tensor_graph(a, b):
@@ -2230,6 +1291,7 @@ def check_moves(tree, region, state, device):
 
     def bits(t):
         return t.view(torch.int32) if t.dtype == torch.float32 else t
+    # every swap pair and every expansion (b = -1), bit for bit
     bad, in_play = [], {}
     for a, b in pairs + [(a, -1) for a in range(K)]:
         move_kernels.build_move(mp, a, b, 3000)
@@ -2245,9 +1307,8 @@ def check_moves(tree, region, state, device):
                 or word[loops.LOOP_LIMIT] != 3000:
             bad.append((a, b, "h or pr word"))
         in_play[(a, b)] = int(want[3].sum())
-    _check(not bad, f"[moves] M1 differs from the tensor build: {bad[:8]}")
-
-    a, b = max(pairs, key=lambda p: in_play[p])
+    _check(not bad, f"M1 differs from the tensor build: {bad[:8]}")
+    a, b = max(pairs, key=in_play.get)
     rows = {"M1_move_build": _with_bound(dict(
         max_abs_err=0.0,
         **_timed(lambda: move_kernels.build_move(mp, a, b, 3000),
@@ -2271,35 +1332,14 @@ def check_moves(tree, region, state, device):
     move_kernels.apply_move(mp2, a, b, 0)
     _check(torch.equal(mp2.labels, want_lab)
            and torch.equal(mp2.counts[0].long(), want_n),
-           "[moves] M2 differs from the tensor update")
+           "M2 differs from the tensor update")
     rows["M2_move_apply"] = _with_bound(dict(
-        max_abs_err=0.0,
+        max_abs_err=_max_abs(mp2.labels, want_lab),
         **_timed(lambda: move_kernels.apply_move(mp2, a, b, 0), plain_apply),
         unit=f"one swap move's labels ({a}, {b}), {int(want_n.sum())} "
              f"changed", launches_per_unit=1,
         nbytes=9 * N + 4 * int(want_n.sum()), ops=OPS_APPLY * N))
-
-    # the host's launches a move: every pair as the kernel route runs it
-    mp3 = move_kernels.MovePass(graph, lab.clone(), unary, w, mask, wsum,
-                                beta, len(pairs))
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for t, (a, b) in enumerate(pairs):
-            move_kernels.build_move(mp3, a, b, 3000)
-            graph.launch_filled()
-            move_kernels.apply_move(mp3, a, b, t)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.name in LAUNCH_EVENTS]
-    _check(names.count("cudaGraphLaunch") + names.count("cuGraphLaunch")
-           == len(pairs), f"[moves] the profiler saw {sorted(set(names))}")
-    rec = dict(pairs_checked=len(pairs), expansions_checked=K,
-               bitwise=True, valid_pixels=int(mask.sum()),
-               host_launches_per_move=len(names) / len(pairs),
-               launch_names=sorted(set(names)),
-               in_play_max=max(in_play.values()))
-    return rows, rec
+    return rows
 
 
 def check_host_swap(device, h0=HOST_SWAP_H0, beta=1.0, beta1=0.5,
@@ -2939,67 +1979,6 @@ def _device_busy_s(fn):
             v[1] += 1
     _check(n > 0 and busy_us > 0, "torch.profiler recorded no device event")
     return busy_us * 1e-6, n, by_name
-
-
-def thin_estep(mesh, device, reps=5, keep=None):
-    """The spatial E-step of the spatial fit's off-diagonal block alone
-    (its 24 rows over the mesh: the K7/K8 branch), from the block's warm
-    labels: the wall of each of ``reps`` E-steps (host clock, ending in a
-    sync), then ``reps`` E-steps in one ``torch.profiler`` session: device
-    busy seconds, kernel launches and host operations (the top-level CPU
-    ops and the CUDA runtime's launch calls) per E-step; the idle share
-    against the median unprofiled wall. Uses only what every tree of the
-    port has, so ``tools/halo_ab.py`` runs it on other commits (and
-    gets the E-step's outputs in the dict ``keep``)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from phylo_hmrf_tpu_torch.parallel.halo import make_rowsharded_estep
-
-    _, off, means, covs, warm, _ = offdiag_block()
-    fn = make_rowsharded_estep(mesh, weighted_pp=False, max_sweeps=60)
-
-    def dev(a, dtype=None):
-        return torch.as_tensor(a, dtype=dtype, device=device)
-    args = (dev(off.img), dev(off.mask), dev(off.dmaps),
-            dev(off.labels_to_grid(warm), torch.int32),
-            dev(means, torch.float32), dev(covs, torch.float32), 1.0, 0.5)
-    out = fn(*args)   # warm: the kernels, the allocator, the barrier words
-    walls = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        again = fn(*args)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    _check(torch.equal(again[0], out[0]), "thin E-step: labels not repeatable")
-    if keep is not None:
-        keep.update(labels=out[0], post=out[1][0], obs=out[1][1],
-                    obs2=out[1][2], cost_vec=out[2])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*args)
-        torch.cuda.synchronize()
-    busy_us, kernels, host_ops, launch_calls = 0.0, 0, 0, 0
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            busy_us += e.self_device_time_total
-            kernels += not e.name.startswith(("Memcpy", "Memset"))
-        elif e.name.startswith("cudaLaunch"):
-            launch_calls += 1
-        elif e.name.startswith("aten::") and e.cpu_parent is None:
-            host_ops += 1
-    _check(kernels > 0 and busy_us > 0,
-           "torch.profiler recorded no device event")
-    wall = statistics.median(walls)
-    busy = busy_us * 1e-6 / reps
-    return dict(walls_s=walls, wall_s=wall, device_busy_s=busy,
-                idle_share=max(0.0, 1.0 - busy / wall),
-                kernels_per_estep=kernels / reps,
-                launch_calls_per_estep=launch_calls / reps,
-                host_ops_per_estep=host_ops / reps, shape=list(off.shape),
-                shards=mesh.size)
 
 
 def check_spatial_estep(x, img, dmaps, means, covs, mesh):
@@ -3737,12 +2716,10 @@ def main() -> int:
     mincut, cut, start = check_mincut(x, K)
     kernels.update(mincut)
     print(f"[mincut] {json.dumps(cut)}")
-
     dmaps = torch.as_tensor(region.dmaps[None], device=dev)
     mt, ct = (torch.as_tensor(a, dtype=torch.float32, device=dev)
               for a in (means, covs))
-    est = check_estep(x, dmaps, mt, ct)
-    print(f"[estep] {json.dumps(est)}")
+    print(f"[estep] {json.dumps(check_estep(x, dmaps, mt, ct))}")
     print(f"[bucket] {json.dumps(check_bucket(dev))}")
 
     cycles = PhyloHMRFConfig().swap_tpu_cycles     # the fit's polish
@@ -3756,10 +2733,6 @@ def main() -> int:
     oracle20 = check_oracle(x20, r20, start20, 20, cycles)
     print(f"[oracle] K=20 {json.dumps(oracle20)}")
     del x20, start20
-    print(f"[polish_paths] {json.dumps(check_polish_paths(x, start, K))}")
-    # the loops of the cut and of ICM on the card against the host loops
-    print(f"[cut_loops] "
-          f"{json.dumps(check_cut_loops(x, start, K, cycles))}")
 
     # the main path: the default single-device fit
     t0 = time.perf_counter()
@@ -3783,23 +2756,20 @@ def main() -> int:
            f"{run.launches['L_lbfgs_ou']} fused L-BFGS solves in "
            f"{res.n_iters} M-steps")
     fit["rollbacks"] = model._mstep_rollbacks_
-    fit["graphs"] = _graph_stats(model)
     fit_digests = _fit_digests(res, run.grids)
     fit["digests"] = fit_digests
     print(f"[fit] {json.dumps(fit)}")
     print(f"[postprocess] {json.dumps(check_postprocess(res, model, true))}")
-    # the pipelined and the sequential EM loop, the captured solves
-    pipe = check_pipeline(tree, region, run, fit_digests, dev)
+    # the pipelined and the sequential EM loop
+    pipe, kernels["L_lbfgs_ou"] = check_pipeline(tree, region, run,
+                                                 fit_digests, dev)
     pipe["estep_defer"] = estep_queues(model)
-    kernels["L_lbfgs_ou"] = pipe.pop("fused_kernel")
     print(f"[pipeline] {json.dumps(pipe)}")
     # every labeler of the port from the [fit] phase's init state, and
     # the host C++ swap against the device swap on a reduced region
     check_labelers(tree, region, run.state, dev)
-    moves_rows, moves = check_moves(tree, region, run.state, dev)
-    kernels.update(moves_rows)
-    print(f"[moves] {json.dumps(moves)}")
-    for name, k in moves_rows.items():
+    for name, k in moves_rows(tree, region, run.state, dev).items():
+        kernels[name] = k
         print(_point_line(name, k))
     print(f"[host_swap] {json.dumps(check_host_swap(dev))}")
     # the float64 mode: its fit on the chr21 cell, then its polish against
@@ -3807,30 +2777,10 @@ def main() -> int:
     f64 = check_f64(tree, region, run.state, run.launches, dev)
     print(f"[f64] {json.dumps(f64)}")
     print(f"[f64_oracle] {json.dumps(check_f64_oracle(dev))}")
-    # the float64 loops as graphs of captured plain units: the polish
-    # pass profiled on the graph route (the host-read route's profile:
-    # --f64-profile host_loop), then both routes in turns
-    x64 = f64_inputs(region, means, covs, warm, dev)
-    start64 = _start_batch(x64["unary_k"], x64["w"], x64["mask"],
-                           x64["warm"], 1.0, PhyloHMRFConfig().icm_max_sweeps,
-                           plain=True)
-    prof64 = profile_f64_polish(x64, start64, K, cycles, routes=("graph",))
-    print(f"[f64_profile] {json.dumps(prof64)}")
-    print(f"[f64_loops] "
-          f"{json.dumps(check_f64_loops(x64, start64, K, cycles))}")
-    del x64, start64
-    torch.cuda.empty_cache()
     # the command line's path: the same fit from files, then its resume
     cli_launches = check_cli()
     # the same command line as one process and as two sharing the card
     check_multiproc()
-    # after the fit: a profiler run can leave host overhead on later
-    # launches, and the fit's host-bound phases would pay it
-    print(f"[polish_profile] "
-          f"{json.dumps(profile_polish(x, start, K, cycles))}")
-    # the moves of a swap_tpu E-step (swap_tpu_cycles = the polish's)
-    print(f"[swap_profile] "
-          f"{json.dumps(profile_polish(x, start, K, cycles, method='swap'))}")
 
     # the multi-device paths, over SHARDS shards of the visible cards
     mesh = make_mesh((SHARDS,))
@@ -3869,11 +2819,6 @@ def main() -> int:
                   for a in (m10, c10))
     sp = check_spatial_estep(x10, img10, dmaps10, m10t, c10t, mesh)
     print(f"[spatial_estep] {json.dumps(sp)}")
-    # the row-sharded ICM loop as one graph on the card, against its host
-    # loop: the 10 kb E-step (K2 branch) and the thin block's (K8)
-    spl = check_spatial_loops(mesh, dev, (img10, x10["mask"][0], dmaps10,
-                                          x10["warm"][0], m10t, c10t))
-    print(f"[spatial_loops] {json.dumps(spl)}")
     del x10, img10, dmaps10
     # the plain versions at 10 kb leave tens of GB in the allocator's
     # cache; give it back before the fits that follow
@@ -3926,11 +2871,7 @@ def main() -> int:
                                f"call ({kernel_names})")
                 rec[field] = n
                 rec.setdefault("kernel_names", kernel_names)
-    thin = counts.pop("thin_estep")
-    print(f"[pipeline] mstep launches {json.dumps(counts.pop('mstep'))}")
-    thin["spatial_fit_estep_s"] = sfit["estep_s"]
     print(f"[launch_counts] {json.dumps(counts)}")
-    print(f"[thin_estep] {json.dumps(thin)}")
     rows = []
     for name, (src, replaces) in KERNELS.items():
         k = kernels[name] = _with_bound(kernels[name])
@@ -3970,7 +2911,5 @@ if __name__ == "__main__":
         sys.exit(cli_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--xmesh-rank"]:
         sys.exit(xmesh_rank_main(sys.argv[2:]))
-    if sys.argv[1:2] == ["--f64-profile"]:
-        sys.exit(f64_profile_main())
     sys.exit(count_launches_main() if "--count-launches" in sys.argv[1:]
              else main())

@@ -524,7 +524,7 @@ def test_grid_mincut_kernel_matches_plain(dev, shape):
     assert cost(got) == pytest.approx(cost(want), rel=1e-5)
 
 
-@pytest.mark.parametrize("shape", ["ragged", "ragged_x2"])
+@pytest.mark.parametrize("shape", CUT_SHAPES)
 def test_polish_kernel_matches_plain(dev, shape):
     """One cycle of exact expansion moves from the same K1-K3 start on the
     kernels (graph route) and on the plain versions: identical labels and
@@ -983,7 +983,7 @@ def test_icm_graph_matches_host_loop(dev, shape, max_sweeps):
 
 
 @pytest.mark.parametrize("method", ["expansion", "swap"])
-@pytest.mark.parametrize("shape", ["ragged", "ragged_x2"])
+@pytest.mark.parametrize("shape", CUT_SHAPES)
 def test_optimize_graph_route_matches_host_loop(dev, shape, method):
     """``_optimize_batched`` on the graph route against the host loop:
     the same labels, moves, iterations, sweeps and energies; the graph
@@ -1035,15 +1035,16 @@ def _f64(x):
             for k, v in x.items()}
 
 
-@pytest.mark.parametrize("shape", ["ragged", "ragged_x2"])
+@pytest.mark.parametrize("shape", CUT_SHAPES)
 def test_f64_cut_and_bfs_graphs_match_host_loop(dev, shape):
     """The float64 min cut and BFS fixpoint as graphs of captured plain
     units (``plain=True`` on the card) against their host-read plain
     routes: bitwise the same side, distances and counts, twice with
     device allocations between the calls (the graph reads only buffers
-    and the pool it keeps), also capped at max_sweeps = 9; they add to
-    the plain counters, launch no kernel of this package and no kernel
-    graph."""
+    and the pool it keeps), also capped at max_sweeps = 9; a cut without
+    counters launched under ``set_sync_debug_mode("error")`` (no host
+    read, no synchronization); they add to the plain counters, launch no
+    kernel of this package and no kernel graph."""
     import dataclasses
 
     from phylo_hmrf_tpu_torch.ops import loops
@@ -1073,6 +1074,13 @@ def test_f64_cut_and_bfs_graphs_match_host_loop(dev, shape):
         assert dataclasses.replace(sg, host_reads=0) == \
             dataclasses.replace(sh, host_reads=0)
         assert (sg.capped == 1) == (max_sweeps == 9)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = grid_mincut(excess0, cap_t0, caps0, 9, plain=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
     d0 = torch.where(cap_t0 > 1e-6, 1, n).to(torch.int32).contiguous()
     for _ in range(2):
         sg, sh = CutStats(), CutStats()

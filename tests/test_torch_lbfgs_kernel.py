@@ -312,11 +312,15 @@ def test_fused_solve_is_deterministic_counted_and_reads_nothing(dev):
 
 
 @pytest.mark.cuda
-def test_tree_above_the_caps_takes_the_graph_route(dev):
+@pytest.mark.parametrize("solve", ["mstep", "init"])
+def test_tree_above_the_caps_takes_the_graph_route(dev, solve):
     """A 9-leaf tree (above the kernel's 8) solves through
     ``GraphSolve``: one captured solve in the model's dict, no kernel
-    launch, and the result bitwise the plain driver's."""
-    from phylo_hmrf_tpu_torch.models.hmrf import _mstep_solve_full
+    launch, and the result bitwise the plain driver's. The init's solve
+    reads the rows' flags once a chunk to stop early: bitwise the same
+    as replaying every chunk."""
+    from phylo_hmrf_tpu_torch.models.hmrf import (_init_solve,
+                                                  _mstep_solve_full)
 
     tree = _star(9)
     assert lbfgs.solve_route(tree.n_nodes, tree.n_leaves, torch.float32,
@@ -325,12 +329,25 @@ def test_tree_above_the_caps_takes_the_graph_route(dev):
                                         n_per=500)
     kw = dict(tt=tree_tensors(tree, dev, torch.float32), lo=LO, hi=HI,
               iters=20)
-    args = (p0, post, obs, obs2, n, LAMBDA_0, MIN_COVAR)
+    if solve == "mstep":
+        fn, args = _mstep_solve_full, (p0, post, obs, obs2, n, LAMBDA_0,
+                                       MIN_COVAR)
+    else:
+        fn = _init_solve
+        args = (p0, obs / post[:, None], obs2 / post[:, None, None],
+                MIN_COVAR)
     before = lbfgs.fused_ou_solve.launches
     graphs = {}
-    out = _mstep_solve_full(*args, graphs=graphs, **kw)
-    plain = _mstep_solve_full(*args, **kw)
+    out = fn(*args, graphs=graphs, **kw)
+    plain = fn(*args, **kw)
     assert len(graphs) == 1 and lbfgs.fused_ou_solve.launches == before
-    assert plain[4] is None and out[4] is None   # no step counts
-    for a, b in zip(plain[:4], out[:4]):
+    if solve == "mstep":
+        assert plain[4] is None and out[4] is None   # no step counts
+        plain, out = plain[:4], out[:4]
+    else:
+        (captured,) = graphs.values()
+        every = captured(*args[:3], early_exit=False)
+        for a, b in zip(every, out):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    for a, b in zip(plain, out):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
