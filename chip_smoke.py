@@ -11,21 +11,26 @@ This script holds what neither does, in this order, one line a phase:
 
 - ``[build]``, ``[ptxas]``: the nvcc build of ``phylo_hmrf_tpu_torch/csrc``
   and each kernel's registers, shared memory and spills.
-- The kernel table: K1-K8, L, M1 and M2 each timed alone at the shapes of
-  the fits (K1-K4 at chr21: R=1, K=10, H=672, W=768, F=4, and at K=30;
+- The kernel table: K1-K8, L, M1, M2 and KM each timed alone at the
+  shapes of the fits (K1-K4 at chr21: R=1, K=10, H=672, W=768, F=4, and
+  at K=30;
   K5/K6 on the chr21 expansion move with the most pixels in play; K7/K8
   on the spatial fit's 4 x 6 x 768 off-diagonal shards and on 4 816-row
   shards of a 10 kb region; K3/K4 at 10 kb; L on the ``[pipeline]`` fit's
   first M-step solve; M1/M2 on the first swap move of a ``swap_tpu``
-  fit): device ms of one unit (launches queued behind a sleep), call ms,
-  the plain version's ms, max abs error against it, the least time of
-  the unit's bytes and operations (``bench_port/roofline.py``), launches
-  per unit and units per fit. K5/K6 also hold their loop word against
+  fit; KM on the chr21 samples, 213,531 x 4): device ms of one unit
+  (launches queued behind a sleep), call ms, the plain version's ms, max
+  abs error against it, the least time of the unit's bytes and
+  operations (``bench_port/roofline.py``), launches per unit and units
+  per fit. K5/K6 also hold their loop word against
   the plain result and a stopped launch passing its input through; L
   holds 5 float64 steps of the M-step and init solves within 1e-9 of the
   plain driver and their whole float32 and float64 solves by loss
   against its one-ulp twins; M1 is bitwise ``_swap_graph`` /
   ``_expansion_graph`` for every pair and expansion of that move set.
+- ``[kmeans]``: KM1's k-means++ picks bitwise the plain seeding's from
+  the same draws, and a whole ``kmeans`` call on the kernel route with
+  the plain version's centers and labels.
 - ``[mincut]``, ``[estep]``: the whole min cut and the chr21 E-step on
   the kernel route against the plain route, on the kernel table's
   operands: the same cut and work; labels, statistics and costs within
@@ -37,8 +42,9 @@ This script holds what neither does, in this order, one line a phase:
   ``swap_tpu`` E-step against the C++ expansion and swap of
   ``phylo_hmrf_tpu_torch.native``, energy within 0.1%.
 - ``[fit]``: the default-config chr21 fit (5 iterations): K1-K6 and L
-  launched, ``cost1 == pairwise + unary``, the ``.mat`` round trip, the
-  polish lowering the energy; its SHA-256 digests.
+  launched, its init's k-means one KM1 and one KM2/KM3 launch, ``cost1
+  == pairwise + unary``, the ``.mat`` round trip, the polish lowering the
+  energy; its SHA-256 digests.
 - ``[postprocess]``: smoothing, state files, the PNG and the comparisons
   on the ``[fit]`` output.
 - ``[pipeline]``: the same fit with ``em_pipeline`` True and False, both
@@ -109,6 +115,10 @@ KERNELS = {
                       "none (phylo_hmrf_tpu/ops/maxflow_tpu.py:273, :357)"),
     "M2_move_apply": ("phylo_hmrf_tpu_torch/csrc/moves.cu",
                       "none (phylo_hmrf_tpu/ops/maxflow_tpu.py:471, :495)"),
+    # the init's k-means: KM1 and KM2/KM3, a launch each; no TPU kernel:
+    # the JAX package's k-means is a vmapped program that XLA compiles
+    "KM_kmeans": ("phylo_hmrf_tpu_torch/csrc/kmeans.cu",
+                  "none (phylo_hmrf_tpu/ops/kmeans.py:73)"),
 }
 
 SHARDS = 4   # shards of the multi-device phases
@@ -1342,6 +1352,77 @@ def moves_rows(tree, region, state, device):
     return rows
 
 
+def kmeans_row(X, K, n_init=10, n_iters=100, pp_subsample=65536,
+               seeds=(0, 2718281911)):
+    """``[kmeans]`` and KM's kernel row on the samples ``X`` (N, F) with a
+    fit's defaults. For each seed, KM1's picks are bitwise `_seed_plain`'s
+    from the same draws, every trial; the whole ``kmeans`` call has
+    `kmeans_plain`'s centers and labels, bitwise, and its inertia within
+    1e-6 relative. The row's unit is KM1 and KM2/KM3 from one call's
+    draws; call_ms the whole call, the draws included. Its bound: the
+    distance operations (3 F a sample, center and trial in each of the
+    ``n_iters`` steps and KM3's inertia pass, and in the best trial's
+    labels; 3 F a subsample point and k-means++ draw) and the bytes of X
+    read once a pass, each trial's subsample once, the labels written."""
+    import torch
+
+    from phylo_hmrf_tpu_torch.ops import kmeans as km
+
+    dev = X.device
+    n, F = X.shape
+    m = min(n, pp_subsample)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    rec = dict(N=n, F=F, K=K, n_init=n_init, n_iters=n_iters)
+    err = 0.0
+    for seed in seeds:
+        draws = km._draws(gen(seed), n, m, K, n_init, dev)
+        got = km._seed_kernel(X, *draws, K)
+        perm, first, u = draws
+        for t in range(n_init):
+            want = km._seed_plain(X, None if perm is None else perm[t],
+                                  first[t], u[t], K)
+            _check(torch.equal(got[t], want),
+                   f"KM1: seed {seed} trial {t} picks differ from the plain "
+                   f"seeding's")
+        route = km.kmeans_route(dev, X.dtype, F, K, n_init)
+        c, lab, inertia = km.kmeans(gen(seed), X, K, n_iters, n_init,
+                                    pp_subsample)
+        pc, plab, pin = km.kmeans_plain(gen(seed), X, K, n_iters, n_init,
+                                        pp_subsample)
+        rel = abs(float(inertia) - float(pin)) / abs(float(pin))
+        _check(route == "kernel", f"k-means on the {route} route")
+        _check(torch.equal(c, pc) and torch.equal(lab, plab),
+               f"KM2/KM3 at seed {seed}: centers {_max_abs(c, pc)} from "
+               f"the plain ones, {int((lab != plab).sum())} labels differ")
+        _check(rel <= 1e-6, f"KM3's inertia {rel} (rel) from the plain one")
+        err = max(err, _max_abs(inertia, pin))
+        rec[f"seed_{seed}"] = dict(inertia=float(inertia),
+                                   inertia_rel_err=rel)
+    draws = km._draws(gen(seeds[0]), n, m, K, n_init, dev)
+    before = km.kmeans.kernel_launches
+    km.kmeans(gen(seeds[0]), X, K, n_iters, n_init, pp_subsample)
+    per_call = km.kmeans.kernel_launches - before
+    _check(per_call == 2, f"KM: {per_call} launches a call")
+    passes = n_init * (n_iters + 1) + 1
+    row = _with_bound(dict(
+        max_abs_err=err,
+        ms=_time_ms(lambda: km._lloyd_kernel(
+            X, km._seed_kernel(X, *draws, K), n_iters), queued=True),
+        call_ms=_time_ms(lambda: km.kmeans(gen(seeds[0]), X, K, n_iters,
+                                           n_init, pp_subsample)),
+        plain_ms=_time_ms(lambda: km.kmeans_plain(
+            gen(seeds[0]), X, K, n_iters, n_init, pp_subsample), reps=1),
+        launches_per_unit=per_call,
+        nbytes=4 * F * (n * (n_iters + 2) + n_init * m) + 4 * n,
+        ops=3 * F * (passes * n * K + n_init * m * (K - 1)),
+        unit=f"one k-means call, N={n}, F={F}, K={K}, {n_init} trials of "
+             f"{n_iters} steps, from its draws; max_abs_err: the inertia"))
+    return rec, row
+
+
 def check_host_swap(device, h0=HOST_SWAP_H0, beta=1.0, beta1=0.5,
                     min_covar=1e-3):
     """``[host_swap]``: one E-step of the host ``swap`` labeler (the C++
@@ -2116,14 +2197,18 @@ def spatial_fit(mesh, device, max_iter=3):
     """The default config over the mesh in ``shard_mode="spatial"`` on
     `spatial_problem`. Its first E-step is held against the single-device
     E-step from the same state, then it fits. Returns (result, model,
-    launches, grids, E-step record, truth, the state it started from)."""
+    launches (the fit's, and KM's in the probe's init), grids, E-step
+    record, truth, the state it started from)."""
     from phylo_hmrf_tpu_torch import PhyloHMRF
     from phylo_hmrf_tpu_torch.convert import export_state, import_state
+    from phylo_hmrf_tpu_torch.ops.kmeans import kmeans
 
     tree, regions, cfg, truth = spatial_problem(max_iter)
     probe = PhyloHMRF(tree, regions, cfg, mesh=mesh)
     _check(probe._spatial, "the meshed model is not in spatial mode")
+    km0 = kmeans.kernel_launches
     probe.initialize()
+    km_launches = kmeans.kernel_launches - km0
     state = export_state(probe)
     single = PhyloHMRF(tree, regions, cfg, device=device)
     import_state(single, state)
@@ -2133,7 +2218,8 @@ def spatial_fit(mesh, device, max_iter=3):
                          "spatial fit's first E-step")
     rec["shard_rows"] = [r.shape[0] // mesh.size for r in regions]
     run = fit_model(tree, regions, cfg, mesh=mesh, state=state)
-    return (run.res, run.model, run.launches, run.grids, rec, truth, state)
+    return (run.res, run.model, dict(run.launches, KM_kmeans=km_launches),
+            run.grids, rec, truth, state)
 
 
 CLI_FLAGS = ["-n", "10", "-p", "input", "--chromvec", "21", "--miter", "5",
@@ -2152,6 +2238,7 @@ def check_cli():
 
     from phylo_hmrf_tpu_torch import cli, native
     from phylo_hmrf_tpu_torch.data import filters
+    from phylo_hmrf_tpu_torch.ops.kmeans import kmeans
     from phylo_hmrf_tpu_torch.synth import CHR21_H0, write_example
 
     n_samples = CHR21_H0 * (CHR21_H0 + 1) // 2
@@ -2168,11 +2255,13 @@ def check_cli():
             fn.launches = 0
         in_graphs = _graph_kernels()
         fills = filters.hole_fill.calls
+        km0 = kmeans.kernel_launches
         t0 = time.perf_counter()
         out_file = cli.main(CLI_FLAGS)
         wall = time.perf_counter() - t0
         launches = _add_graph_kernels(
             {k: fn.launches for k, fn in counters.items()}, in_graphs)
+        launches["KM_kmeans"] = kmeans.kernel_launches - km0
         fills = filters.hole_fill.calls - fills
         for name in list(KERNELS)[:6]:
             _check(launches[name] > 0,
@@ -2641,7 +2730,8 @@ def check_xmesh(estep_rec, fit_res, fit_grids, state, one_process,
                 _check(r["estep"]["launches"][k] > 0,
                        f"[xmesh] rank {i}: the 10 kb E-step never "
                        f"launched {k}")
-            for k in KERNELS:
+            # KM is the init's, which a fit from a state skips
+            for k in list(KERNELS)[:-1]:
                 _check(r["fit"]["launches"][k] > 0,
                        f"[xmesh] rank {i}: the spatial fit never launched "
                        f"{k}")
@@ -2669,6 +2759,7 @@ def main() -> int:
         return 1
     from phylo_hmrf_tpu_torch import PhyloHMRFConfig, _build
     from phylo_hmrf_tpu_torch.parallel.mesh import make_mesh
+    from phylo_hmrf_tpu_torch.ops.kmeans import kmeans
     from phylo_hmrf_tpu_torch.ops.maxflow import _start_batch
     from phylo_hmrf_tpu_torch.ops.mf_kernels import mean_field_kmajor
     from phylo_hmrf_tpu_torch.synth import chr21_problem, kernel_inputs
@@ -2734,12 +2825,21 @@ def main() -> int:
     print(f"[oracle] K=20 {json.dumps(oracle20)}")
     del x20, start20
 
+    km_rec, kernels["KM_kmeans"] = kmeans_row(torch.as_tensor(
+        region.flat_values(), dtype=torch.float32, device=dev), K)
+    print(f"[kmeans] {json.dumps(km_rec)}")
+    print(_point_line("KM_kmeans", kernels["KM_kmeans"]))
+
     # the main path: the default single-device fit
+    kmeans.kernel_launches = 0
     t0 = time.perf_counter()
     run = fit_model(tree, [region],
                     PhyloHMRFConfig(n_states=10, max_iter=5, seed=0),
                     device=dev)
     fit_s = time.perf_counter() - t0
+    run.launches["KM_kmeans"] = kmeans.kernel_launches
+    _check(run.launches["KM_kmeans"] == 2,
+           f"the fit's init launched KM {kmeans.kernel_launches} times")
     res, model = run.res, run.model
     for name in list(KERNELS)[:6]:
         _check(run.launches[name] > 0,

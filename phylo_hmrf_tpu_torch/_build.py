@@ -195,6 +195,16 @@ _SIGNATURES = {
                            _F, _F, _F, _F, _P, _P, _P, _I, _P],
     "phmrf_lbfgs_ou_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D,
                            _D, _D, _D, _D, _P, _P, _P, _I, _P],
+    # KM1 (kmeans.cu): X, perm (may be null), first, u, N, m, F, K, T,
+    #     xsub (may be null), d2, centers, stream
+    "phmrf_kmeans_seed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                          _P],
+    # blocks of KM2's cooperative grid: N, F, K, T
+    "phmrf_kmeans_grid": [_I, _I, _I, _I],
+    # KM2 and KM3: X, N, F, K, T, n_iters, grid, centers, part, ipart,
+    #     out centers, labels, out inertia, barrier word, stream
+    "phmrf_kmeans_lloyd": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                           _P, _P, _P],
     # executable graph, stream
     "phmrf_graph_launch": [_P, _P],
     "phmrf_graph_destroy": [_P],

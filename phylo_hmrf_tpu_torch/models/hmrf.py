@@ -587,8 +587,7 @@ class PhyloHMRF:
         X, init_slices = self._init_arrays()
         K, P = self.n_states, self.n_params
         X_dev = self._dev(X, torch.float32)
-        with span("kmeans"):
-            centers_d, labels_d, _ = kmeans(self._gen, X_dev, K)
+        centers_d, labels_d, _ = kmeans(self._gen, X_dev, K)
         xbar_d, xxT_d, cnt_d = _init_cluster_stats(X_dev.to(self._dtype),
                                                    labels_d, K)
         # host RNG draws in the reference order: params first, then one

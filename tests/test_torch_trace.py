@@ -177,6 +177,23 @@ def test_traced_cpu_fit_has_the_fit_spans():
     np.testing.assert_array_equal(res.cost_vec, res_off.cost_vec)
 
 
+def test_kmeans_span_has_its_route_and_launches():
+    """The traced fit's ``kmeans`` span, inside ``init``, names its route
+    (the plain version on the CPU) and counts its launches of the k-means
+    kernels: none on the plain route, and ``kmeans.kernel_launches`` does
+    not move."""
+    from phylo_hmrf_tpu_torch.ops.kmeans import kmeans
+
+    n0 = kmeans.kernel_launches
+    model, _ = _fit(trace=True)
+    tr = model.timer
+    (sp,) = [s for s in tr.spans if s.name == "kmeans"]
+    assert tr.spans[sp.parent].name == "init"
+    assert sp.counts["route"] == "plain"
+    assert sp.counts["launches"] == 0
+    assert kmeans.kernel_launches == n0
+
+
 def test_exact_labeler_fit_has_moves_with_waits():
     """``swap_tpu``: every E-step holds a ``moves`` pass whose host reads
     are its ``wait`` children, counted with the pass's cycles and cut
